@@ -1,0 +1,168 @@
+"""Serving API of the port: a fixed-bucket image matcher (counterpart of
+casmtr_tpu/serving.py).
+
+Every image is resized so its long side fits a square ``bucket`` canvas
+(df-divisible), padded bottom-right and masked; keypoints come back in the
+original image's pixel coordinates.  Image paths and checkpoints are not
+ported yet (ROADMAP queue A: eval, CLIs and checkpoints): inputs are
+arrays and the weights are random from a seed, or loaded afterwards with
+``casmtr_tpu_torch.weights.load_jax_variables(matcher.model, ...)``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from casmtr_tpu_torch.config import Config, override
+from casmtr_tpu_torch.configs import build_config
+from casmtr_tpu_torch.models import build_model
+from casmtr_tpu_torch.weights import init_random_
+
+
+class MatchResult(NamedTuple):
+    """Matches for one pair, in original image pixel coordinates."""
+    mkpts0: np.ndarray  # [N, 2] (x, y) in image0
+    mkpts1: np.ndarray  # [N, 2] (x, y) in image1
+    mconf: np.ndarray   # [N]
+
+
+def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+    """``None`` means the card ("cuda"); a CUDA device without CUDA raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available: the port runs on the "
+                           "card; pass device='cpu' to run on the CPU")
+    return dev
+
+
+def _to_rgb_array(img: np.ndarray) -> np.ndarray:
+    """[H, W] gray, [H, W, 3] RGB or [H, W, 4] RGBA (alpha dropped); uint8 in
+    [0, 255] or float (rescaled if it looks like a 0-255 range)."""
+    arr = np.asarray(img)
+    if arr.ndim == 2:
+        arr = np.repeat(arr[:, :, None], 3, axis=2)
+    elif arr.ndim == 3 and arr.shape[2] == 4:
+        arr = arr[:, :, :3]
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"expected [H,W], [H,W,3] or [H,W,4], got {arr.shape}")
+    if arr.dtype == np.uint8:
+        return arr.astype(np.float32) / 255.0
+    arr = arr.astype(np.float32)
+    if arr.max(initial=0.0) > 1.5:
+        arr = arr / 255.0
+    return arr
+
+
+class Matcher:
+    """Image matcher at a fixed canvas size.
+
+    model: recipe name (casmtr_tpu_torch.configs.MODEL_RECIPES) or a Config.
+    bucket: square canvas side; every input is resized (long side) and
+        padded to it.
+    df: size divisor of the resized image (backbone stride alignment).
+    thr: confidence threshold applied to the returned matches.
+    overrides: optional config override dict (applied last).
+    device: where the model runs; None means "cuda", which raises when CUDA
+        is absent.  Pass "cpu" to run on the CPU.
+    seed / generator: the random weights are drawn from ``generator`` or, if
+        none is given, from a CPU generator seeded with ``seed``.
+
+    The forward computes in float32.  On the card this class turns TF32 off
+    for matrix products and cuDNN convolutions, so the numbers are those of
+    full float32, and turns cuDNN's autotuner on: every request has the
+    bucket's shapes, so the first one pays the tuning and the rest reuse its
+    choices.  Without it, cuDNN's heuristic gave the Twins FPN's 3x3
+    256->128 conv at 208^2 an FFT algorithm that took about 320 ms on an
+    H100, against under 2 ms autotuned (chip_smoke.py, profile phase).
+    All three are process-wide PyTorch flags.
+    """
+
+    def __init__(self, model: Union[str, Config] = "outdoor_casmtr_4c",
+                 bucket: int = 832, df: int = 64, thr: float = 0.2,
+                 overrides: Optional[Dict] = None, device=None, seed: int = 0,
+                 generator: Optional[torch.Generator] = None):
+        cfg = build_config(model) if isinstance(model, str) else model
+        if overrides:
+            cfg = override(cfg, overrides)
+        self.cfg = cfg
+        self.bucket = int(bucket)
+        self.df = int(df)
+        if self.bucket < self.df or self.bucket % self.df != 0:
+            raise ValueError(f"bucket {bucket} must be a multiple of df {df}")
+        self.thr = float(thr)
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cudnn.benchmark = True
+        self.model = build_model(cfg.loftr)
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        init_random_(self.model, generator)
+        self.model.to(self.device).eval()
+
+    def _preprocess(self, img: np.ndarray):
+        """Resize the long side into the bucket (df-divisible), pad
+        bottom-right.  Returns (canvas [S, S, 3], mask [S, S] bool, scale [2]
+        original px per model px).  The resize, when one is needed, is
+        torch's bilinear interpolation (align_corners=False), not OpenCV's
+        resampler, so resized inputs differ slightly from the JAX package's
+        cv2-based path."""
+        arr = _to_rgb_array(img)
+        h, w = arr.shape[:2]
+        s = self.bucket / max(h, w)
+        w_new = max(self.df, int(round(w * s)) // self.df * self.df)
+        h_new = max(self.df, int(round(h * s)) // self.df * self.df)
+        if (h_new, w_new) != (h, w):
+            t = torch.from_numpy(arr).permute(2, 0, 1)[None]
+            t = F.interpolate(t, size=(h_new, w_new), mode="bilinear",
+                              align_corners=False)
+            arr = t[0].permute(1, 2, 0).numpy()
+        S = self.bucket
+        canvas = np.zeros((S, S, 3), np.float32)
+        canvas[:h_new, :w_new] = arr
+        mask = np.zeros((S, S), bool)
+        mask[:h_new, :w_new] = True
+        return canvas, mask, np.array([w / w_new, h / h_new], np.float32)
+
+    def _pack(self, pairs: Sequence[Tuple[np.ndarray, np.ndarray]]):
+        cols: Dict[str, List[np.ndarray]] = {
+            k: [] for k in ("image0", "image1", "mask0", "mask1", "scale0",
+                            "scale1")}
+        for img0, img1 in pairs:
+            for i, img in ((0, img0), (1, img1)):
+                canvas, mask, scale = self._preprocess(img)
+                cols[f"image{i}"].append(canvas)
+                cols[f"mask{i}"].append(mask)
+                cols[f"scale{i}"].append(scale)
+        return {k: torch.from_numpy(np.stack(v)).to(self.device)
+                for k, v in cols.items()}
+
+    def match(self, img0: np.ndarray, img1: np.ndarray) -> MatchResult:
+        """Match one pair of any sizes."""
+        return self.match_batch([(img0, img1)])[0]
+
+    def match_batch(self, pairs: Sequence[Tuple[np.ndarray, np.ndarray]]
+                    ) -> List[MatchResult]:
+        """Match B pairs in one forward.  Selection is one top-(B*M) by
+        confidence across the batch (every capacity scaled by B), so per-pair
+        results equal the single-pair ones while no pair saturates the
+        config's ``max_matches``."""
+        if not pairs:
+            return []
+        batch = self._pack(pairs)
+        with torch.inference_mode():
+            fm = self.model(batch, capacity_scale=len(pairs)).final_matches
+        out = {k: getattr(fm, k).cpu().numpy()
+               for k in ("b_ids", "mkpts0", "mkpts1", "mconf", "valid")}
+        keep = out["valid"] & (out["mconf"] >= self.thr)
+        results = []
+        for b in range(len(pairs)):
+            sel = keep & (out["b_ids"] == b)
+            results.append(MatchResult(out["mkpts0"][sel], out["mkpts1"][sel],
+                                       out["mconf"][sel]))
+        return results

@@ -1,0 +1,58 @@
+"""Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
+tiny CasMTR-4c configuration built in both packages, and flax variables made
+non-trivial and handed to the port as nested dicts of numpy arrays."""
+
+import jax
+import numpy as np
+
+
+def tiny_4c_overrides(train_size: int = 128, zero_thresholds: bool = False):
+    """``__graft_entry__._flagship_cfg(train_size)`` with
+    ``_tiny_model_overrides((4,))`` on top (the full 4c wiring at tiny
+    widths); ``zero_thresholds`` lets every stage yield matches."""
+    loftr = {
+        "train_size": train_size,
+        "backbone": {"backbone_type": "Twins", "model_type": "small",
+                     "initial_dim": 8, "block_dims": [8, 12, 16],
+                     "refine_dims": [8, 12, 16]},
+        "coarse": {"d_model": 16, "nhead": 2, "topks": [4, 4, 4],
+                   "layer_names": ["self", "cross"]},
+        "coarse2": {"d_model": 12, "nhead": 2, "window_size": 3,
+                    "attn_window_size": 3,
+                    "layer_names": ["cross", "self", "cross"]},
+        "fine": {"d_model": 8, "nhead": 2},
+        "match_coarse": {"max_matches": 16},
+        "match_cascade": {"train_pad_num_gt_min": [16], "max_matches": [32]},
+    }
+    if zero_thresholds:
+        loftr["match_coarse"]["thr"] = 0.0
+        loftr["match_cascade"].update(test_thr=[0.0], pre_thr=[[0.0]])
+    return {"loftr": loftr}
+
+
+def configs(overrides):
+    """The same recipe built by both packages: (jax_cfg, torch_cfg)."""
+    from casmtr_tpu.configs import build_config as jax_build
+    from casmtr_tpu_torch.configs import build_config as torch_build
+    return (jax_build("outdoor_casmtr_4c", overrides=overrides),
+            torch_build("outdoor_casmtr_4c", overrides=overrides))
+
+
+def jitter(variables, seed: int = 0):
+    """Perturb every flax leaf so that no parameter keeps its initial
+    constant (LayerNorm/BatchNorm scales of 1, zero biases, running mean 0
+    and variance 1): a wrong name or layout mapping then shows up in the
+    outputs.  Returns nested dicts of numpy float32 arrays."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(path, x):
+        x = np.asarray(x, np.float32)
+        noise = rng.standard_normal(x.shape).astype(np.float32)
+        if path[-1].key == "var":
+            return 1.0 + 0.2 * np.abs(noise)
+        if path[-1].key == "mean":
+            return 0.1 * noise
+        return x + 0.05 * noise
+
+    return jax.tree_util.tree_map_with_path(
+        leaf, jax.tree_util.tree_map(np.asarray, dict(variables)))
