@@ -11,6 +11,9 @@
 // The arithmetic is the oracle's: scores = (q . k) * scale, a max-shifted
 // softmax over the NC candidates, then the probability-weighted sum of the
 // candidate value rows, divided by the softmax denominator at the end.
+// When `lse` is not null, the log-sum-exp of child f's scaled scores
+// (max + log of the denominator) is written at lse[f * lse_stride]: the
+// backward (child_attention_bwd.cuh) recomputes the probabilities from it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -47,7 +50,7 @@ __device__ inline void child_attention(const float* __restrict__ q,
                                        const int qrow[4], const int* pos,
                                        int NC, int row_stride, int D,
                                        float scale, float* qs, float* s,
-                                       int lane) {
+                                       float* lse, int lse_stride, int lane) {
   for (int i = lane; i < 4 * D; i += kWarp) {
     const int f = i / D;
     qs[i] = q[(size_t)qrow[f] * row_stride + (i - f * D)];
@@ -86,7 +89,9 @@ __device__ inline void child_attention(const float* __restrict__ q,
       sf[c] = e;
       l += e;
     }
-    inv_l[f] = 1.f / warp_sum(l);
+    l = warp_sum(l);
+    inv_l[f] = 1.f / l;
+    if (lse != nullptr && lane == 0) lse[f * lse_stride] = m + logf(l);
   }
   __syncwarp();
 

@@ -40,7 +40,8 @@ namespace casmtr {
 __global__ void __launch_bounds__(kWarpsPerBlock * kWarp)
 quadtree_fine_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const int* __restrict__ ids,
-                     float* __restrict__ out, int B, int P, int K, int H,
+                     float* __restrict__ out,
+                     float* __restrict__ lse, int B, int P, int K, int H,
                      int D, int h0, int w0, int h1, int w1, float scale) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
@@ -77,19 +78,21 @@ quadtree_fine_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const size_t q_off = (size_t)b * h0 * w0 * row_stride + (size_t)h * D;
   const size_t k_off = (size_t)b * h1 * w1 * row_stride + (size_t)h * D;
   float* o = out + (size_t)bp * 4 * row_stride + (size_t)h * D;
+  float* l = lse == nullptr ? nullptr : lse + (size_t)bp * 4 * H + h;
   child_attention(q + q_off, k + k_off, v + k_off, o, qrow, pos, NC,
-                  (int)row_stride, D, scale, qs, s, lane);
+                  (int)row_stride, D, scale, qs, s, l, H, lane);
 }
 
 }  // namespace casmtr
 
 // q [B, h0*w0, H, D], k/v [B, h1*w1, H, D], ids [B, P, K, H] int32 with
-// P = (h0/2)*(w0/2), out [B, P, 4, H, D]; all f32 contiguous on one device.
+// P = (h0/2)*(w0/2), out [B, P, 4, H, D], lse [B, P, 4, H] or null (written
+// only when a gradient will be needed); all f32 contiguous on one device.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int casmtr_quadtree_fine_attention_f32(
     const float* q, const float* k, const float* v, const int* ids, float* out,
-    int B, int P, int K, int H, int D, int h0, int w0, int h1, int w1,
-    float scale, void* stream) {
+    float* lse, int B, int P, int K, int H, int D, int h0, int w0, int h1,
+    int w1, float scale, void* stream) {
   using namespace casmtr;
   size_t smem = 0;
   cudaError_t err =
@@ -101,6 +104,6 @@ extern "C" int casmtr_quadtree_fine_attention_f32(
   if (blocks == 0) return (int)cudaSuccess;
   quadtree_fine_kernel<<<blocks, kWarpsPerBlock * kWarp, smem,
                          static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, ids, out, B, P, K, H, D, h0, w0, h1, w1, scale);
+      q, k, v, ids, out, lse, B, P, K, H, D, h0, w0, h1, w1, scale);
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,8 @@ window_attention_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ corners,
-                        float* __restrict__ out, int B, int P, int H, int D,
+                        float* __restrict__ out,
+                        float* __restrict__ lse, int B, int P, int H, int D,
                         int h0, int w0, int h1, int w1, int w, float scale) {
   extern __shared__ float smem[];
   const int warp = threadIdx.x / kWarp;
@@ -76,19 +77,21 @@ window_attention_kernel(const float* __restrict__ q,
   const size_t q_off = (size_t)b * h0 * w0 * row_stride + (size_t)h * D;
   const size_t k_off = (size_t)b * h1 * w1 * row_stride + (size_t)h * D;
   float* o = out + (size_t)bp * 4 * row_stride + (size_t)h * D;
+  float* l = lse == nullptr ? nullptr : lse + (size_t)bp * 4 * H + h;
   child_attention(q + q_off, k + k_off, v + k_off, o, qrow, pos, NC,
-                  (int)row_stride, D, scale, qs, s, lane);
+                  (int)row_stride, D, scale, qs, s, l, H, lane);
 }
 
 }  // namespace casmtr
 
 // q [B, h0*w0, H, D], k/v [B, h1*w1, H, D], corners [B, P, 2] int32 (y, x)
-// on the half key grid with P = (h0/2)*(w0/2), out [B, P, 4, H, D]; all f32
+// on the half key grid with P = (h0/2)*(w0/2), out [B, P, 4, H, D], lse
+// [B, P, 4, H] or null (written only when a gradient will be needed); all f32
 // contiguous on one device.  Returns the cudaError_t of the launch.
 extern "C" int casmtr_window_cross_attention_f32(
     const float* q, const float* k, const float* v, const int* corners,
-    float* out, int B, int P, int H, int D, int h0, int w0, int h1, int w1,
-    int w, float scale, void* stream) {
+    float* out, float* lse, int B, int P, int H, int D, int h0, int w0,
+    int h1, int w1, int w, float scale, void* stream) {
   using namespace casmtr;
   size_t smem = 0;
   cudaError_t err =
@@ -101,6 +104,6 @@ extern "C" int casmtr_window_cross_attention_f32(
   if (blocks == 0) return (int)cudaSuccess;
   window_attention_kernel<<<blocks, kWarpsPerBlock * kWarp, smem,
                             static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, corners, out, B, P, H, D, h0, w0, h1, w1, w, scale);
+      q, k, v, corners, out, lse, B, P, H, D, h0, w0, h1, w1, w, scale);
   return (int)cudaGetLastError();
 }

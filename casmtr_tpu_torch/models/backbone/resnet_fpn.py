@@ -5,7 +5,9 @@ not ported yet (ROADMAP queue A: ResNetFPN_8_4_2)."""
 
 from __future__ import annotations
 
+import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 
 def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
@@ -17,8 +19,29 @@ def conv3x3(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
                      bias=False)
 
 
-def bn(planes: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(planes, eps=1e-5)
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's (flax's) running statistics.  In
+    training it normalizes with the batch statistics as torch's does, but
+    moves the running variance toward the BIASED batch variance (flax's
+    momentum 0.9 on the running value is torch's 0.1 on the batch value);
+    torch's own module moves it toward the unbiased one.  Eval mode is
+    torch's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+def bn(planes: int) -> BatchNorm2d:
+    return BatchNorm2d(planes, eps=1e-5)
 
 
 def out_conv2(mid: int, out: int) -> nn.Sequential:

@@ -1,7 +1,10 @@
-"""CasMTR-4c eval forward (counterpart of casmtr_tpu/models/casmtr.py for
-``cascade_levels=(4,)``): backbone pyramid -> 1/8 quadtree transformer +
-dual-softmax -> UpBlock fusion -> 1/4 cascade transformer + window matching
--> fine sub-pixel refinement.  Computes in float32."""
+"""CasMTR-4c forward in eval and train mode (counterpart of
+casmtr_tpu/models/casmtr.py for ``cascade_levels=(4,)``): backbone pyramid
+-> 1/8 quadtree transformer + dual-softmax -> UpBlock fusion -> 1/4 cascade
+transformer + window matching -> fine sub-pixel refinement.  Computes in
+float32.  ``module.training`` selects the mode: in training BatchNorm uses
+batch statistics and the 1/4 matches are the ground-truth-filtered ones
+that the loss supervises."""
 
 from __future__ import annotations
 
@@ -44,8 +47,8 @@ class UpBlock(nn.Module):
 
 
 def _check_ported(cfg: LoftrConfig) -> None:
-    """Raise NotImplementedError for config branches the 4c eval path does
-    not take (the submodules check their own)."""
+    """Raise NotImplementedError for config branches the 4c path does not
+    take (the submodules check their own)."""
     if tuple(cfg.cascade_levels) != (4,):
         raise NotImplementedError(
             f"cascade_levels {tuple(cfg.cascade_levels)}: only CasMTR-4c is "
@@ -58,10 +61,14 @@ def _check_ported(cfg: LoftrConfig) -> None:
     if cfg.fine.block_type != "loftr":
         raise NotImplementedError(
             f"fine block {cfg.fine.block_type!r} is not ported yet")
+    if cfg.coarse2.detector_mode is not None:
+        raise NotImplementedError(
+            "the keypoint detector branch is not ported yet (ROADMAP queue "
+            "A: the indoor recipe)")
 
 
 class CasMTR(nn.Module):
-    """Cascade matching transformer, CasMTR-4c, eval mode only."""
+    """Cascade matching transformer, CasMTR-4c."""
 
     def __init__(self, config: LoftrConfig):
         super().__init__()
@@ -83,14 +90,14 @@ class CasMTR(nn.Module):
                 capacity_scale: int = 1) -> MatchOutput:
         """batch: image0/image1 [B, H, W, 3] RGB in [0, 1]; optional
         mask0/mask1 [B, H, W] (True = valid) and scale0/scale1 [B, 2]
-        (original pixels per model pixel).  ``capacity_scale`` multiplies
-        every fixed match capacity (a batch of B pairs shares one selection,
-        so a B-pair forward passes B)."""
-        if self.training:
-            raise NotImplementedError(
-                "CasMTR: only the eval forward is ported (ROADMAP queue A: "
-                "the training slice); call .eval() first")
+        (original pixels per model pixel).  In training the batch also holds
+        the 1/4 ground truth gt_idx_4c / gt_mask_4c [B, L0]
+        (train.supervision.compute_supervision) and optionally a selection
+        priority_4c [B, L0].  ``capacity_scale`` multiplies every fixed match
+        capacity in eval (a batch of B pairs shares one selection, so a
+        B-pair forward passes B)."""
         cfg = self.config
+        train = self.training
         ts = cfg.train_size
         img0 = batch["image0"].permute(0, 3, 1, 2)
         img1 = batch["image1"].permute(0, 3, 1, 2)
@@ -159,19 +166,32 @@ class CasMTR(nn.Module):
             t4_0, t4_1, idx_4c01, idx_4c10, mc.dsmax_temperature[0],
             mask_4c0, mask_4c1, corners0=corners01, corners1=corners10,
             hw0=hw0_4c, hw1=hw1_4c, prop_window=cfg.coarse2.window_size)
-        mask4 = cm.cascade_match_mask_test(
-            ws4, hw0_4c, hw1_4c, mc.test_thr[0], mc.border_rm[0],
-            pre_confs=[ds.next_conf_c01], pre_hws=[hw0_8c],
-            pre_thrs=list(mc.pre_thr[0]), post_method=pc.method,
-            post_window=pc.window_size, double_check=mc.double_check[0],
-            mask0_2d=m4_0, mask1_2d=m4_1)
-        matches_4c = cm.extract_cascade_matches(
-            ws4, mask4, hw0_4c, hw1_4c, mc.max_matches[0] * capacity_scale,
-            scale=H0 / hw0_4c[0], scale0=scale0, scale1=scale1)
+        if train:
+            mask4 = cm.cascade_match_mask_train(
+                ws4, mc.thr[0], idx_4c01.shape[-1], hw0_4c, hw1_4c,
+                mc.border_rm[0], mc.double_check[0], m4_0, m4_1)
+            m_cap4 = min(mc.train_pad_num_gt_min[0], mc.max_matches[0])
+        else:
+            mask4 = cm.cascade_match_mask_test(
+                ws4, hw0_4c, hw1_4c, mc.test_thr[0], mc.border_rm[0],
+                pre_confs=[ds.next_conf_c01], pre_hws=[hw0_8c],
+                pre_thrs=list(mc.pre_thr[0]), post_method=pc.method,
+                post_window=pc.window_size, double_check=mc.double_check[0],
+                mask0_2d=m4_0, mask1_2d=m4_1)
+            m_cap4 = mc.max_matches[0] * capacity_scale
+        matches_4c, extras4 = cm.extract_cascade_matches(
+            ws4, mask4, hw0_4c, hw1_4c, m_cap4, scale=H0 / hw0_4c[0],
+            scale0=scale0, scale1=scale1,
+            priority=batch.get("priority_4c"),
+            idx_c01=idx_4c01 if train else None,
+            gt_idx_c01=batch.get("gt_idx_4c") if train else None,
+            gt_mask_c01=batch.get("gt_mask_4c") if train else None)
         cascades = {"4c": CascadeStage(
             ws4.conf01, idx_4c01, idx_4c10, ws4.next_idx_c01,
             ws4.next_idx_c10, ws4.next_conf_c01, ws4.next_conf_c10,
-            matches_4c, hw0_4c, hw1_4c)}
+            matches_4c, hw0_4c, hw1_4c,
+            window_gt_label=extras4.get("window_gt_label"),
+            window_conf=extras4.get("window_conf"))}
 
         # ----- fine sub-pixel stage -----
         Wf = cfg.fine_window_size

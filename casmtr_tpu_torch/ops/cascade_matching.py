@@ -1,8 +1,10 @@
-"""Cascade-level windowed softmax matching, eval path (counterpart of
-casmtr_tpu/ops/cascade_matching.py).
+"""Cascade-level windowed softmax matching (counterpart of
+casmtr_tpu/ops/cascade_matching.py): the eval filtering chain, and the
+training-time thresholding and ground-truth window labels.
 
 The window scores of the structured candidate set go through CUDA kernel B
-on the card (ops/kernels/window_kernels.py).
+on the card, and their gradient through kernel B-bwd
+(ops/kernels/window_kernels.py).
 """
 
 from __future__ import annotations
@@ -49,8 +51,9 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
                             corners1=None, hw0=None, hw1=None,
                             prop_window: int = 0) -> WindowSoftmaxResult:
     """Window-restricted softmax in both directions over the structured
-    candidate windows.  feat0: [B, L0, C]; feat1: [B, L1, C]; idx_c01:
-    [B, L0, Kw]; mask0/1: [B, L] flat padding masks."""
+    candidate windows; the 1->0 direction carries no gradient.  feat0:
+    [B, L0, C]; feat1: [B, L1, C]; idx_c01: [B, L0, Kw]; mask0/1: [B, L]
+    flat padding masks."""
     if corners0 is None or prop_window <= 0:
         raise NotImplementedError(
             "window_softmax_matching: only the structured window candidates "
@@ -69,7 +72,8 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
     sim01 = _structured_score(f0, f1, corners0, hw0, hw1, prop_window)
     sim01 = masked(sim01 / temperature, mask0, mask1, idx_c01)
     conf01 = torch.softmax(sim01, dim=2)
-    sim10 = _structured_score(f1, f0, corners1, hw1, hw0, prop_window)
+    with torch.no_grad():
+        sim10 = _structured_score(f1, f0, corners1, hw1, hw0, prop_window)
     sim10 = masked(sim10 / temperature, mask1, mask0, idx_c10)
     conf10 = torch.softmax(sim10, dim=2)
 
@@ -137,8 +141,16 @@ def cascade_match_mask_test(
                                  window=post_window)
     for pre_conf, pre_hw, pre_thr in zip(pre_confs, pre_hws, pre_thrs):
         mask &= upscale_per_position(pre_conf, pre_hw, hw0) > pre_thr
-    mask &= window_border_ok(ws.next_idx_c01, hw0, hw1, bd, mask0_2d,
+    return _mask_common_tail(ws, mask, hw0, hw1, bd, double_check, mask0_2d,
                              mask1_2d)
+
+
+def _mask_common_tail(ws, mask, hw0, hw1, bd, double_check, mask0_2d,
+                      mask1_2d):
+    """Border mask + cycle double-check + keep-at-least-one, shared by the
+    train and test branches."""
+    mask = mask & window_border_ok(ws.next_idx_c01, hw0, hw1, bd, mask0_2d,
+                                   mask1_2d)
     if double_check:
         L0 = ws.next_idx_c01.shape[1]
         back = torch.gather(ws.next_idx_c10, 1, ws.next_idx_c01)
@@ -146,13 +158,44 @@ def cascade_match_mask_test(
     return keep_at_least_one(mask)
 
 
+def cascade_match_mask_train(ws: WindowSoftmaxResult, thr: float,
+                             n_cands: int, hw0=None, hw1=None, bd: int = 0,
+                             double_check: bool = False, mask0_2d=None,
+                             mask1_2d=None) -> torch.Tensor:
+    """Training-time thresholding: confidences above uniform (1/Kw) when
+    thr > 0, else above thr, then the test path's border / double-check /
+    keep-one tail."""
+    if thr > 0:
+        mask = ws.next_conf_c01 > (1.0 / n_cands)
+    else:
+        mask = ws.next_conf_c01 > thr
+    if hw0 is None:
+        return keep_at_least_one(mask)
+    return _mask_common_tail(ws, mask, hw0, hw1, bd, double_check, mask0_2d,
+                             mask1_2d)
+
+
 def extract_cascade_matches(ws: WindowSoftmaxResult, mask: torch.Tensor,
                             hw0, hw1, m_cap: int, scale: float,
-                            scale0=None, scale1=None) -> Matches:
-    """Fixed-capacity extraction ordered by confidence."""
+                            scale0=None, scale1=None,
+                            priority: Optional[torch.Tensor] = None,
+                            idx_c01: Optional[torch.Tensor] = None,
+                            gt_idx_c01: Optional[torch.Tensor] = None,
+                            gt_mask_c01: Optional[torch.Tensor] = None):
+    """Fixed-capacity extraction ordered by ``priority`` (default: the
+    confidence).  Returns (matches, extras).
+
+    In training (``gt_idx_c01`` given) only positions whose ground-truth
+    target lies inside the candidate window are selected, and ``extras``
+    holds the selected rows' one-hot window labels ``window_gt_label``
+    [M, Kw] and window confidences ``window_conf`` [M, Kw]."""
     B, L0 = ws.next_conf_c01.shape
-    sel, valid = select_topm(mask.reshape(-1), ws.next_conf_c01.reshape(-1),
-                             m_cap)
+    window_gt = None
+    if gt_idx_c01 is not None:
+        window_gt = (gt_idx_c01[..., None] == idx_c01) & gt_mask_c01[..., None]
+        mask = mask & (window_gt.sum(-1) == 1)
+    prio = ws.next_conf_c01 if priority is None else priority
+    sel, valid = select_topm(mask.reshape(-1), prio.reshape(-1), m_cap)
     b_ids = torch.div(sel, L0, rounding_mode="floor")
     i_ids = sel % L0
     j_ids = ws.next_idx_c01.reshape(-1)[sel]
@@ -160,6 +203,13 @@ def extract_cascade_matches(ws: WindowSoftmaxResult, mask: torch.Tensor,
                         torch.zeros((), device=sel.device))
     s0 = scale0[b_ids] if scale0 is not None else None
     s1 = scale1[b_ids] if scale1 is not None else None
-    return Matches(b_ids=b_ids, i_ids=i_ids, j_ids=j_ids, mconf=mconf,
-                   valid=valid, mkpts0=grid_to_pixels(i_ids, hw0[1], scale, s0),
-                   mkpts1=grid_to_pixels(j_ids, hw1[1], scale, s1))
+    matches = Matches(b_ids=b_ids, i_ids=i_ids, j_ids=j_ids, mconf=mconf,
+                      valid=valid,
+                      mkpts0=grid_to_pixels(i_ids, hw0[1], scale, s0),
+                      mkpts1=grid_to_pixels(j_ids, hw1[1], scale, s1))
+    extras = {}
+    if window_gt is not None:
+        Kw = idx_c01.shape[-1]
+        extras["window_gt_label"] = window_gt.reshape(-1, Kw)[sel]
+        extras["window_conf"] = ws.conf01.reshape(-1, Kw)[sel]
+    return matches, extras

@@ -28,8 +28,10 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-SOURCES = ("quadtree_fine.cu", "window_score.cu", "window_attention.cu")
-HEADERS = ("child_attention.cuh", "clip_index.cuh")
+SOURCES = ("quadtree_fine.cu", "window_score.cu", "window_attention.cu",
+           "quadtree_fine_bwd.cu", "window_score_bwd.cu",
+           "window_attention_bwd.cu")
+HEADERS = ("child_attention.cuh", "child_attention_bwd.cuh", "clip_index.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libcasmtr_kernels.so"
@@ -38,15 +40,23 @@ LAUNCHES: Dict[str, int] = {
     "quadtree_fine_attention": 0,
     "window_patch_score": 0,
     "window_cross_attention": 0,
+    "quadtree_fine_attention_bwd": 0,
+    "window_patch_score_bwd": 0,
+    "window_cross_attention_bwd": 0,
 }
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "casmtr_quadtree_fine_attention_f32": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "casmtr_quadtree_fine_attention_f32": [_P] * 6 + [_I] * 9 + [_F, _P],
     "casmtr_window_patch_score_f32": [_P] * 4 + [_I] * 6 + [_P],
-    "casmtr_window_cross_attention_f32": [_P] * 5 + [_I] * 9 + [_F, _P],
+    "casmtr_window_cross_attention_f32": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "casmtr_quadtree_fine_attention_bwd_f32":
+        [_P] * 10 + [_I] * 9 + [_F, _P],
+    "casmtr_window_patch_score_bwd_f32": [_P] * 6 + [_I] * 6 + [_P],
+    "casmtr_window_cross_attention_bwd_f32":
+        [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

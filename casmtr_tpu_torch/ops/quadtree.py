@@ -9,10 +9,11 @@ key blocks (candidate c = k*4 + (dr*2+dc)); the per-level messages merge with
 softmax(level weight).  Token layout [B, L, H, D].
 
 The fine-level messages go through CUDA kernel A on the card
-(ops/kernels/quadtree_kernels.py); the intermediate level's top-k selection
-is plain torch and forward-only, as in the JAX package.  The cascade
-window cross-attention goes through CUDA kernel C
-(ops/kernels/window_kernels.py).
+(ops/kernels/quadtree_kernels.py), and their gradients through kernel
+A-bwd; the intermediate level's top-k selection is plain torch and runs
+without gradient, as in the JAX package (its callers use only the selected
+indices).  The cascade window cross-attention goes through CUDA kernels C
+and C-bwd (ops/kernels/window_kernels.py).
 """
 
 from __future__ import annotations
@@ -115,7 +116,8 @@ def _fine_level_b(q, k, v, topk_idx_prev, topk: int, hw_q: Tuple[int, int],
     msg = quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q, hw_k)
     if not need_topk:
         return msg, None
-    return msg, _gather_select(q, k, topk_idx_prev, topk, hw_q, hw_k)
+    with torch.no_grad():
+        return msg, _gather_select(q, k, topk_idx_prev, topk, hw_q, hw_k)
 
 
 def _merge_messages(messages: List[torch.Tensor],

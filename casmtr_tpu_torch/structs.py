@@ -37,7 +37,8 @@ class CoarseStage(NamedTuple):
 
 
 class CascadeStage(NamedTuple):
-    """Output of a cascade matching level (eval fields only)."""
+    """Output of a cascade matching level; the window labels exist only in
+    training (None in eval)."""
     conf_matrix: torch.Tensor     # [B, L0, Kw] window softmax confidences
     idx_c01: torch.Tensor         # [B, L0, Kw] candidate indices
     idx_c10: torch.Tensor         # [B, L1, Kw]
@@ -48,6 +49,8 @@ class CascadeStage(NamedTuple):
     matches: Matches
     hw0: Tuple[int, int]
     hw1: Tuple[int, int]
+    window_gt_label: Optional[torch.Tensor] = None  # [M, Kw] bool one-hot
+    window_conf: Optional[torch.Tensor] = None      # [M, Kw] f32
 
 
 class FineStage(NamedTuple):
@@ -58,7 +61,7 @@ class FineStage(NamedTuple):
 
 
 class MatchOutput(NamedTuple):
-    """Full eval forward output of CasMTR."""
+    """Full forward output of CasMTR."""
     coarse: CoarseStage
     cascades: Dict[str, CascadeStage]
     fine: Optional[FineStage]

@@ -13,6 +13,11 @@ key:
 * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var; LayerNorm scale -> weight;
 * QTAttB merge logits ``py_att_weight`` -> ``py_att.weight``.
+
+``jax_variables`` is the inverse: it lays torch tensors (parameters,
+running statistics, or gradients by parameter name) out as the nested
+numpy dicts of a given flax variable tree, so the two packages compare
+leaf by leaf.
 """
 
 from __future__ import annotations
@@ -109,6 +114,47 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> None:
             leaf, value = flat[key]
             arr = _to_torch_layout(value, tuple(sd[key].shape), leaf, key)
             sd[key].copy_(torch.from_numpy(arr))
+
+
+def _from_torch_layout(value: np.ndarray, like: np.ndarray, leaf: str,
+                       key: str) -> np.ndarray:
+    """Inverse of ``_to_torch_layout`` for a leaf shaped like ``like``."""
+    v = np.asarray(value)
+    if leaf == "kernel":
+        if v.ndim == 4 and np.ndim(like) == 2:   # 1x1 conv as a Dense
+            v = v[:, :, 0, 0].T
+        elif v.ndim == 4:                        # conv OIHW -> HWIO
+            v = v.transpose(2, 3, 1, 0)
+        elif v.ndim == 2:                        # Linear [O, I] -> [I, O]
+            v = v.T
+    if v.shape != np.shape(like):
+        raise ValueError(f"{key}: torch tensor of shape {np.shape(value)} "
+                         f"does not fit JAX leaf '{leaf}' {np.shape(like)}")
+    return np.ascontiguousarray(v)
+
+
+def jax_variables(tensors: Mapping[str, torch.Tensor], like: Mapping
+                  ) -> Dict:
+    """Torch tensors by ``state_dict`` key (a module's ``state_dict()``, or
+    its gradients by parameter name) laid out as the flax tree ``like``
+    (for instance ``{"params": ..., "batch_stats": ...}``): nested dicts of
+    float32 numpy arrays with the same paths and shapes.  Strict: a leaf of
+    ``like`` with no tensor raises KeyError."""
+
+    def walk(tree: Mapping, path: Tuple[str, ...]) -> Dict:
+        out = {}
+        for name, value in tree.items():
+            if isinstance(value, Mapping):
+                out[name] = walk(value, path + (name,))
+                continue
+            key = flax_path_to_torch_key(path, name)
+            if key not in tensors:
+                raise KeyError(f"no torch tensor for JAX leaf {key}")
+            t = tensors[key].detach().to("cpu", torch.float32).numpy()
+            out[name] = _from_torch_layout(t, value, name, key)
+        return out
+
+    return {col: walk(tree, ()) for col, tree in like.items()}
 
 
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:

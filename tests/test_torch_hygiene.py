@@ -16,8 +16,11 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "casmtr_tpu_torch")
 KERNEL_WRAPPERS = {
-    "quadtree_kernels.py": ("quadtree_fine_attention",),
-    "window_kernels.py": ("window_patch_score", "window_cross_attention"),
+    "quadtree_kernels.py": ("quadtree_fine_attention",
+                            "quadtree_fine_attention_bwd"),
+    "window_kernels.py": ("window_patch_score", "window_cross_attention",
+                          "window_patch_score_bwd",
+                          "window_cross_attention_bwd"),
 }
 
 
