@@ -1,6 +1,6 @@
 def build_model(loftr_config):
-    """Model factory: CasMTR-4c (the only assembly ported so far; the plain
-    QuadtreeLoFTR and PMT refine wait in ROADMAP queue A)."""
+    """Model factory: CasMTR-4c and CasMTR-2c (the assemblies ported so far;
+    the plain QuadtreeLoFTR and PMT refine wait in ROADMAP queue A)."""
     if not loftr_config.cascade:
         raise NotImplementedError(
             "QuadtreeLoFTR (cascade=False) is not ported yet (ROADMAP queue "

@@ -89,7 +89,8 @@ class CascadeFeatureTransformer(nn.Module):
         if config.self_attn_type != "local" and "self" in config.layer_names:
             raise NotImplementedError(
                 f"cascade self-attention {config.self_attn_type!r} is not "
-                "ported yet (ROADMAP queue A: the 2c and indoor recipes)")
+                "ported yet (ROADMAP queue A: the indoor recipe and the "
+                "self-attention zoo)")
         if config.relative_pe or config.detector is not None:
             raise NotImplementedError(
                 "cascade relative PE and the keypoint detector are not "
@@ -99,7 +100,7 @@ class CascadeFeatureTransformer(nn.Module):
         if full_window is not None:
             raise NotImplementedError(
                 f"propagation {config.propagation!r} is not ported yet "
-                "(ROADMAP queue A: the 2c recipe)")
+                "(ROADMAP queue A: the other propagations)")
         self.window = window
         aws = config.attn_window_size or config.window_size
         structured = config.propagation == "window" and config.dilated == 1

@@ -1,10 +1,11 @@
-"""CasMTR-4c forward in eval and train mode (counterpart of
-casmtr_tpu/models/casmtr.py for ``cascade_levels=(4,)``): backbone pyramid
--> 1/8 quadtree transformer + dual-softmax -> UpBlock fusion -> 1/4 cascade
-transformer + window matching -> fine sub-pixel refinement.  Computes in
-float32.  ``module.training`` selects the mode: in training BatchNorm uses
-batch statistics and the 1/4 matches are the ground-truth-filtered ones
-that the loss supervises."""
+"""CasMTR-4c and CasMTR-2c forward in eval and train mode (counterpart of
+casmtr_tpu/models/casmtr.py for ``cascade_levels`` (4,) and (4, 2)):
+backbone pyramid -> 1/8 quadtree transformer + dual-softmax -> per cascade
+level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
+matching -> fine sub-pixel refinement.  Computes in float32.
+``module.training`` selects the mode: in training BatchNorm uses batch
+statistics and each cascade level's matches are the ground-truth-filtered
+ones that the loss supervises."""
 
 from __future__ import annotations
 
@@ -47,41 +48,66 @@ class UpBlock(nn.Module):
 
 
 def _check_ported(cfg: LoftrConfig) -> None:
-    """Raise NotImplementedError for config branches the 4c path does not
-    take (the submodules check their own)."""
-    if tuple(cfg.cascade_levels) != (4,):
+    """Raise NotImplementedError for config branches the 4c and 2c paths do
+    not take (the submodules check their own)."""
+    levels = tuple(cfg.cascade_levels)
+    if levels not in ((4,), (4, 2)):
         raise NotImplementedError(
-            f"cascade_levels {tuple(cfg.cascade_levels)}: only CasMTR-4c is "
-            "ported (ROADMAP queue A: the 2c recipe)")
-    pc = cfg.coarse2.post_config
-    if pc.rt is not None or pc.rd is not None:
+            f"cascade_levels {levels}: only CasMTR-4c (4,) and CasMTR-2c "
+            "(4, 2) are ported")
+    if levels == (4, 2) and cfg.training_stage < 3:
         raise NotImplementedError(
-            "the rt/rd test gates are not ported yet (ROADMAP queue A: "
-            "the 2c recipe)")
+            f"training_stage {cfg.training_stage} of a two-level cascade: "
+            "only the whole 2c model (stage >= 3) is ported")
+    stages = (cfg.coarse2, cfg.coarse3)[:len(levels)]
+    if any(s.post_config.rt is not None or s.post_config.rd is not None
+           for s in stages):
+        raise NotImplementedError(
+            "the rt/rd test gates are not ported yet (ROADMAP queue A: the "
+            "filter zoo)")
     if cfg.fine.block_type != "loftr":
         raise NotImplementedError(
             f"fine block {cfg.fine.block_type!r} is not ported yet")
-    if cfg.coarse2.detector_mode is not None:
+    if any(s.detector_mode is not None for s in stages):
         raise NotImplementedError(
             "the keypoint detector branch is not ported yet (ROADMAP queue "
             "A: the indoor recipe)")
 
 
+def _tokens(x: torch.Tensor) -> torch.Tensor:
+    """[B, C, h, w] -> [B, h*w, C]."""
+    return x.flatten(2).transpose(1, 2)
+
+
+def _grid(t: torch.Tensor, hw) -> torch.Tensor:
+    """[B, h*w, C] -> [B, C, h, w]."""
+    return t.transpose(1, 2).reshape(t.shape[0], -1, *hw)
+
+
 class CasMTR(nn.Module):
-    """Cascade matching transformer, CasMTR-4c."""
+    """Cascade matching transformer: cascade_levels (4,) is CasMTR-4c,
+    (4, 2) CasMTR-2c."""
 
     def __init__(self, config: LoftrConfig):
         super().__init__()
         _check_ported(config)
         self.config = config
         bd = tuple(config.backbone.block_dims)
+        two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
         self.loftr_coarse_8c = LocalFeatureTransformer(config.coarse)
         if config.training_stage >= 2:
             self.up_block1 = UpBlock(config.coarse.d_model, bd[1])
             self.loftr_coarse_4c = CascadeFeatureTransformer(config.coarse2)
+            if two:
+                self.up_block2 = UpBlock(config.coarse2.d_model, bd[0])
+                self.loftr_coarse_2c = CascadeFeatureTransformer(
+                    config.coarse3)
+            # 2c refines its 1/2 tokens themselves; 4c the 1/2 backbone map
+            # with the 1/4 tokens as context
+            d_c = config.coarse3.d_model if two else config.coarse2.d_model
             self.fine_preprocess = FinePreprocess(
-                config.fine.d_model, config.coarse2.d_model, bd[0],
+                config.fine.d_model, d_c, d_c if two else bd[0],
                 config.fine_window_size,
                 cat_c_feat=config.fine_concat_coarse_feat)
             self.loftr_fine = LocalFeatureTransformer(config.fine)
@@ -91,11 +117,11 @@ class CasMTR(nn.Module):
         """batch: image0/image1 [B, H, W, 3] RGB in [0, 1]; optional
         mask0/mask1 [B, H, W] (True = valid) and scale0/scale1 [B, 2]
         (original pixels per model pixel).  In training the batch also holds
-        the 1/4 ground truth gt_idx_4c / gt_mask_4c [B, L0]
-        (train.supervision.compute_supervision) and optionally a selection
-        priority_4c [B, L0].  ``capacity_scale`` multiplies every fixed match
-        capacity in eval (a batch of B pairs shares one selection, so a
-        B-pair forward passes B)."""
+        each cascade level's ground truth gt_idx_{4c,2c} / gt_mask_{4c,2c}
+        [B, L0] (train.supervision.compute_supervision) and optionally a
+        selection priority_{4c,2c} [B, L0].  ``capacity_scale`` multiplies
+        every fixed match capacity in eval (a batch of B pairs shares one
+        selection, so a B-pair forward passes B)."""
         cfg = self.config
         train = self.training
         ts = cfg.train_size
@@ -115,15 +141,11 @@ class CasMTR(nn.Module):
             feat_8c0, feat_4c0, feat_f0 = self.backbone(img0)
             feat_8c1, feat_4c1, feat_f1 = self.backbone(img1)
         hw0_8c, hw1_8c = tuple(feat_8c0.shape[-2:]), tuple(feat_8c1.shape[-2:])
-        hw0_4c, hw1_4c = tuple(feat_4c0.shape[-2:]), tuple(feat_4c1.shape[-2:])
         hw0_f = tuple(feat_f0.shape[-2:])
 
         # ----- 1/8 coarse stage -----
-        def tokens(x):  # [B, C, h, w] -> [B, h*w, C]
-            return x.flatten(2).transpose(1, 2)
-
-        t8_0 = tokens(add_sine_pe_norm(feat_8c0, (ts // 8, ts // 8)))
-        t8_1 = tokens(add_sine_pe_norm(feat_8c1, (ts // 8, ts // 8)))
+        t8_0 = _tokens(add_sine_pe_norm(feat_8c0, (ts // 8, ts // 8)))
+        t8_1 = _tokens(add_sine_pe_norm(feat_8c1, (ts // 8, ts // 8)))
         mask_8c0, m8_0 = level_mask(mask0_full, *hw0_8c)
         mask_8c1, m8_1 = level_mask(mask1_full, *hw1_8c)
         t8_0, t8_1 = self.loftr_coarse_8c(t8_0, t8_1, hw0_8c, hw1_8c,
@@ -142,67 +164,83 @@ class CasMTR(nn.Module):
             return MatchOutput(coarse, {}, None, matches_8c, (H0, W0),
                                (H1, W1))
 
-        # ----- 1/4 cascade stage -----
-        x8_0 = t8_0.transpose(1, 2).reshape(B, -1, *hw0_8c)
-        x8_1 = t8_1.transpose(1, 2).reshape(B, -1, *hw1_8c)
-        if hw0_4c == hw1_4c:
-            fused = self.up_block1(torch.cat([feat_4c0, feat_4c1], dim=0),
-                                   torch.cat([x8_0, x8_1], dim=0))
-            feat_4c0, feat_4c1 = fused.chunk(2)
-        else:
-            feat_4c0 = self.up_block1(feat_4c0, x8_0)
-            feat_4c1 = self.up_block1(feat_4c1, x8_1)
-        t4_0 = tokens(add_sine_pe_norm(feat_4c0, (ts // 4, ts // 4)))
-        t4_1 = tokens(add_sine_pe_norm(feat_4c1, (ts // 4, ts // 4)))
-        mask_4c0, m4_0 = level_mask(mask0_full, *hw0_4c)
-        mask_4c1, m4_1 = level_mask(mask1_full, *hw1_4c)
-        (t4_0, t4_1, idx_4c01, idx_4c10, corners01,
-         corners10) = self.loftr_coarse_4c(t4_0, t4_1, ds.next_idx_c01,
-                                           ds.next_idx_c10, hw0_4c, hw1_4c)
-
+        # ----- cascade stages: 1/4, then 1/2 for 2c -----
         mc = cfg.match_cascade
-        pc = cfg.coarse2.post_config
-        ws4 = cm.window_softmax_matching(
-            t4_0, t4_1, idx_4c01, idx_4c10, mc.dsmax_temperature[0],
-            mask_4c0, mask_4c1, corners0=corners01, corners1=corners10,
-            hw0=hw0_4c, hw1=hw1_4c, prop_window=cfg.coarse2.window_size)
-        if train:
-            mask4 = cm.cascade_match_mask_train(
-                ws4, mc.thr[0], idx_4c01.shape[-1], hw0_4c, hw1_4c,
-                mc.border_rm[0], mc.double_check[0], m4_0, m4_1)
-            m_cap4 = min(mc.train_pad_num_gt_min[0], mc.max_matches[0])
-        else:
-            mask4 = cm.cascade_match_mask_test(
-                ws4, hw0_4c, hw1_4c, mc.test_thr[0], mc.border_rm[0],
-                pre_confs=[ds.next_conf_c01], pre_hws=[hw0_8c],
-                pre_thrs=list(mc.pre_thr[0]), post_method=pc.method,
-                post_window=pc.window_size, double_check=mc.double_check[0],
-                mask0_2d=m4_0, mask1_2d=m4_1)
-            m_cap4 = mc.max_matches[0] * capacity_scale
-        matches_4c, extras4 = cm.extract_cascade_matches(
-            ws4, mask4, hw0_4c, hw1_4c, m_cap4, scale=H0 / hw0_4c[0],
-            scale0=scale0, scale1=scale1,
-            priority=batch.get("priority_4c"),
-            idx_c01=idx_4c01 if train else None,
-            gt_idx_c01=batch.get("gt_idx_4c") if train else None,
-            gt_mask_c01=batch.get("gt_mask_4c") if train else None)
-        cascades = {"4c": CascadeStage(
-            ws4.conf01, idx_4c01, idx_4c10, ws4.next_idx_c01,
-            ws4.next_idx_c10, ws4.next_conf_c01, ws4.next_conf_c10,
-            matches_4c, hw0_4c, hw1_4c,
-            window_gt_label=extras4.get("window_gt_label"),
-            window_conf=extras4.get("window_conf"))}
+        backbone_maps = {4: (feat_4c0, feat_4c1), 2: (feat_f0, feat_f1)}
+        prev = (_grid(t8_0, hw0_8c), _grid(t8_1, hw1_8c), ds.next_idx_c01,
+                ds.next_idx_c10)
+        pre_confs, pre_hws = [ds.next_conf_c01], [hw0_8c]
+        cascades = {}
+        for i, level in enumerate(cfg.cascade_levels):
+            name = f"{level}c"
+            scfg = (cfg.coarse2, cfg.coarse3)[i]
+            x0, x1, prev_idx01, prev_idx10 = prev
+            f0, f1 = backbone_maps[level]
+            hw0, hw1 = tuple(f0.shape[-2:]), tuple(f1.shape[-2:])
+            up = getattr(self, f"up_block{i + 1}")
+            if hw0 == hw1:  # both images in one BatchNorm batch
+                f0, f1 = up(torch.cat([f0, f1], dim=0),
+                            torch.cat([x0, x1], dim=0)).chunk(2)
+            else:
+                f0, f1 = up(f0, x0), up(f1, x1)
+            t0 = _tokens(add_sine_pe_norm(f0, (ts // level, ts // level)))
+            t1 = _tokens(add_sine_pe_norm(f1, (ts // level, ts // level)))
+            mask_0, m_0 = level_mask(mask0_full, *hw0)
+            mask_1, m_1 = level_mask(mask1_full, *hw1)
+            t0, t1, idx01, idx10, corners01, corners10 = getattr(
+                self, f"loftr_coarse_{name}")(t0, t1, prev_idx01, prev_idx10,
+                                              hw0, hw1)
+            ws = cm.window_softmax_matching(
+                t0, t1, idx01, idx10, mc.dsmax_temperature[i], mask_0,
+                mask_1, corners0=corners01, corners1=corners10, hw0=hw0,
+                hw1=hw1, prop_window=scfg.window_size)
+            if train:
+                mask = cm.cascade_match_mask_train(
+                    ws, mc.thr[i], idx01.shape[-1], hw0, hw1,
+                    mc.border_rm[i], mc.double_check[i], m_0, m_1)
+                m_cap = min(mc.train_pad_num_gt_min[i], mc.max_matches[i])
+            else:
+                pc = scfg.post_config
+                mask = cm.cascade_match_mask_test(
+                    ws, hw0, hw1, mc.test_thr[i], mc.border_rm[i],
+                    pre_confs=pre_confs, pre_hws=pre_hws,
+                    pre_thrs=list(mc.pre_thr[i]), post_method=pc.method,
+                    post_window=pc.window_size,
+                    double_check=mc.double_check[i], mask0_2d=m_0,
+                    mask1_2d=m_1)
+                m_cap = mc.max_matches[i] * capacity_scale
+            matches, extras = cm.extract_cascade_matches(
+                ws, mask, hw0, hw1, m_cap, scale=H0 / hw0[0],
+                scale0=scale0, scale1=scale1,
+                priority=batch.get(f"priority_{name}"),
+                idx_c01=idx01 if train else None,
+                gt_idx_c01=batch.get(f"gt_idx_{name}") if train else None,
+                gt_mask_c01=batch.get(f"gt_mask_{name}") if train else None)
+            cascades[name] = CascadeStage(
+                ws.conf01, idx01, idx10, ws.next_idx_c01, ws.next_idx_c10,
+                ws.next_conf_c01, ws.next_conf_c10, matches, hw0, hw1,
+                window_gt_label=extras.get("window_gt_label"),
+                window_conf=extras.get("window_conf"))
+            prev = (_grid(t0, hw0), _grid(t1, hw1), ws.next_idx_c01,
+                    ws.next_idx_c10)
+            pre_confs.append(ws.next_conf_c01)
+            pre_hws.append(hw0)
 
         # ----- fine sub-pixel stage -----
         Wf = cfg.fine_window_size
-        ff0, ff1 = self.fine_preprocess(
-            feat_f0.permute(0, 2, 3, 1), feat_f1.permute(0, 2, 3, 1),
-            t4_0, t4_1, matches_4c, hw0_4c, hw1_4c)
+        if len(cfg.cascade_levels) > 1:   # the 1/2 tokens, no coarse context
+            ff0, ff1 = t0.reshape(B, *hw0, -1), t1.reshape(B, *hw1, -1)
+            ctx0 = ctx1 = None
+        else:                             # the 1/2 map, 1/4 tokens as context
+            ff0, ff1 = feat_f0.permute(0, 2, 3, 1), feat_f1.permute(0, 2, 3, 1)
+            ctx0, ctx1 = t0, t1
+        ff0, ff1 = self.fine_preprocess(ff0, ff1, ctx0, ctx1, matches,
+                                        hw0, hw1)
         ff0, ff1 = self.loftr_fine(ff0, ff1, (Wf, Wf), (Wf, Wf))
         fr = fm.fine_match(ff0, ff1)
-        s1 = scale1[matches_4c.b_ids] if scale1 is not None else None
-        mk0, mk1 = fm.fine_keypoints(matches_4c, fr.coords_norm, Wf,
+        s1 = scale1[matches.b_ids] if scale1 is not None else None
+        mk0, mk1 = fm.fine_keypoints(matches, fr.coords_norm, Wf,
                                      scale_f=H0 / hw0_f[0], scale1=s1)
         return MatchOutput(coarse, cascades, FineStage(fr.expec_f, mk0, mk1),
-                           matches_4c._replace(mkpts0=mk0, mkpts1=mk1),
+                           matches._replace(mkpts0=mk0, mkpts1=mk1),
                            (H0, W0), (H1, W1))

@@ -57,7 +57,7 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
     if corners0 is None or prop_window <= 0:
         raise NotImplementedError(
             "window_softmax_matching: only the structured window candidates "
-            "are ported (ROADMAP queue A: the 2c recipe)")
+            "are ported (ROADMAP queue A: the other propagations)")
     c = feat0.shape[-1]
     f0 = feat0.float() / (c ** 0.5)
     f1 = feat1.float() / (c ** 0.5)

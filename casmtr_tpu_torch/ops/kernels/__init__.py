@@ -43,6 +43,7 @@ LAUNCHES: Dict[str, int] = {
     "quadtree_fine_attention_bwd": 0,
     "window_patch_score_bwd": 0,
     "window_cross_attention_bwd": 0,
+    "quadtree_fine_topk": 0,
 }
 
 _P = ctypes.c_void_p
@@ -57,6 +58,7 @@ _SIGNATURES = {
     "casmtr_window_patch_score_bwd_f32": [_P] * 6 + [_I] * 6 + [_P],
     "casmtr_window_cross_attention_bwd_f32":
         [_P] * 10 + [_I] * 9 + [_F, _P],
+    "casmtr_quadtree_fine_topk_f32": [_P] * 8 + [_I] * 10 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,5 +1,5 @@
-"""Quadtree fine-level attention: CUDA kernels A and A-bwd and their plain
-versions (counterpart of casmtr_tpu/ops/pallas/quadtree_kernels.py).
+"""Quadtree fine-level attention: CUDA kernels A, A′ and A-bwd and their
+plain versions (counterpart of casmtr_tpu/ops/pallas/quadtree_kernels.py).
 
 ``quadtree_fine_attention`` runs ``quadtree_fine_attention_plain`` for CPU
 tensors (ordinary autograd differentiates it) and, for CUDA tensors, the
@@ -10,6 +10,13 @@ any other device raises.  The forward plain version is the port of the
 gather path of
 ``casmtr_tpu/ops/quadtree.py:_fine_level_b`` (its message part), and with
 ``quadtree_fine_attention_bwd_plain`` it is the kernels' oracle on the card.
+
+``quadtree_fine_topk`` is the same level with the top-k selection of the
+next level's blocks fused in (kernel A′, the ``n_topk > 0`` form of the
+same CUDA body, through ``QuadtreeFineAttention`` with ``topk``; its
+gradient is kernel A-bwd's, since the selection carries none).  Its plain
+version ``quadtree_fine_topk_plain`` is the whole gather path of
+``_fine_level_b`` with ``need_topk``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,22 @@ def _scores(qb, k_g, D: int):
     return qk.reshape(B, P, 4, H, -1) * (D ** -0.5)
 
 
+def _attend(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
+            hw_k: Tuple[int, int]):
+    """The gather path's scaled scores qk and softmax A [B, P, 4, H, 4K],
+    message [B, P, 4, H, D] and candidate positions [B, P, H, 4K]."""
+    from casmtr_tpu_torch.ops.quadtree import block_children
+    B, _, H, D = q.shape
+    K = topk_idx_prev.shape[2]
+    qb = block_children(q, *hw_q)                            # [B, P, 4, H, D]
+    k_g, v_g, pos = _candidates(k, v, topk_idx_prev, hw_k)
+    qk = _scores(qb, k_g, D)
+    A = torch.softmax(qk, dim=-1)
+    msg = torch.einsum("bpfhkj,bpkhjd->bpfhd",
+                       A.reshape(B, -1, 4, H, K, 4), v_g)
+    return qk, A, msg, pos
+
+
 def quadtree_fine_attention_plain(q, k, v, topk_idx_prev,
                                   hw_q: Tuple[int, int],
                                   hw_k: Tuple[int, int],
@@ -61,17 +84,34 @@ def quadtree_fine_attention_plain(q, k, v, topk_idx_prev,
     block attends, per head, to the 4K children of its K selected blocks.
     Returns msg [B, P, 4, H, D] float32, and with ``with_lse`` also the
     log-sum-exp of each softmax row [B, P, 4, H]."""
-    from casmtr_tpu_torch.ops.quadtree import block_children
-    B, _, H, D = q.shape
-    K = topk_idx_prev.shape[2]
-    qb = block_children(q, *hw_q)                            # [B, P, 4, H, D]
-    k_g, v_g, _ = _candidates(k, v, topk_idx_prev, hw_k)
-    qk = _scores(qb, k_g, D)
-    A = torch.softmax(qk, dim=-1).reshape(B, -1, 4, H, K, 4)
-    msg = torch.einsum("bpfhkj,bpkhjd->bpfhd", A, v_g)
+    qk, _, msg, _ = _attend(q, k, v, topk_idx_prev, hw_q, hw_k)
     if with_lse:
         return msg, torch.logsumexp(qk, dim=-1)
     return msg
+
+
+def quadtree_fine_topk_plain(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
+                             hw_k: Tuple[int, int], topk: int,
+                             with_lse: bool = False):
+    """Gather-path fine level with its top-k selection.
+
+    As ``quadtree_fine_attention_plain``, and per child query row the
+    ``topk`` largest probabilities of its softmax over the 4K candidates,
+    in descending order, with their flat positions on the (h1, w1) key grid.
+    Returns (msg [B, P, 4, H, D], topk_score [B, Lq, topk, H] float32,
+    topk_idx [B, Lq, topk, H] int32), and with ``with_lse`` also the
+    log-sum-exp [B, P, 4, H]."""
+    from casmtr_tpu_torch.ops.quadtree import unblock_children
+    h0, w0 = hw_q
+    qk, A, msg, pos = _attend(q, k, v, topk_idx_prev, hw_q, hw_k)
+    score, local = torch.topk(A, topk, dim=-1)               # [B, P, 4, H, k]
+    idx = torch.gather(pos[:, :, None].expand(A.shape), 4, local)
+    score = unblock_children(score.transpose(3, 4), h0 // 2, w0 // 2)
+    idx = unblock_children(idx.transpose(3, 4), h0 // 2, w0 // 2)
+    out = (msg, score, idx.to(torch.int32))
+    if with_lse:
+        return out + (torch.logsumexp(qk, dim=-1),)
+    return out
 
 
 def quadtree_fine_attention_bwd_plain(q, k, v, topk_idx_prev, out, lse, g,
@@ -135,19 +175,34 @@ def _check(q, k, v, topk_idx_prev, hw_q, hw_k):
                        (B, P, topk_idx_prev.shape[2], H), torch.int32, dev)
 
 
-def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool):
+def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool, topk: int = 0):
+    """Kernel A (``topk`` 0) or A′ (``topk`` > 0).  Returns (out, lse,
+    score, idx); lse is None without ``with_lse``, score and idx are None
+    for kernel A."""
     _check(q, k, v, ids, hw_q, hw_k)
-    B, _, H, D = q.shape
+    B, Lq, H, D = q.shape
     P, K = ids.shape[1:3]
-    out = torch.empty((B, P, 4, H, D), device=q.device, dtype=torch.float32)
-    lse = (torch.empty((B, P, 4, H), device=q.device, dtype=torch.float32)
+    if not 0 <= topk <= 4 * K:
+        raise ValueError(f"quadtree_fine_topk: topk {topk} outside "
+                         f"[0, {4 * K}] (4K candidates; 0 is kernel A)")
+    dev = q.device
+    out = torch.empty((B, P, 4, H, D), device=dev, dtype=torch.float32)
+    lse = (torch.empty((B, P, 4, H), device=dev, dtype=torch.float32)
            if with_lse else None)
-    kernels.launch(
-        "casmtr_quadtree_fine_attention_f32", "quadtree_fine_attention",
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(),
-        out.data_ptr(), None if lse is None else lse.data_ptr(), B, P, K, H,
-        D, *hw_q, *hw_k, float(D ** -0.5))
-    return out, lse
+    lse_ptr = None if lse is None else lse.data_ptr()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(),
+            out.data_ptr(), lse_ptr)
+    if not topk:
+        kernels.launch("casmtr_quadtree_fine_attention_f32",
+                       "quadtree_fine_attention", dev, *args, B, P, K, H, D,
+                       *hw_q, *hw_k, float(D ** -0.5))
+        return out, lse, None, None
+    score = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.float32)
+    idx = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.int32)
+    kernels.launch("casmtr_quadtree_fine_topk_f32", "quadtree_fine_topk", dev,
+                   *args, score.data_ptr(), idx.data_ptr(), B, P, K, H, D,
+                   *hw_q, *hw_k, topk, float(D ** -0.5))
+    return out, lse, score, idx
 
 
 def _launch_bwd(q, k, v, ids, out, lse, g, hw_q, hw_k):
@@ -183,30 +238,39 @@ def quadtree_fine_attention_bwd(q, k, v, topk_idx_prev, out, lse, g,
 
 
 class QuadtreeFineAttention(torch.autograd.Function):
-    """Kernel A forward, kernel A-bwd backward.  The forward writes the
-    per-row log-sum-exp only when ``need_grad`` is set.  CPU tensors take
-    the two plain versions instead (the tests use this to check the
-    function's plumbing without a card)."""
+    """Kernel A forward (``topk`` 0), or kernel A′ forward (``topk`` > 0:
+    also the top-k selection, whose score and index outputs are not
+    differentiable); kernel A-bwd backward of the message in both cases.
+    The forward writes the per-row log-sum-exp only when ``need_grad`` is
+    set.  CPU tensors take the plain versions instead (the tests use this to
+    check the function's plumbing without a card)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, topk_idx_prev, hw_q, hw_k, need_grad):
+    def forward(ctx, q, k, v, topk_idx_prev, hw_q, hw_k, need_grad, topk=0):
         if q.device.type == "cpu":
-            out, lse = quadtree_fine_attention_plain(q, k, v, topk_idx_prev,
-                                                     hw_q, hw_k, True)
+            if topk:
+                out, score, idx, lse = quadtree_fine_topk_plain(
+                    q, k, v, topk_idx_prev, hw_q, hw_k, topk, with_lse=True)
+            else:
+                out, lse = quadtree_fine_attention_plain(
+                    q, k, v, topk_idx_prev, hw_q, hw_k, True)
         else:
-            out, lse = _launch_fwd(q, k, v, topk_idx_prev, hw_q, hw_k,
-                                   need_grad)
+            out, lse, score, idx = _launch_fwd(q, k, v, topk_idx_prev, hw_q,
+                                               hw_k, need_grad, topk)
         ctx.hw = (hw_q, hw_k)
         if need_grad:
             ctx.save_for_backward(q, k, v, topk_idx_prev, out, lse)
-        return out
+        if not topk:
+            return out
+        ctx.mark_non_differentiable(score, idx)
+        return out, score, idx
 
     @staticmethod
-    def backward(ctx, g):
+    def backward(ctx, g, *_):
         q, k, v, ids, out, lse = ctx.saved_tensors
         dq, dk, dv = quadtree_fine_attention_bwd(q, k, v, ids, out, lse,
                                                  g.contiguous(), *ctx.hw)
-        return dq, dk, dv, None, None, None, None
+        return dq, dk, dv, None, None, None, None, None
 
 
 def quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
@@ -220,7 +284,28 @@ def quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
     if q.device.type == "cpu":
         return quadtree_fine_attention_plain(q, k, v, topk_idx_prev, hw_q,
                                              hw_k)
-    need_grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (q, k, v))
     return QuadtreeFineAttention.apply(q, k, v, topk_idx_prev, tuple(hw_q),
-                                       tuple(hw_k), need_grad)
+                                       tuple(hw_k), _need_grad(q, k, v), 0)
+
+
+def _need_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def quadtree_fine_topk(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
+                       hw_k: Tuple[int, int], topk: int):
+    """Fine-level message [B, P, 4, H, D] with the top-k selection of its
+    child rows, topk_score and topk_idx [B, Lq, topk, H] (see the plain
+    version); the selection carries no gradient.
+
+    CPU tensors take the plain version (the message under autograd, the
+    score detached); CUDA tensors go through ``QuadtreeFineAttention`` with
+    ``topk``: kernel A′, and kernel A-bwd for the message's gradient.
+    Anything else raises."""
+    if q.device.type == "cpu":
+        msg, score, idx = quadtree_fine_topk_plain(q, k, v, topk_idx_prev,
+                                                   hw_q, hw_k, topk)
+        return msg, score.detach(), idx
+    return QuadtreeFineAttention.apply(q, k, v, topk_idx_prev, tuple(hw_q),
+                                       tuple(hw_k), _need_grad(q, k, v),
+                                       int(topk))

@@ -1,5 +1,6 @@
 """Test-time keypoint filtering (counterpart of casmtr_tpu/ops/nms.py; the
-released 4c recipe's ``maxpool_nms`` and the unfiltered threshold only)."""
+released 4c and 2c recipes' ``maxpool_nms`` and the unfiltered threshold
+only)."""
 
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Quadtree attention B and its cascade form (counterpart of
 casmtr_tpu/ops/quadtree.py; only what ``qtatt_b`` and ``cascade_qtatt_b``
-use on the 4c eval path).
+use on the 4c and 2c paths).
 
 Semantics are the JAX package's: the pyramid runs coarsest to finest, full
 attention plus top-k at the coarsest level, and at each finer level every
@@ -8,12 +8,13 @@ attention plus top-k at the coarsest level, and at each finer level every
 key blocks (candidate c = k*4 + (dr*2+dc)); the per-level messages merge with
 softmax(level weight).  Token layout [B, L, H, D].
 
-The fine-level messages go through CUDA kernel A on the card
-(ops/kernels/quadtree_kernels.py), and their gradients through kernel
-A-bwd; the intermediate level's top-k selection is plain torch and runs
-without gradient, as in the JAX package (its callers use only the selected
-indices).  The cascade window cross-attention goes through CUDA kernels C
-and C-bwd (ops/kernels/window_kernels.py).
+On the card the finest level's message goes through CUDA kernel A, and
+every intermediate level's message and top-k selection through the fused
+kernel A′ (ops/kernels/quadtree_kernels.py); both messages' gradients go
+through kernel A-bwd.  The selection carries no gradient, as in the JAX
+package (its callers use only the selected indices).  The cascade window
+cross-attention goes through CUDA kernels C and C-bwd
+(ops/kernels/window_kernels.py).
 """
 
 from __future__ import annotations
@@ -22,9 +23,8 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from casmtr_tpu_torch.ops.kernels import clip_index
-from casmtr_tpu_torch.ops.kernels.quadtree_kernels import \
-    quadtree_fine_attention
+from casmtr_tpu_torch.ops.kernels.quadtree_kernels import (
+    quadtree_fine_attention, quadtree_fine_topk)
 from casmtr_tpu_torch.ops.kernels.window_kernels import window_cross_attention
 
 
@@ -79,45 +79,17 @@ def _coarse_level(q, k, v, topk: int):
     return message, ti.transpose(2, 3).to(torch.int32).contiguous()
 
 
-def _gather_select(q, k, topk_idx_prev, topk: int, hw_q: Tuple[int, int],
-                   hw_k: Tuple[int, int]) -> torch.Tensor:
-    """Top-k over the 4K gathered candidates of each child query (the
-    selection of casmtr_tpu/ops/quadtree.py:_gather_masked_select).
-    Returns topk_idx [B, Lq, topk, H] int32, flat on the (h1, w1) grid."""
-    h0, w0 = hw_q
-    h1, w1 = hw_k
-    B, _, H, D = q.shape
-    K = topk_idx_prev.shape[2]
-    qb = block_children(q, h0, w0)                       # [B, P, 4, H, D]
-    P = qb.shape[1]
-    table = to_block_major(k, h1, w1)                    # [B, Lb, H, 4D]
-    ids = clip_index(topk_idx_prev.long(), table.shape[1])
-    bi = torch.arange(B, device=q.device)[:, None, None, None]
-    hi = torch.arange(H, device=q.device)[None, None, None, :]
-    k_g = table[bi, ids, hi].reshape(B, P, K, H, 4, D)
-    qk = torch.einsum("bpfhd,bpkhjd->bpfhkj", qb, k_g)
-    qk = qk.reshape(B, P, 4, H, 4 * K) * (D ** -0.5)
-    _, local = torch.topk(torch.softmax(qk, dim=-1), topk, dim=-1)
-    ids_bh = ids.transpose(2, 3)[:, :, None].expand(B, P, 4, H, K)
-    blk = torch.gather(ids_bh, 4, local // 4)            # [B, P, 4, H, k]
-    child = local % 4
-    rows = (blk // (w1 // 2)) * 2 + child // 2
-    cols = (blk % (w1 // 2)) * 2 + child % 2
-    flat = unblock_children((rows * w1 + cols).transpose(3, 4),
-                            h0 // 2, w0 // 2)            # [B, Lq, k, H]
-    return flat.to(torch.int32).contiguous()
-
-
 def _fine_level_b(q, k, v, topk_idx_prev, topk: int, hw_q: Tuple[int, int],
                   hw_k: Tuple[int, int], need_topk: bool = True):
     """One fine level of QTAttB.  Returns (message [B, P, 4, H, D],
     topk_idx [B, Lq, topk, H] or None when ``need_topk`` is False -- the
     finest level, whose top-k nothing consumes)."""
-    msg = quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q, hw_k)
     if not need_topk:
-        return msg, None
-    with torch.no_grad():
-        return msg, _gather_select(q, k, topk_idx_prev, topk, hw_q, hw_k)
+        return quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q,
+                                       hw_k), None
+    msg, _, topk_idx = quadtree_fine_topk(q, k, v, topk_idx_prev, hw_q, hw_k,
+                                          topk)
+    return msg, topk_idx
 
 
 def _merge_messages(messages: List[torch.Tensor],
@@ -174,7 +146,7 @@ def cascade_qtatt_b(q, k, v, topk_pos: torch.Tensor, hw_q: Tuple[int, int],
     if not window_structured or dilated != 1:
         raise NotImplementedError(
             "cascade_qtatt_b: only the structured window propagation with "
-            "dilation 1 is ported (ROADMAP queue A: the 2c recipe; other "
+            "dilation 1 is ported (ROADMAP queue A: the other "
             "propagations and relative PE)")
     h0, w0 = hw_q
     h1, w1 = hw_k

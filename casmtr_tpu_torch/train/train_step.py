@@ -72,7 +72,8 @@ def _to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
                     ) -> Callable:
     """Returns step_fn(state, batch) -> (state, scalars), scalars being the
-    0-dim tensors loss, loss_8c, loss_4c, loss_f, valid_n_4c and grad_norm.
+    0-dim tensors loss, loss_8c, loss_f, grad_norm, and loss_{level} and
+    valid_n_{level} for each cascade level (4c; 4c and 2c for CasMTR-2c).
 
     ``batch`` holds image0/image1 [B, H, W, 3], depth0/depth1 [B, H, W],
     K0/K1 [B, 3, 3], T_0to1/T_1to0 [B, 4, 4] and optionally mask0/mask1 and

@@ -5,42 +5,54 @@ Run from the root of the repository with no arguments:
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines and its seconds:
+It drives both ported recipes, outdoor_casmtr_4c and outdoor_casmtr_2c, at
+full width.  Phases, each printing its own lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
 2. Kernels: each CUDA kernel of the serving path against its plain PyTorch
-   version on the card, at the shapes of the flagship outdoor_casmtr_4c eval
-   at 832^2 with realistic indices (a real top-k, real window corners), in
-   float32 with TF32 off; max abs error <= 1e-4.  Kernel and plain version
-   are timed with CUDA events (median of 25 launches, L2 flushed before
-   each), beside the least time the card needs for the same work.
+   version on the card, at the shapes of the 832^2 eval with realistic
+   indices (a real top-k, real window corners), in float32 with TF32 off:
+   A at the finest 104^2 level (and at 52^2, beside A′), A′ at the
+   intermediate 52^2 level (K = 32, top 16), B and C at the 1/4 level
+   (208^2, C=128, H=4) and at 2c's 1/2 level (416^2, C=64, H=2); max abs
+   error <= 1e-4.  A′ is held to its plain version by message (and LSE)
+   within 1e-4, sorted top-k scores within 1e-5, equal index sets wherever
+   the plain version's k-th and (k+1)-th scores are more than 1e-5 apart
+   (near ties counted and printed), and the next level's message from both
+   index sets within 1e-4 on those rows; A′ also on rows that hold a NaN
+   (no fault, the NaN passed on, the other rows as the plain version).
+   Kernel and plain version are timed with CUDA events (median of 25
+   launches, L2 flushed before each), beside the least time the card needs
+   for the same work; A′ also beside the unfused route (kernel A plus a
+   plain top-k selection).
 3. Training kernels: the same at the shapes of the 704^2 training step for
    the forward kernels with their log-sum-exp output and for the three
-   backward kernels (A-bwd at 88^2 and 44^2, B-bwd and C-bwd at 176^2).  dq
-   within 1e-4; the atomically summed dk, dv and dfeat1 within
-   1e-4 x max(1, max |plain|).  Then each autograd function on the card at
-   a tiny shape: its kernel gradient against a central finite difference of
-   its kernel forward along a random direction (float32 forward, so within
-   1e-2 relative).
-4. Serving: Matcher("outdoor_casmtr_4c", bucket=832) at full width on the
-   card with seeded random weights answers three requests (textured images
-   and shifted copies, one non-square).  The kernels' launch counts are
-   zeroed just before and read just after; every kernel must have run.
-5. Profile: one more steady request under torch.profiler (device busy
-   share, device time by operator and by kernel).
-6. Reference: the same full-width model at bucket 256 with its match
+   backward kernels (A-bwd at 88^2 and 44^2; B, B-bwd, C and C-bwd at 176^2
+   and at 2c's 352^2).  dq within 1e-4; the atomically summed dk, dv and
+   dfeat1 within 1e-4 x max(1, max |plain|).  Then each autograd function
+   on the card at a tiny shape: its kernel gradient against a central
+   finite difference of its kernel forward along a random direction
+   (float32 forward, so within 1e-2 relative).
+4. Serving: Matcher(recipe, bucket=832) at full width on the card with
+   seeded random weights answers three requests (textured images and
+   shifted copies, one non-square), for 4c and then 2c.  The kernels'
+   launch counts are zeroed just before each recipe's requests and read
+   after each request; each must match the recipe's count per pair.
+5. Profile: one more steady request of each recipe under torch.profiler
+   (device busy share, device time by operator and by kernel).
+6. Reference: each full-width recipe at bucket 256 with its match
    thresholds at 0, on the card and on the CPU (plain versions), on one
    pair: coarse and window confidences and final matches must agree.
-7. Training: train_step on outdoor_casmtr_4c at 704^2, batch 1, full width
-   and depth, seeded random weights, on a pair whose image1 is a shifted
-   crop of image0 with the matching camera translation.  One warm-up step
-   and 4 timed steps, each with the launch counts zeroed just before and
-   read just after (A 24 / A-bwd 24 / B 2 / B-bwd 1 / C 4 / C-bwd 4);
-   finite losses, 1/4 matches to supervise, parameters that moved, nonzero
-   finite gradients on the q/k/v projections that go through kernels A and
-   C.  Then one more step under torch.profiler.
-8. Training reference: one step of the full-width model at 256^2 on the
+7. Training: train_step on each recipe at 704^2, batch 1, full width and
+   depth, seeded random weights, on a pair whose image1 is a shifted crop
+   of image0 with the matching camera translation.  One warm-up step and
+   4 timed steps, each with the launch counts zeroed just before and read
+   just after; finite losses, matches to supervise at every cascade level,
+   parameters that moved, nonzero finite gradients on the q/k/v
+   projections that go through kernels A, A′ and C.  Then one more step
+   under torch.profiler.
+8. Training reference: one step of each full-width recipe at 256^2 on the
    card and on the CPU from the same weights and batch: loss within 1e-4
    relative, cosine of the whole flattened gradients >= 0.999.
 
@@ -59,6 +71,10 @@ import time
 import numpy as np
 
 KERNEL_TOL = 1e-4   # f32, another summation order than the plain version
+SCORE_TOL = 1e-5    # A′'s top-k probabilities, sorted
+TIE_GAP = 1e-5      # A′ rows whose k-th and (k+1)-th scores are this close
+                    # may select either candidate: excluded from the index
+                    # checks, and counted
 CONF_TOL = 1e-4     # match confidences, card vs CPU (f32, TF32 off)
 PX_TOL = 1e-2       # final keypoints in pixels, card vs CPU
 MIN_JACCARD = 0.99  # final match sets, card vs CPU (near-ties may flip)
@@ -66,16 +82,19 @@ FD_EPS = 1e-3       # finite-difference step along a unit-variance direction
 FD_TOL = 1e-2       # relative: the kernels' float32 outputs round at 1e-7
 TRAIN_LOSS_RTOL = 1e-4   # one training step, card vs CPU
 MIN_GRAD_COS = 0.999     # whole flattened gradient, card vs CPU
-REFERENCE_S_PER_STEP = 1.19  # the reference's own GPU step (fp16), bench.py
+REFERENCE_S_PER_STEP = 1.19  # the reference's own 4c GPU step (fp16), bench.py
 
 # H100 SXM published peaks: HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores, at the full 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 
+RECIPES = ("outdoor_casmtr_4c", "outdoor_casmtr_2c")
 TPU_KERNELS = {
     "quadtree_fine_attention":
         "casmtr_tpu/ops/pallas/quadtree_kernels.py:118",
+    # the same body with n_topk > 0; its pallas_call
+    "quadtree_fine_topk": "casmtr_tpu/ops/pallas/quadtree_kernels.py:321",
     "window_patch_score": "casmtr_tpu/ops/pallas/window_kernels.py:75",
     "window_cross_attention": "casmtr_tpu/ops/pallas/window_kernels.py:289",
     "quadtree_fine_attention_bwd":
@@ -87,6 +106,7 @@ TPU_KERNELS = {
 }
 SOURCES = {
     "quadtree_fine_attention": "casmtr_tpu_torch/csrc/quadtree_fine.cu",
+    "quadtree_fine_topk": "casmtr_tpu_torch/csrc/quadtree_fine.cu",
     "window_patch_score": "casmtr_tpu_torch/csrc/window_score.cu",
     "window_cross_attention": "casmtr_tpu_torch/csrc/window_attention.cu",
     "quadtree_fine_attention_bwd":
@@ -95,25 +115,37 @@ SOURCES = {
     "window_cross_attention_bwd":
         "casmtr_tpu_torch/csrc/window_attention_bwd.cu",
 }
-# launches per image pair on the 4c eval path (no backward): 6 quadtree
-# layers x 2 images x 2 fine levels; 2 score directions; 2 cross layers x 2
-# images
-LAUNCHES_PER_PAIR = {"quadtree_fine_attention": 24, "window_patch_score": 2,
-                     "window_cross_attention": 4,
-                     "quadtree_fine_attention_bwd": 0,
-                     "window_patch_score_bwd": 0,
-                     "window_cross_attention_bwd": 0}
-# launches per training step (no rematerialization): the forward's, and one
-# backward for each forward whose inputs need a gradient -- all but the
-# detached 1->0 window scores
-LAUNCHES_PER_TRAIN_STEP = dict(LAUNCHES_PER_PAIR,
-                               quadtree_fine_attention_bwd=24,
-                               window_patch_score_bwd=1,
-                               window_cross_attention_bwd=4)
+
+
+def per_pair(n_levels):
+    """Launches per image pair on the eval path (no backward): 6 quadtree
+    layers x 2 images, each running A′ at the intermediate and A at the
+    finest 1/8 level; per cascade level 2 window-score directions and 2
+    cross layers x 2 images."""
+    return {"quadtree_fine_attention": 12, "quadtree_fine_topk": 12,
+            "window_patch_score": 2 * n_levels,
+            "window_cross_attention": 4 * n_levels,
+            "quadtree_fine_attention_bwd": 0, "window_patch_score_bwd": 0,
+            "window_cross_attention_bwd": 0}
+
+
+def per_step(n_levels):
+    """Launches per training step (no rematerialization): the forward's,
+    and one backward for each forward whose inputs need a gradient -- all
+    but the detached 1->0 window scores; A and A′ share A-bwd."""
+    return dict(per_pair(n_levels), quadtree_fine_attention_bwd=24,
+                window_patch_score_bwd=n_levels,
+                window_cross_attention_bwd=4 * n_levels)
+
+
+LAUNCHES_PER_PAIR = {"outdoor_casmtr_4c": per_pair(1),
+                     "outdoor_casmtr_2c": per_pair(2)}
+LAUNCHES_PER_TRAIN_STEP = {"outdoor_casmtr_4c": per_step(1),
+                           "outdoor_casmtr_2c": per_step(2)}
 TRAIN_SIZE = 704
 TRAIN_SHIFT = (16, 24)   # (dy, dx) pixels from image0 to image1
 NO_LIBRARY = ("no single PyTorch call computes attention over gathered "
-              "candidate sets, or its gradient")
+              "candidate sets, its gradient, or a top-k fused into it")
 
 
 def log(*a):
@@ -167,9 +199,12 @@ def quadtree_inputs(torch, gen, g):
     """The 1/8 quadtree pyramid on a g x g finest grid (g^2, (g/2)^2, (g/4)^2
     grids, H=8, D=32, topks 32/16) from seeded features; the block ids of
     the two fine levels come from the real coarse-level top-k and the real
-    intermediate-level selection."""
+    intermediate-level selection.  Returns {label: ((q, k, v), ids, hw)}
+    for the intermediate and the finest level."""
     from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
-    from casmtr_tpu_torch.ops.quadtree import _coarse_level, _gather_select
+    from casmtr_tpu_torch.ops.kernels.quadtree_kernels import \
+        quadtree_fine_topk_plain
+    from casmtr_tpu_torch.ops.quadtree import _coarse_level
     H, D, C = 8, 32, 256
     levels = []
     q, k, v = (torch.randn((1, C, g, g), generator=gen, device="cuda")
@@ -181,15 +216,16 @@ def quadtree_inputs(torch, gen, g):
         q, k, v = avg_pool_2x2(q), avg_pool_2x2(k), avg_pool_2x2(v)
     (hw2, l2), (hw1, l1), (hw0, l0) = levels
     _, ids1 = _coarse_level(*l0, 32)
-    ids2 = _gather_select(l1[0], l1[1], ids1, 16, hw1, hw1)
+    ids2 = quadtree_fine_topk_plain(*l1, ids1, hw1, hw1, 16)[2].contiguous()
     return {f"intermediate {g // 2}x{g // 2}": (l1, ids1, hw1),
             f"finest {g}x{g}": (l2, ids2, hw2)}
 
 
 def window_inputs(torch, gen, g2):
-    """Window corners of the 1/4 cascade level (w = 5) whose 1/8 grid is
-    g2 x g2: each 1/8 cell's match is a cell a few steps away (a shifted
-    image pair), turned into boundary-shifted windows by window_warp_idx."""
+    """Window corners of a cascade level (w = 5) whose previous grid is
+    g2 x g2: each previous cell's match is a cell a few steps away (a
+    shifted image pair), turned into boundary-shifted windows by
+    window_warp_idx."""
     from casmtr_tpu_torch.models.cascade_transformer import window_warp_idx
     from casmtr_tpu_torch.ops.propagation import get_propagations
     yy, xx = torch.meshgrid(torch.arange(g2, device="cuda"),
@@ -232,13 +268,20 @@ def kernel_row(torch, rows, name, label, path, kernel, plain, inputs,
     for i, (e, t) in enumerate(errs):
         check(e <= t, f"{name} [{label}] output {i}: max abs error {e:.3e} "
               f"> {t:.3g}")
-    rows.append({"name": name, "shape": label, "path": path, "route": "cuda",
-                 "source": SOURCES[name], "replaces": TPU_KERNELS[name],
-                 "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
-                 "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-                 "library_note": NO_LIBRARY,
-                 # max_err and kernel_ms repeat max_abs_err and ms
-                 "max_err": err, "kernel_ms": t_kernel})
+    return add_row(rows, name, label, path, err, t_kernel, t_plain, t_bound,
+                   by)
+
+
+def add_row(rows, name, label, path, err, t_kernel, t_plain, t_bound, by):
+    row = {"name": name, "shape": label, "path": path, "route": "cuda",
+           "source": SOURCES[name], "replaces": TPU_KERNELS[name],
+           "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
+           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
+           "library_note": NO_LIBRARY,
+           # max_err and kernel_ms repeat max_abs_err and ms
+           "max_err": err, "kernel_ms": t_kernel}
+    rows.append(row)
+    return row
 
 
 def attention_flops(n_tasks, n_cand, D, backward=False):
@@ -248,19 +291,260 @@ def attention_flops(n_tasks, n_cand, D, backward=False):
     return n_tasks * (5 if backward else 2) * 2 * 4 * n_cand * D
 
 
+def unfused_selection(torch, q, k, ids, hw, topk):
+    """The intermediate level's top-k selection without kernel A′, in plain
+    torch beside kernel A: gather the candidate keys again, recompute the
+    scores, softmax, top-k, map to key-grid positions [B, Lq, topk, H]."""
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.ops.quadtree import (block_children,
+                                               to_block_major,
+                                               unblock_children)
+    h, w = hw
+    B, _, H, D = q.shape
+    K = ids.shape[2]
+    qb = block_children(q, h, w)
+    P = qb.shape[1]
+    table = to_block_major(k, h, w)
+    blk_ids = kernels.clip_index(ids.long(), table.shape[1])
+    bi = torch.arange(B, device=q.device)[:, None, None, None]
+    hi = torch.arange(H, device=q.device)[None, None, None, :]
+    k_g = table[bi, blk_ids, hi].reshape(B, P, K, H, 4, D)
+    qk = torch.einsum("bpfhd,bpkhjd->bpfhkj", qb, k_g)
+    qk = qk.reshape(B, P, 4, H, 4 * K) * (D ** -0.5)
+    _, local = torch.topk(torch.softmax(qk, dim=-1), topk, dim=-1)
+    ids_bh = blk_ids.transpose(2, 3)[:, :, None].expand(B, P, 4, H, K)
+    blk = torch.gather(ids_bh, 4, local // 4)
+    child = local % 4
+    rows = (blk // (w // 2)) * 2 + child // 2
+    cols = (blk % (w // 2)) * 2 + child % 2
+    return unblock_children((rows * w + cols).transpose(3, 4), h // 2,
+                            w // 2).to(torch.int32)
+
+
+def selection_errors(torch, score, idx, p_score, p_idx, topk, rows):
+    """A′'s selection against the plain version's top (topk + 1) on the
+    child rows ``rows`` [B, Lq, H] (bool): max abs error of the sorted
+    scores, the rows whose index sets differ although the plain version's
+    k-th and (k+1)-th scores are more than TIE_GAP apart, the near-tie rows
+    excluded from that check, and the plain version's top-k indices."""
+    s_got = score.sort(dim=2, descending=True).values
+    s_err = float(torch.where(rows[:, :, None],
+                              (s_got - p_score[:, :, :topk]).abs(), 0).max())
+    p_top = p_idx[:, :, :topk].contiguous()
+    clear = rows & ((p_score[:, :, topk - 1] - p_score[:, :, topk])
+                    > TIE_GAP)
+    same = (idx.sort(dim=2).values == p_top.sort(dim=2).values).all(dim=2)
+    return (s_err, int((clear & ~same).sum()), int((rows & ~clear).sum()),
+            clear, p_top)
+
+
+def topk_row(torch, rows, label, path, inter, finest, topk, with_lse):
+    """Kernel A′ at the intermediate level ``inter`` against its plain
+    version: through its public wrapper ``quadtree_fine_topk`` (serving), or
+    with ``with_lse`` (training) through ``QuadtreeFineAttention`` with a
+    gradient to come, which writes the log-sum-exp (read back through the
+    launcher).  The next level's message is read from the ``finest``
+    level's q/k/v.  Times the call beside its plain version, its bound and
+    the unfused route (kernel A and ``unfused_selection``)."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    (q, k, v), ids, hw = inter
+    (qn, kn, vn), _, hw_n = finest
+    B, Lq, H, D = q.shape
+    P, K = ids.shape[1:3]
+    NC = 4 * K
+
+    def kernel():
+        if with_lse:
+            return qk_.QuadtreeFineAttention.apply(q, k, v, ids, hw, hw, True,
+                                                   topk)
+        return qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, topk)
+
+    msg, score, idx = kernel()
+    p_msg, p_score, p_idx, p_lse = qk_.quadtree_fine_topk_plain(
+        q, k, v, ids, hw, hw, topk + 1, with_lse=True)
+    outs = [("message", msg, p_msg)]
+    lse = None
+    if with_lse:
+        lse = qk_._launch_fwd(q, k, v, ids, hw, hw, True, topk)[1]
+        outs.append(("lse", lse, p_lse))
+    torch.cuda.synchronize()
+    for what, a, b in outs + [("score", score, p_score[:, :, :topk])]:
+        check(a.shape == b.shape and bool(torch.isfinite(a).all()),
+              f"quadtree_fine_topk [{label}] {what}: shape "
+              f"{tuple(a.shape)} or non-finite")
+    errs = {what: float((a - b).abs().max()) for what, a, b in outs}
+    everywhere = torch.ones((B, Lq, H), dtype=torch.bool, device="cuda")
+    errs["score"], idx_bad, excluded, clear, p_top = selection_errors(
+        torch, score, idx, p_score, p_idx, topk, everywhere)
+    nxt = [qk_.quadtree_fine_attention_plain(qn, kn, vn, i, hw_n, hw_n)
+           for i in (idx, p_top)]
+    nxt_err = float(((nxt[0] - nxt[1]).abs()
+                     * clear[:, :, None, :, None]).max())
+    t_kernel = time_ms(torch, kernel)
+    t_plain = time_ms(torch, lambda: qk_.quadtree_fine_topk_plain(
+        q, k, v, ids, hw, hw, topk, with_lse))
+    t_unfused = time_ms(torch, lambda: (
+        qk_._launch_fwd(q, k, v, ids, hw, hw, with_lse),
+        unfused_selection(torch, q, k, ids, hw, topk)))
+    bytes_moved = nbytes(q, k, v, ids, msg, score, idx) + (
+        nbytes(lse) if with_lse else 0)
+    # the attention, and the selection at its least: one compare per
+    # candidate of each of the 4 child rows
+    flops = attention_flops(P * H, NC, D) + P * H * 4 * NC
+    t_bound, by = bound(bytes_moved, flops)
+    log(f"kernel quadtree_fine_topk [{label}] q/k/v {list(q.shape)} ids "
+        f"{list(ids.shape)} top {topk}: max_abs_err "
+        + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+        + f" (tol {KERNEL_TOL:g}, score {SCORE_TOL:g}); index sets differ "
+        f"on {idx_bad} of {B * Lq * H} rows, {excluded} rows excluded as "
+        f"near ties (gap <= {TIE_GAP:g}); next level's message "
+        f"max_abs_err {nxt_err:.3e}; kernel {t_kernel:.4f} ms, plain "
+        f"{t_plain:.4f} ms, unfused (kernel A + plain selection) "
+        f"{t_unfused:.4f} ms, bound {t_bound:.4f} ms ({by}: "
+        f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    for what, e in errs.items():
+        check(e <= (SCORE_TOL if what == "score" else KERNEL_TOL),
+              f"quadtree_fine_topk [{label}] {what}: max abs error {e:.3e}")
+    check(idx_bad == 0, f"quadtree_fine_topk [{label}]: {idx_bad} rows "
+          "select other indices")
+    check(nxt_err <= KERNEL_TOL, f"quadtree_fine_topk [{label}]: next "
+          f"level's message max abs error {nxt_err:.3e}")
+    row = add_row(rows, "quadtree_fine_topk", label, path,
+                  max(errs.values()), t_kernel, t_plain, t_bound, by)
+    row.update(near_tie_rows_excluded=excluded, unfused_ms=t_unfused)
+
+
+def topk_nan_check(torch, gen):
+    """Kernel A′ on child rows whose scores hold a NaN (one NaN query row:
+    all of its scores; one NaN key row: one score of every row that reads
+    it).  The launch must not fault.  Rows without a NaN agree with the
+    plain version; rows with one have NaN scores and in-range indices, as
+    the plain version passes the NaN on; the all-NaN row selects its first
+    ``topk`` candidates (a NaN ranks above every number, ties go to the
+    lower candidate)."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    hw, H, D, K, topk = (8, 12), 2, 8, 4, 6
+    Lq, n_blk = hw[0] * hw[1], (hw[0] // 2) * (hw[1] // 2)
+    q, k, v = (torch.randn((1, Lq, H, D), generator=gen, device="cuda")
+               for _ in range(3))
+    ids = torch.randint(0, n_blk, (1, n_blk, K, H), generator=gen,
+                        device="cuda", dtype=torch.int32)
+    q[0, 13, 1] = float("nan")   # child 3 of parent 0, head 1
+    k[0, 40, 0] = float("nan")
+    msg, score, idx = qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, topk)
+    torch.cuda.synchronize()
+    p_msg, p_score, p_idx = qk_.quadtree_fine_topk_plain(q, k, v, ids, hw, hw,
+                                                         topk + 1)
+    nan_rows = torch.isnan(p_score).any(dim=2)
+    fin = ~nan_rows
+    s_err, idx_bad, _, _, _ = selection_errors(torch, score, idx, p_score,
+                                               p_idx, topk, fin)
+    msg_nan = torch.isnan(msg)
+    msg_err = float((msg - p_msg).abs()[~msg_nan].max())
+    first = qk_._candidates(k, v, ids, hw)[2][0, 0, 1, :topk].int()
+    n_nan = int(nan_rows.sum())
+    log(f"kernel quadtree_fine_topk [NaN rows] q/k/v {list(q.shape)} ids "
+        f"{list(ids.shape)} top {topk}: {n_nan} of {nan_rows.numel()} rows "
+        f"hold a NaN; on the others score max_abs_err {s_err:.3e}, index "
+        f"sets differ on {idx_bad}, message max_abs_err {msg_err:.3e}; the "
+        f"all-NaN row selects {idx[0, 13, :, 1].tolist()} (its first "
+        f"candidates {first.tolist()})")
+    check(0 < n_nan < nan_rows.numel(), "NaN check: no row or every row "
+          "holds a NaN")
+    check(torch.equal(msg_nan, torch.isnan(p_msg)),
+          "NaN check: the message's NaNs differ from the plain version's")
+    check(torch.equal(torch.isnan(score).all(dim=2), nan_rows)
+          and torch.equal(torch.isfinite(score).all(dim=2), fin),
+          "NaN check: NaN scores not where the plain version has them")
+    check(bool(((idx >= 0) & (idx < Lq)).all()),
+          "NaN check: index outside the key grid")
+    check(s_err <= SCORE_TOL and idx_bad == 0 and msg_err <= KERNEL_TOL,
+          "NaN check: rows without a NaN disagree with the plain version")
+    check(torch.equal(idx[0, 13, :, 1], first),
+          "NaN check: the all-NaN row does not select in candidate order")
+
+
+def window_rows(torch, rows, gen, path, grid, C, H, train):
+    """Kernels B and C on a grid x grid cascade level (w = 5; window scores
+    over C channels, cross-attention with H heads of 32); for training with
+    C's log-sum-exp output, and B-bwd and C-bwd."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    corners = window_inputs(torch, gen, grid // 2)
+    w, D = 5, 32
+    P = corners.shape[1]
+    NC = 4 * w * w
+    q_blk = torch.randn((1, P, 4, C), generator=gen, device="cuda") * C ** -0.25
+    feat1 = torch.randn((1, grid, grid, C), generator=gen,
+                        device="cuda") * C ** -0.25
+    label = f"{grid}x{grid} C={C} w={w}"
+    desc = (f"q_blk {list(q_blk.shape)} feat1 {list(feat1.shape)} "
+            f"corners {list(corners.shape)}")
+    if not train:
+        kernel_row(torch, rows, "window_patch_score", label, path,
+                   lambda: wk.window_patch_score(q_blk, feat1, corners, w),
+                   lambda: wk.window_patch_score_plain(q_blk, feat1,
+                                                          corners, w),
+                   desc, nbytes(q_blk, feat1, corners) + P * 4 * NC * 4,
+                   P * 4 * NC * C * 2)
+    else:
+        g = torch.randn((1, P, 4, NC), generator=gen, device="cuda")
+        kernel_row(torch, rows, "window_patch_score", label, path,
+                   lambda: wk.window_patch_score(q_blk, feat1, corners, w),
+                   lambda: wk.window_patch_score_plain(q_blk, feat1,
+                                                          corners, w),
+                   desc, nbytes(q_blk, feat1, corners, g), P * 2 * 4 * NC * C)
+        kernel_row(torch, rows, "window_patch_score_bwd", label, path,
+                   lambda: wk.window_patch_score_bwd(q_blk, feat1,
+                                                        corners, g, w),
+                   lambda: wk.window_patch_score_bwd_plain(
+                       q_blk, feat1, corners, g, w),
+                   desc, nbytes(q_blk, feat1, corners, g, q_blk, feat1),
+                   P * 2 * (2 * 4 * NC * C), scattered=(1,))
+
+    q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
+                           device="cuda") for _ in range(3))
+    hw = (grid, grid)
+    desc = f"q/k/v {list(q.shape)} corners {list(corners.shape)}"
+    label = f"{grid}x{grid} H={H} D={D} w={w}"
+    if not train:
+        kernel_row(torch, rows, "window_cross_attention", label, path,
+                   lambda: wk.window_cross_attention(q, k, v, corners, hw,
+                                                        hw, w),
+                   lambda: wk.window_cross_attention_plain(
+                       q, k, v, corners, hw, hw, w),
+                   desc, nbytes(q, k, v, corners) + P * 4 * H * D * 4,
+                   attention_flops(P * H, NC, D))
+        return
+    out, lse = (t.contiguous() for t in wk.window_cross_attention_plain(
+        q, k, v, corners, hw, hw, w, with_lse=True))
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    kernel_row(torch, rows, "window_cross_attention", label + " with LSE",
+               path,
+               lambda: wk._launch_wca_fwd(q, k, v, corners, hw, hw, w,
+                                             True),
+               lambda: wk.window_cross_attention_plain(
+                   q, k, v, corners, hw, hw, w, with_lse=True),
+               desc, nbytes(q, k, v, corners, out, lse),
+               attention_flops(P * H, NC, D))
+    kernel_row(torch, rows, "window_cross_attention_bwd", label, path,
+               lambda: wk.window_cross_attention_bwd(
+                   q, k, v, corners, out, lse, g, hw, hw, w),
+               lambda: wk.window_cross_attention_bwd_plain(
+                   q, k, v, corners, out, lse, g, hw, hw, w),
+               desc, nbytes(q, k, v, corners, out, lse, g) + 3 * nbytes(q),
+               attention_flops(P * H, NC, D, backward=True), scattered=(1, 2))
+
+
 def kernel_phase(torch):
     from casmtr_tpu_torch.ops.kernels.quadtree_kernels import (
         quadtree_fine_attention, quadtree_fine_attention_plain)
-    from casmtr_tpu_torch.ops.kernels.window_kernels import (
-        window_cross_attention, window_cross_attention_plain,
-        window_patch_score, window_patch_score_plain)
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     path = "serving 832^2"
 
-    # kernel A at both fine levels
-    for label, ((q, k, v), ids, hw) in quadtree_inputs(torch, gen,
-                                                       104).items():
+    # kernel A at both fine levels (on the main path at the finest only)
+    levels = quadtree_inputs(torch, gen, 104)
+    for label, ((q, k, v), ids, hw) in levels.items():
         P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
         kernel_row(
             torch, rows, "quadtree_fine_attention", label, path,
@@ -269,52 +553,31 @@ def kernel_phase(torch):
             f"q/k/v {list(q.shape)} ids {list(ids.shape)}",
             nbytes(q, k, v, ids) + P * 4 * H * D * 4,
             attention_flops(P * H, 4 * K, D))
+    # kernel A′ at the intermediate level, top 16 of 128 candidates
+    inter, finest = levels.values()
+    topk_row(torch, rows, "intermediate 52x52", path, inter, finest, 16,
+             False)
+    topk_nan_check(torch, gen)
 
-    # kernel B: window scores, C = 128, w = 5 on the 208^2 grid
-    corners = window_inputs(torch, gen, 104)
-    C, w = 128, 5
-    P = corners.shape[1]
-    q_blk = torch.randn((1, P, 4, C), generator=gen, device="cuda") * C ** -0.25
-    feat1 = torch.randn((1, 208, 208, C), generator=gen,
-                        device="cuda") * C ** -0.25
-    kernel_row(torch, rows, "window_patch_score", "208x208 C=128 w=5", path,
-               lambda: window_patch_score(q_blk, feat1, corners, w),
-               lambda: window_patch_score_plain(q_blk, feat1, corners, w),
-               f"q_blk {list(q_blk.shape)} feat1 {list(feat1.shape)} "
-               f"corners {list(corners.shape)}",
-               nbytes(q_blk, feat1, corners) + P * 4 * 4 * w * w * 4,
-               P * 4 * 4 * w * w * C * 2)
-
-    # kernel C: window cross-attention, H = 4, D = 32, w = 5 on 208^2
-    H, D = 4, 32
-    q, k, v = (torch.randn((1, 208 * 208, H, D), generator=gen, device="cuda")
-               for _ in range(3))
-    hw = (208, 208)
-    kernel_row(torch, rows, "window_cross_attention", "208x208 H=4 D=32 w=5",
-               path,
-               lambda: window_cross_attention(q, k, v, corners, hw, hw, w),
-               lambda: window_cross_attention_plain(q, k, v, corners, hw, hw,
-                                                    w),
-               f"q/k/v {list(q.shape)} corners {list(corners.shape)}",
-               nbytes(q, k, v, corners) + P * 4 * H * D * 4,
-               attention_flops(P * H, 4 * w * w, D))
+    # kernels B and C at the 1/4 level, and at 2c's 1/2 level
+    window_rows(torch, rows, gen, path, 208, 128, 4, False)
+    window_rows(torch, rows, gen, path + " (2c)", 416, 64, 2, False)
     return rows
 
 
 def train_kernel_phase(torch):
-    """The kernels at the shapes of the 704^2 training step: kernels A and C
-    with their log-sum-exp output (written when a gradient will be needed),
-    and the three backward kernels, each against its plain version from the
-    same forward output, log-sum-exp and a random cotangent."""
+    """The kernels at the shapes of the 704^2 training step: kernels A, A′
+    and C with their log-sum-exp output (written when a gradient will be
+    needed), and the three backward kernels, each against its plain version
+    from the same forward output, log-sum-exp and a random cotangent."""
     from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
-    from casmtr_tpu_torch.ops.kernels import window_kernels as wk_
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     path = "train 704^2"
     g8 = TRAIN_SIZE // 8
 
-    for label, ((q, k, v), ids, hw) in quadtree_inputs(torch, gen,
-                                                       g8).items():
+    levels = quadtree_inputs(torch, gen, g8)
+    for label, ((q, k, v), ids, hw) in levels.items():
         P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
         out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
             q, k, v, ids, hw, hw, with_lse=True))
@@ -322,7 +585,7 @@ def train_kernel_phase(torch):
         desc = f"q/k/v {list(q.shape)} ids {list(ids.shape)}"
         kernel_row(
             torch, rows, "quadtree_fine_attention", label + " with LSE", path,
-            lambda: qk_._launch_fwd(q, k, v, ids, hw, hw, True),
+            lambda: qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2],
             lambda: qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw,
                                                       with_lse=True),
             desc, nbytes(q, k, v, ids, out, lse),
@@ -335,55 +598,13 @@ def train_kernel_phase(torch):
                 q, k, v, ids, out, lse, g, hw, hw),
             desc, nbytes(q, k, v, ids, out, lse, g) + 3 * nbytes(q),
             attention_flops(P * H, 4 * K, D, backward=True), scattered=(1, 2))
+    inter, finest = levels.values()
+    topk_row(torch, rows, f"intermediate {g8 // 2}x{g8 // 2} with LSE", path,
+             inter, finest, 16, True)
 
-    corners = window_inputs(torch, gen, g8)
-    g4 = TRAIN_SIZE // 4
-    C, w = 128, 5
-    P = corners.shape[1]
-    NC = 4 * w * w
-    q_blk = torch.randn((1, P, 4, C), generator=gen, device="cuda") * C ** -0.25
-    feat1 = torch.randn((1, g4, g4, C), generator=gen,
-                        device="cuda") * C ** -0.25
-    g = torch.randn((1, P, 4, NC), generator=gen, device="cuda")
-    kernel_row(torch, rows, "window_patch_score", f"{g4}x{g4} C={C} w={w}",
-               path, lambda: wk_.window_patch_score(q_blk, feat1, corners, w),
-               lambda: wk_.window_patch_score_plain(q_blk, feat1, corners, w),
-               f"q_blk {list(q_blk.shape)} feat1 {list(feat1.shape)} "
-               f"corners {list(corners.shape)}",
-               nbytes(q_blk, feat1, corners, g), P * 2 * 4 * NC * C)
-    kernel_row(torch, rows, "window_patch_score_bwd",
-               f"{g4}x{g4} C={C} w={w}", path,
-               lambda: wk_.window_patch_score_bwd(q_blk, feat1, corners, g, w),
-               lambda: wk_.window_patch_score_bwd_plain(q_blk, feat1, corners,
-                                                        g, w),
-               f"q_blk {list(q_blk.shape)} feat1 {list(feat1.shape)} "
-               f"corners {list(corners.shape)}",
-               nbytes(q_blk, feat1, corners, g, q_blk, feat1),
-               P * 2 * (2 * 4 * NC * C), scattered=(1,))
-
-    H, D = 4, 32
-    q, k, v = (torch.randn((1, g4 * g4, H, D), generator=gen, device="cuda")
-               for _ in range(3))
-    hw = (g4, g4)
-    out, lse = (t.contiguous() for t in wk_.window_cross_attention_plain(
-        q, k, v, corners, hw, hw, w, with_lse=True))
-    g = torch.randn(out.shape, generator=gen, device="cuda")
-    desc = f"q/k/v {list(q.shape)} corners {list(corners.shape)}"
-    label = f"{g4}x{g4} H={H} D={D} w={w}"
-    kernel_row(torch, rows, "window_cross_attention", label + " with LSE",
-               path,
-               lambda: wk_._launch_wca_fwd(q, k, v, corners, hw, hw, w, True),
-               lambda: wk_.window_cross_attention_plain(q, k, v, corners, hw,
-                                                        hw, w, with_lse=True),
-               desc, nbytes(q, k, v, corners, out, lse),
-               attention_flops(P * H, NC, D))
-    kernel_row(torch, rows, "window_cross_attention_bwd", label, path,
-               lambda: wk_.window_cross_attention_bwd(q, k, v, corners, out,
-                                                      lse, g, hw, hw, w),
-               lambda: wk_.window_cross_attention_bwd_plain(
-                   q, k, v, corners, out, lse, g, hw, hw, w),
-               desc, nbytes(q, k, v, corners, out, lse, g) + 3 * nbytes(q),
-               attention_flops(P * H, NC, D, backward=True), scattered=(1, 2))
+    window_rows(torch, rows, gen, path, TRAIN_SIZE // 4, 128, 4, True)
+    window_rows(torch, rows, gen, path + " (2c)", TRAIN_SIZE // 2, 64, 2,
+                True)
     return rows
 
 
@@ -392,8 +613,8 @@ def finite_difference_phase(torch):
     backward kernel gives for sum(out * cot), along a random direction,
     against the central difference of its forward kernel (evaluated in
     float32, summed in float64)."""
-    from casmtr_tpu_torch.ops.kernels.quadtree_kernels import \
-        quadtree_fine_attention
+    from casmtr_tpu_torch.ops.kernels.quadtree_kernels import (
+        quadtree_fine_attention, quadtree_fine_topk)
     from casmtr_tpu_torch.ops.kernels.window_kernels import (
         window_cross_attention, window_patch_score)
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -410,6 +631,11 @@ def finite_difference_phase(torch):
         # block ids may repeat within one (parent, head)
         "QuadtreeFineAttention": (
             lambda q, k, v, i: quadtree_fine_attention(q, k, v, i, hw, hw),
+            [randn(1, 96, 2, 8) for _ in range(3)],
+            [randint(24, 1, 24, 3, 2)]),
+        # the message of kernel A′ (its selection carries no gradient)
+        "QuadtreeFineAttention with topk": (
+            lambda q, k, v, i: quadtree_fine_topk(q, k, v, i, hw, hw, 4)[0],
             [randn(1, 96, 2, 8) for _ in range(3)],
             [randint(24, 1, 24, 3, 2)]),
         "WindowPatchScore": (
@@ -484,13 +710,14 @@ def requests(rng):
     return out
 
 
-def serving_phase(torch):
+def serving_phase(torch, recipe):
     from casmtr_tpu_torch.ops import kernels
     from casmtr_tpu_torch.serving import Matcher
     t0 = time.perf_counter()
-    matcher = Matcher("outdoor_casmtr_4c", bucket=832, seed=0)
+    matcher = Matcher(recipe, bucket=832, seed=0)
     n_params = sum(p.numel() for p in matcher.model.parameters())
-    log(f"serving: Matcher('outdoor_casmtr_4c', bucket=832) on "
+    expected = LAUNCHES_PER_PAIR[recipe]
+    log(f"serving: Matcher('{recipe}', bucket=832) on "
         f"{matcher.device}, {n_params} parameters (seeded random), built in "
         f"{time.perf_counter() - t0:.1f} s")
     reqs = requests(np.random.default_rng(0))
@@ -516,17 +743,18 @@ def serving_phase(torch):
                          res.mkpts0[:, 1].max() <= h0),
               "serving: keypoints outside image0")
         tag = "warm-up" if i == 0 else "steady"
-        log(f"serving: request {i} ({tag}) {name}: {ms:.1f} ms, {n} matches "
-            f"at thr {matcher.thr}, kernel launches {counts}")
-        check(counts == LAUNCHES_PER_PAIR,
-              f"serving: launches {counts}, expected {LAUNCHES_PER_PAIR}")
+        log(f"serving: {recipe} request {i} ({tag}) {name}: {ms:.1f} ms, {n} "
+            f"matches at thr {matcher.thr}, kernel launches {counts}")
+        check(counts == expected,
+              f"serving: {recipe} launches {counts}, expected {expected}")
     totals = dict(kernels.LAUNCHES)
-    log(f"serving: launches over the {len(reqs)} requests {totals}; peak "
-        f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"serving: {recipe} launches over the {len(reqs)} requests {totals}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for k, v in totals.items():
-        check(v > 0 or LAUNCHES_PER_PAIR[k] == 0,
-              f"serving: kernel {k} never launched on the main path")
-    return totals, matcher, reqs[1]
+        check(v > 0 or expected[k] == 0,
+              f"serving: {recipe}: kernel {k} never launched on the main path")
+    return totals, counts, matcher, reqs[1]
 
 
 def top(avgs, keep, n):
@@ -539,10 +767,11 @@ def top(avgs, keep, n):
     return rows[:n], sum(r[0] for r in rows)
 
 
-def profile_phase(torch, matcher, request):
+def profile_phase(torch, recipe, matcher, request, conv_ab=False):
     """One more steady request under torch.profiler: device time summed over
     the request's kernels against its wall time, and device time by
-    operator (the convolutions also by input shape) and by kernel."""
+    operator (the convolutions also by input shape) and by kernel; with
+    ``conv_ab`` also the FPN conv's cuDNN algorithm choices."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     name, img0, img1 = request
@@ -563,8 +792,11 @@ def profile_phase(torch, matcher, request):
                  and e.self_device_time_total > 0, 10)
     convs, _ = top(prof.key_averages(group_by_input_shape=True),
                    lambda e: e.key == "aten::cudnn_convolution", 6)
-    log(f"profile: request {name} under the profiler: wall {wall:.1f} ms, "
-        f"device time summed over kernels {busy:.1f} ms")
+    ours, ours_ms = top(avgs, lambda e: e.device_type == DeviceType.CUDA
+                        and "casmtr::" in e.key, 7)
+    log(f"profile: {recipe} request {name} under the profiler: wall "
+        f"{wall:.1f} ms, device time summed over kernels {busy:.1f} ms, of "
+        f"which the CUDA kernels of this port {ours_ms:.1f} ms")
     for ms, n, key, _ in ops:
         log(f"profile: op     {ms:8.3f} ms {n:5d}x {key}")
     for ms, n, key, shapes in convs:
@@ -572,7 +804,10 @@ def profile_phase(torch, matcher, request):
             f"{shapes[:2]}")
     for ms, n, key, _ in kern:
         log(f"profile: kernel {ms:8.3f} ms {n:5d}x {key[:80]}")
-    conv_algorithm_ab()
+    for ms, n, key, _ in ours:
+        log(f"profile: ours   {ms:8.3f} ms {n:5d}x {key.split('(')[0]}")
+    if conv_ab:
+        conv_algorithm_ab()
 
 
 # cuDNN caches the algorithm it first picks for a convolution's shapes,
@@ -616,17 +851,24 @@ def conv_algorithm_ab():
 # phase 6: the card against the CPU on a small input
 # --------------------------------------------------------------------------
 
-def reference_phase(torch):
+def zero_threshold_overrides(recipe):
+    """Every match threshold of the recipe at 0, so every stage matches."""
+    n = 2 if recipe.endswith("2c") else 1
+    return {"loftr": {"match_coarse": {"thr": 0.0}, "match_cascade": {
+        "test_thr": [0.0] * n,
+        "pre_thr": [[0.0] * (i + 1) for i in range(n)]}}}
+
+
+def reference_phase(torch, recipe):
     from casmtr_tpu_torch.serving import Matcher
-    ov = {"loftr": {"match_coarse": {"thr": 0.0},
-                    "match_cascade": {"test_thr": [0.0], "pre_thr": [[0.0]]}}}
     rng = np.random.default_rng(1)
     big = texture(rng, 300, 300)
     img0, img1 = big[:256, :256], big[7:263, 5:261]
     outs = {}
     for dev in ("cuda", "cpu"):
-        m = Matcher("outdoor_casmtr_4c", bucket=256, thr=0.0, overrides=ov,
-                    device=dev, seed=0)
+        m = Matcher(recipe, bucket=256, thr=0.0,
+                    overrides=zero_threshold_overrides(recipe), device=dev,
+                    seed=0)
         batch = m._pack([(img0, img1)])
         with torch.inference_mode():
             out = m.model(batch)
@@ -634,8 +876,9 @@ def reference_phase(torch):
     gc, cc = outs["cuda"], outs["cpu"]
     conf_err = float((gc.coarse.conf_matrix.cpu()
                       - cc.coarse.conf_matrix).abs().max())
-    cas_err = float((gc.cascades["4c"].conf_matrix.cpu()
-                     - cc.cascades["4c"].conf_matrix).abs().max())
+    cas_err = {lvl: float((gc.cascades[lvl].conf_matrix.cpu()
+                           - cc.cascades[lvl].conf_matrix).abs().max())
+               for lvl in cc.cascades}
 
     def by_pair(fm):
         v = fm.valid.cpu().numpy()
@@ -650,14 +893,16 @@ def reference_phase(torch):
     jac = len(common) / max(1, len(kg.keys() | kc.keys()))
     px_err = max((float(np.abs(pg[kg[k]] - pc[kc[k]]).max()) for k in common),
                  default=0.0)
-    log(f"reference: bucket 256, thresholds 0, card vs CPU: coarse conf "
-        f"max_abs_err {conf_err:.3e}, 1/4 window conf max_abs_err "
-        f"{cas_err:.3e} (tol {CONF_TOL:g}); final matches "
-        f"{len(kg)} vs {len(kc)}, Jaccard {jac:.4f} (min {MIN_JACCARD}); "
-        f"mkpts1 max err on common {px_err:.3e} px (tol {PX_TOL:g})")
+    log(f"reference: {recipe} bucket 256, thresholds 0, card vs CPU: coarse "
+        f"conf max_abs_err {conf_err:.3e}, window conf max_abs_err "
+        + ", ".join(f"{lvl} {e:.3e}" for lvl, e in cas_err.items())
+        + f" (tol {CONF_TOL:g}); final matches {len(kg)} vs {len(kc)}, "
+        f"Jaccard {jac:.4f} (min {MIN_JACCARD}); mkpts1 max err on common "
+        f"{px_err:.3e} px (tol {PX_TOL:g})")
     check(len(kc) > 0, "reference: no final matches on the CPU")
     check(conf_err <= CONF_TOL, "reference: coarse confidences disagree")
-    check(cas_err <= CONF_TOL, "reference: window confidences disagree")
+    check(max(cas_err.values()) <= CONF_TOL,
+          "reference: window confidences disagree")
     check(jac >= MIN_JACCARD, "reference: final match sets disagree")
     check(px_err <= PX_TOL, "reference: final keypoints disagree")
 
@@ -688,23 +933,24 @@ def train_batch(size, seed):
 
 
 def kernel_grad_params(model):
-    """The q/k/v projections whose gradients go through kernels A-bwd (the
-    six 1/8 quadtree layers) and C-bwd (the two 1/4 cross layers)."""
+    """The q/k/v projections whose gradients go through kernel A-bwd (the
+    six 1/8 quadtree layers, kernels A and A′) and C-bwd (the two cross
+    layers of each cascade level)."""
     return [n for n, _ in model.named_parameters()
-            if n.split(".")[0] in ("loftr_coarse_8c", "loftr_coarse_4c")
+            if n.split(".")[0] in ("loftr_coarse_8c", "loftr_coarse_4c",
+                                   "loftr_coarse_2c")
             and n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")]
 
 
-def build_trainer(torch, size, device=None, model=None):
-    """outdoor_casmtr_4c at ``size`` with seeded random weights (or a copy
-    of ``model``), its optimizer state and its step."""
+def build_trainer(torch, recipe, size, device=None, model=None):
+    """``recipe`` at ``size`` with seeded random weights (or a copy of
+    ``model``), its optimizer state and its step."""
     from casmtr_tpu_torch.configs import build_config
     from casmtr_tpu_torch.models import build_model
     from casmtr_tpu_torch.train.train_step import (init_train_state,
                                                    make_train_step)
     from casmtr_tpu_torch.weights import init_random_
-    cfg = build_config("outdoor_casmtr_4c",
-                       overrides={"loftr": {"train_size": size}})
+    cfg = build_config(recipe, overrides={"loftr": {"train_size": size}})
     if model is None:
         model = build_model(cfg.loftr)
         init_random_(model, torch.Generator().manual_seed(0))
@@ -713,13 +959,16 @@ def build_trainer(torch, size, device=None, model=None):
     return model, state, make_train_step(model, cfg, tx, device=device)
 
 
-def training_phase(torch):
+def training_phase(torch, recipe):
     from casmtr_tpu_torch.ops import kernels
-    model, state, step = build_trainer(torch, TRAIN_SIZE)
+    model, state, step = build_trainer(torch, recipe, TRAIN_SIZE)
+    levels = [f"{lvl}c" for lvl in model.config.cascade_levels]
+    expected = LAUNCHES_PER_TRAIN_STEP[recipe]
     n_params = sum(p.numel() for p in model.parameters())
     watch = kernel_grad_params(model)
-    check(len(watch) == 24, f"training: {len(watch)} kernel-path q/k/v "
-          "projections, expected 24")
+    n_watch = 18 + 6 * len(levels)
+    check(len(watch) == n_watch, f"training: {len(watch)} kernel-path q/k/v "
+          f"projections, expected {n_watch}")
     params = dict(model.named_parameters())
     start = {n: params[n].detach().clone() for n in watch}
     batch = train_batch(TRAIN_SIZE, 0)
@@ -727,7 +976,7 @@ def training_phase(torch):
     t0 = time.perf_counter()
     state, scalars = step(state, batch)
     torch.cuda.synchronize()
-    log(f"training: outdoor_casmtr_4c {TRAIN_SIZE}^2 batch 1, {n_params} "
+    log(f"training: {recipe} {TRAIN_SIZE}^2 batch 1, {n_params} "
         f"parameters (seeded random), warm-up step "
         f"{time.perf_counter() - t0:.2f} s, loss {float(scalars['loss']):.4f}")
     torch.cuda.reset_peak_memory_stats()
@@ -742,15 +991,16 @@ def training_phase(torch):
         times.append(time.perf_counter() - t0)
         counts = {k: kernels.LAUNCHES[k] - before[k] for k in before}
         vals = {k: float(v) for k, v in scalars.items()}
-        log(f"training: step {i + 1}: {times[-1]:.4f} s, "
+        log(f"training: {recipe} step {i + 1}: {times[-1]:.4f} s, "
             + ", ".join(f"{k} {v:.4g}" for k, v in sorted(vals.items()))
             + f", kernel launches {counts}")
         check(all(np.isfinite(v) for v in vals.values()),
               "training: non-finite loss or gradient norm")
-        check(vals["valid_n_4c"] > 0, "training: no 1/4 match to supervise")
-        check(counts == LAUNCHES_PER_TRAIN_STEP,
-              f"training: launches {counts}, expected "
-              f"{LAUNCHES_PER_TRAIN_STEP}")
+        for lvl in levels:
+            check(vals[f"valid_n_{lvl}"] > 0,
+                  f"training: no {lvl} match to supervise")
+        check(counts == expected,
+              f"training: {recipe} launches {counts}, expected {expected}")
         for n in watch:
             g = params[n].grad
             check(g is not None and bool(torch.isfinite(g).all())
@@ -763,14 +1013,16 @@ def training_phase(torch):
           "projections did not move")
     for k, v in totals.items():
         check(v > 0, f"training: kernel {k} never launched on the main path")
-    log(f"training: median {statistics.median(times):.4f} s/step over "
-        f"{len(times)} steps, peak device memory {peak:.2f} GiB, launches "
-        f"over the {len(times)} steps {totals}; the reference's own GPU "
-        f"step, for context only: {REFERENCE_S_PER_STEP} s (fp16, bench.py)")
-    return totals, step, state, batch, statistics.median(times)
+    log(f"training: {recipe} median {statistics.median(times):.4f} s/step "
+        f"over {len(times)} steps, peak device memory {peak:.2f} GiB, "
+        f"launches over the {len(times)} steps {totals}"
+        + ("; the reference's own 4c GPU step, for context only: "
+           f"{REFERENCE_S_PER_STEP} s (fp16, bench.py)"
+           if len(levels) == 1 else ""))
+    return totals, counts, step, state, batch, statistics.median(times)
 
 
-def train_profile_phase(torch, step, state, batch, median_s):
+def train_profile_phase(torch, recipe, step, state, batch, median_s):
     """One more training step under torch.profiler: device time summed over
     its kernels against its wall time (the host's and the idle share), and
     device time by operator and by kernel."""
@@ -791,12 +1043,12 @@ def train_profile_phase(torch, step, state, batch, median_s):
         return
     ops, _ = top(avgs, lambda e: e.key.startswith("aten::")
                  and e.self_device_time_total > 0, 12)
-    log(f"training profile: one step: wall {wall:.1f} ms under the "
+    log(f"training profile: {recipe} one step: wall {wall:.1f} ms under the "
         f"profiler, device time summed over kernels {busy:.1f} ms; idle "
         f"share {1 - busy / wall:.3f} of the profiled step, "
         f"{1 - busy / (median_s * 1e3):.3f} of the median unprofiled step")
     ours, ours_ms = top(avgs, lambda e: e.device_type == DeviceType.CUDA
-                        and e.key.startswith("casmtr::"), 6)
+                        and "casmtr::" in e.key, 7)
     for ms, n, key, _ in ops:
         log(f"training profile: op     {ms:8.3f} ms {n:5d}x {key}")
     for ms, n, key, _ in kern:
@@ -804,18 +1056,18 @@ def train_profile_phase(torch, step, state, batch, median_s):
     for ms, n, key, _ in ours:
         log(f"training profile: ours   {ms:8.3f} ms {n:5d}x "
             f"{key.split('(')[0]}")
-    log(f"training profile: the six CUDA kernels {ours_ms:.1f} ms of the "
+    log(f"training profile: the port's CUDA kernels {ours_ms:.1f} ms of the "
         f"{busy:.1f} ms of device time")
 
 
-def train_reference_phase(torch):
+def train_reference_phase(torch, recipe):
     """One step of the full-width model at 256^2 on the card and on the CPU
     (the kernels' plain versions) from the same weights and batch."""
     size = 256
-    base, _, _ = build_trainer(torch, size, device="cpu")
+    base, _, _ = build_trainer(torch, recipe, size, device="cpu")
     res = {}
     for dev in ("cuda", "cpu"):
-        model, state, step = build_trainer(torch, size, device=dev,
+        model, state, step = build_trainer(torch, recipe, size, device=dev,
                                            model=copy.deepcopy(base))
         t0 = time.perf_counter()
         _, scalars = step(state, train_batch(size, 1))
@@ -834,10 +1086,12 @@ def train_reference_phase(torch):
     worst, worst_name = max(
         (float((gg[n] - gc[n]).norm()) / max(float(gc[n].norm()), floor), n)
         for n in gc)
-    log(f"training reference: {size}^2, one step, card vs CPU: loss "
-        f"{sg['loss']:.6f} vs {sc['loss']:.6f} (relative {rel_loss:.2e}, "
-        f"tol {TRAIN_LOSS_RTOL:g}); valid_n_4c {sg['valid_n_4c']:.0f} vs "
-        f"{sc['valid_n_4c']:.0f}; gradient cosine {cos:.6f} (min "
+    valid = ", ".join(f"{k} {sg[k]:.0f} vs {sc[k]:.0f}" for k in sorted(sc)
+                      if k.startswith("valid_n_"))
+    log(f"training reference: {recipe} {size}^2, one step, card vs CPU: "
+        f"loss {sg['loss']:.6f} vs {sc['loss']:.6f} (relative "
+        f"{rel_loss:.2e}, tol {TRAIN_LOSS_RTOL:g}); {valid}; gradient "
+        f"cosine {cos:.6f} (min "
         f"{MIN_GRAD_COS}); worst per-leaf relative error {worst:.2e} "
         f"({worst_name}, not gated); step {tg:.2f} s on the card, {tc:.2f} s "
         f"on the CPU")
@@ -885,24 +1139,40 @@ def main():
     rows = timed("kernels", kernel_phase, torch)
     train_rows = timed("training kernels", train_kernel_phase, torch)
     timed("finite difference", finite_difference_phase, torch)
-    totals, matcher, request = timed("serving", serving_phase, torch)
-    for row in rows:
-        row["launches"] = totals[row["name"]]
-    timed("profile", profile_phase, torch, matcher, request)
-    del matcher
-    timed("reference", reference_phase, torch)
-    torch.cuda.empty_cache()
-    train_totals, step, state, batch, median_s = timed(
-        "training", training_phase, torch)
-    for row in train_rows:
-        row["launches"] = train_totals[row["name"]]
-        row["launches_per_step"] = LAUNCHES_PER_TRAIN_STEP[row["name"]]
-    timed("training profile", train_profile_phase, torch, step, state, batch,
-          median_s)
-    del step, state
-    torch.cuda.empty_cache()
-    timed("training reference", train_reference_phase, torch)
+    serve_totals, per_pair = {}, {}
+    for recipe in RECIPES:
+        totals, per_pair[recipe], matcher, request = timed(
+            f"serving {recipe}", serving_phase, torch, recipe)
+        serve_totals[recipe] = totals
+        timed(f"profile {recipe}", profile_phase, torch, recipe, matcher,
+              request, recipe == RECIPES[0])
+        del matcher
+        torch.cuda.empty_cache()
+    for recipe in RECIPES:
+        timed(f"reference {recipe}", reference_phase, torch, recipe)
+    train_totals, per_step = {}, {}
+    for recipe in RECIPES:
+        totals, per_step[recipe], step, state, batch, median_s = timed(
+            f"training {recipe}", training_phase, torch, recipe)
+        train_totals[recipe] = totals
+        timed(f"training profile {recipe}", train_profile_phase, torch,
+              recipe, step, state, batch, median_s)
+        del step, state
+        torch.cuda.empty_cache()
+    for recipe in RECIPES:
+        timed(f"training reference {recipe}", train_reference_phase, torch,
+              recipe)
 
+    # launches: the main paths' counts, summed over the recipes' runs, and
+    # each recipe's count in its last request and its last step
+    for row in rows:
+        row["launches"] = sum(t[row["name"]] for t in serve_totals.values())
+        row["launches_per_pair"] = {r: per_pair[r][row["name"]]
+                                    for r in RECIPES}
+    for row in train_rows:
+        row["launches"] = sum(t[row["name"]] for t in train_totals.values())
+        row["launches_per_step"] = {r: per_step[r][row["name"]]
+                                    for r in RECIPES}
     log(json.dumps({"kernels": rows + train_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

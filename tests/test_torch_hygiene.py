@@ -17,7 +17,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "casmtr_tpu_torch")
 KERNEL_WRAPPERS = {
     "quadtree_kernels.py": ("quadtree_fine_attention",
-                            "quadtree_fine_attention_bwd"),
+                            "quadtree_fine_attention_bwd",
+                            "quadtree_fine_topk"),
     "window_kernels.py": ("window_patch_score", "window_cross_attention",
                           "window_patch_score_bwd",
                           "window_cross_attention_bwd"),

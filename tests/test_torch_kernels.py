@@ -111,9 +111,10 @@ def test_quadtree_fine_wrapper_takes_plain_on_cpu():
 
 
 def test_intermediate_level_selection_matches_by_message():
-    """The intermediate level's top-k selection (plain torch) picks the same
-    children as the JAX gather path.  Compared through the next level's
-    message, which does not depend on the order of the selected ids."""
+    """The intermediate level's top-k selection (kernel A′'s plain version
+    on the CPU) picks the same children as the JAX gather path.  Compared
+    through the next level's message, which does not depend on the order
+    of the selected ids."""
     hw, hw_next, topk = (8, 8), (16, 16), 4
     q, k, v, ids = _fine_case(3, 1, 2, 8, hw, hw, 3)
     msg_t, sel_t = tqt._fine_level_b(_t(q), _t(k), _t(v), _t(ids), topk, hw,

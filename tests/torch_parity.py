@@ -1,6 +1,7 @@
 """Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
-tiny CasMTR-4c configuration built in both packages, and flax variables made
-non-trivial and handed to the port as nested dicts of numpy arrays."""
+tiny CasMTR-4c and CasMTR-2c configurations built in both packages, and flax
+variables made non-trivial and handed to the port as nested dicts of numpy
+arrays."""
 
 import jax
 import numpy as np
@@ -30,12 +31,35 @@ def tiny_4c_overrides(train_size: int = 128, zero_thresholds: bool = False):
     return {"loftr": loftr}
 
 
-def configs(overrides):
+def tiny_2c_overrides(train_size: int = 128, zero_thresholds: bool = False):
+    """``_tiny_model_overrides((4, 2))`` of __graft_entry__ with the train
+    size on top (the full 2c wiring at tiny widths); ``zero_thresholds``
+    lets every stage yield matches."""
+    ov = tiny_4c_overrides(train_size)
+    loftr = ov["loftr"]
+    loftr.update(cascade_levels=[4, 2], training_stage=3,
+                 fine_concat_coarse_feat=False)
+    loftr["coarse3"] = {"d_model": 8, "nhead": 2, "window_size": 3,
+                        "attn_window_size": 3,
+                        "layer_names": ["cross", "self"]}
+    loftr["match_cascade"] = {
+        "thr": [0.0, 0.0], "pre_thr": [[0.0], [0.0, 0.0]],
+        "test_thr": [0.2, 0.2], "border_rm": [2, 2],
+        "double_check": [True, True], "match_type": ["softmax"] * 2,
+        "dsmax_temperature": [1.0, 1.0],
+        "train_pad_num_gt_min": [16, 16], "max_matches": [32, 32]}
+    if zero_thresholds:
+        loftr["match_coarse"]["thr"] = 0.0
+        loftr["match_cascade"]["test_thr"] = [0.0, 0.0]
+    return ov
+
+
+def configs(overrides, recipe: str = "outdoor_casmtr_4c"):
     """The same recipe built by both packages: (jax_cfg, torch_cfg)."""
     from casmtr_tpu.configs import build_config as jax_build
     from casmtr_tpu_torch.configs import build_config as torch_build
-    return (jax_build("outdoor_casmtr_4c", overrides=overrides),
-            torch_build("outdoor_casmtr_4c", overrides=overrides))
+    return (jax_build(recipe, overrides=overrides),
+            torch_build(recipe, overrides=overrides))
 
 
 def jitter(variables, seed: int = 0):
