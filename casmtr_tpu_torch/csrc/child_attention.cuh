@@ -1,7 +1,7 @@
-// Shared warp routine of the two attention kernels (quadtree_fine.cu and
-// window_attention.cu): one warp computes, for one (batch, parent block,
-// head), the softmax attention of the parent's four 2x2 child queries over
-// NC candidate key rows whose flat positions the caller has put in `pos`.
+// Warp routine of the quadtree attention kernels A and A' (quadtree_fine.cu):
+// one warp computes, for one (batch, parent block, head), the softmax
+// attention of the parent's four 2x2 child queries over NC candidate key
+// rows whose flat positions the caller has put in `pos`.
 //
 // Layout: q/k/v rows are [H, D] f32 per token; the caller passes pointers
 // already offset to (batch, token 0, head h), so row r starts at

@@ -1,8 +1,8 @@
-// Shared warp routine of the two attention backward kernels
-// (quadtree_fine_bwd.cu and window_attention_bwd.cu): one warp computes, for
-// one (batch, parent block, head), the gradients of the softmax attention of
-// child_attention.cuh with respect to the parent's four child query rows and
-// the NC candidate key and value rows whose flat positions are in `pos`.
+// Warp routine of the quadtree attention backward kernel A-bwd
+// (quadtree_fine_bwd.cu): one warp computes, for one (batch, parent block,
+// head), the gradients of the softmax attention of child_attention.cuh with
+// respect to the parent's four child query rows and the NC candidate key
+// and value rows whose flat positions are in `pos`.
 //
 // Layout as in child_attention.cuh: q/k/v and dq/dk/dv rows are [H, D] f32
 // per token, passed offset to (batch, token 0, head h), row r at

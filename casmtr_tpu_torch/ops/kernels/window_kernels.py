@@ -222,7 +222,7 @@ def window_cross_attention_bwd_plain(q, k, v, corners, out, lse, g,
             dv.reshape(v.shape))
 
 
-def _check_wca(q, k, v, corners, hw_q, hw_k):
+def _check_wca(q, k, v, corners, hw_q, hw_k, w: int):
     """Kernel C's argument contract (CUDA tensors only)."""
     h0, w0 = hw_q
     h1, w1 = hw_k
@@ -231,6 +231,8 @@ def _check_wca(q, k, v, corners, hw_q, hw_k):
     if h0 % 2 or w0 % 2:
         raise ValueError(f"window_cross_attention: query grid {hw_q} must "
                          "have even sides")
+    if w < 1:
+        raise ValueError(f"window_cross_attention: window {w} < 1")
     dev = q.device
     kernels.check_cuda(q, "q", (B, h0 * w0, H, D), torch.float32, dev)
     kernels.check_cuda(k, "k", (B, h1 * w1, H, D), torch.float32, dev)
@@ -240,7 +242,7 @@ def _check_wca(q, k, v, corners, hw_q, hw_k):
 
 
 def _launch_wca_fwd(q, k, v, corners, hw_q, hw_k, w: int, with_lse: bool):
-    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k)
+    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k, w)
     out = torch.empty((B, P, 4, H, D), device=q.device, dtype=torch.float32)
     lse = (torch.empty((B, P, 4, H), device=q.device, dtype=torch.float32)
            if with_lse else None)
@@ -254,7 +256,7 @@ def _launch_wca_fwd(q, k, v, corners, hw_q, hw_k, w: int, with_lse: bool):
 
 
 def _launch_wca_bwd(q, k, v, corners, out, lse, g, hw_q, hw_k, w: int):
-    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k)
+    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k, w)
     kernels.check_cuda(out, "out", (B, P, 4, H, D), torch.float32, q.device)
     kernels.check_cuda(lse, "lse", (B, P, 4, H), torch.float32, q.device)
     kernels.check_cuda(g, "grad_out", (B, P, 4, H, D), torch.float32,

@@ -23,17 +23,28 @@ full width.  Phases, each printing its own lines and its seconds:
    index sets within 1e-4 on those rows; A′ also on rows that hold a NaN
    (no fault, the NaN passed on, the other rows as the plain version).
    Kernel and plain version are timed with CUDA events (median of 25
-   launches, L2 flushed before each), beside the least time the card needs
-   for the same work; A′ also beside the unfused route (kernel A plus a
-   plain top-k selection).
+   launches, L2 flushed before each, the card held busy while the host
+   enqueues the call), beside the least time the card needs
+   for the same work and a library yardstick, one PyTorch call on inputs
+   gathered beforehand (gather not timed; checked against the plain
+   version first): scaled_dot_product_attention, pinned to its
+   memory-efficient backend (float32), over the gathered windows for A and
+   C, torch.matmul against the gathered patch for B; A′ also beside the
+   unfused route (kernel A plus a plain top-k selection).
 3. Training kernels: the same at the shapes of the 704^2 training step for
    the forward kernels with their log-sum-exp output and for the three
    backward kernels (A-bwd at 88^2 and 44^2; B, B-bwd, C and C-bwd at 176^2
-   and at 2c's 352^2).  dq within 1e-4; the atomically summed dk, dv and
-   dfeat1 within 1e-4 x max(1, max |plain|).  Then each autograd function
-   on the card at a tiny shape: its kernel gradient against a central
-   finite difference of its kernel forward along a random direction
-   (float32 forward, so within 1e-2 relative).
+   and at 2c's 352^2; the yardstick of A-bwd and C-bwd is the backward of
+   the forward's).  dq within 1e-4; the atomically summed dk, dv and
+   dfeat1 within 1e-4 x max(1, max |plain|).  C and C-bwd also at 176^2 on
+   corners whose patches run past the grid edge or are negative (the flat
+   clipped-gather rule), against the plain versions, and through their
+   public wrappers on tiny cases that take every instance of the two
+   kernels (WINDOW_CASES: other H and D, misaligned inputs, w = 1, a batch
+   of two).  Then each autograd
+   function on the card at a tiny shape: its kernel gradient against a
+   central finite difference of its kernel forward along a random
+   direction (float32 forward, so within 1e-2 relative).
 4. Serving: Matcher(recipe, bucket=832) at full width on the card with
    seeded random weights answers three requests (textured images and
    shifted copies, one non-square), for 4c and then 2c.  The kernels'
@@ -83,6 +94,9 @@ FD_TOL = 1e-2       # relative: the kernels' float32 outputs round at 1e-7
 TRAIN_LOSS_RTOL = 1e-4   # one training step, card vs CPU
 MIN_GRAD_COS = 0.999     # whole flattened gradient, card vs CPU
 REFERENCE_S_PER_STEP = 1.19  # the reference's own 4c GPU step (fp16), bench.py
+
+HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than the
+                         # host takes to enqueue one kernel wrapper
 
 # H100 SXM published peaks: HBM3 bytes/s and
 # float32 FLOP/s outside the tensor cores, at the full 700 W limit.
@@ -144,8 +158,33 @@ LAUNCHES_PER_TRAIN_STEP = {"outdoor_casmtr_4c": per_step(1),
                            "outdoor_casmtr_2c": per_step(2)}
 TRAIN_SIZE = 704
 TRAIN_SHIFT = (16, 24)   # (dy, dx) pixels from image0 to image1
-NO_LIBRARY = ("no single PyTorch call computes attention over gathered "
-              "candidate sets, its gradient, or a top-k fused into it")
+# The library yardstick of each row: one PyTorch call on inputs gathered
+# beforehand (the gather is not timed).  scaled_dot_product_attention takes
+# float32 only in its memory-efficient and math backends; it is pinned to
+# the first.  The port never calls any of these.
+SDPA_BACKEND = "EFFICIENT_ATTENTION"
+SDPA_NOTE = ("torch.nn.functional.scaled_dot_product_attention (backend "
+             f"{SDPA_BACKEND}) over the candidate windows gathered "
+             "beforehand, one batch row per {rows}; gather not timed")
+LIBRARY_NOTES = {
+    "quadtree_fine_attention": SDPA_NOTE.format(rows="(parent, head)"),
+    "window_cross_attention": SDPA_NOTE.format(rows="parent"),
+    "quadtree_fine_attention_bwd":
+        "backward of the row's forward yardstick (torch.autograd.grad of "
+        "the same call), dq and the gathered rows' dk, dv; gather not "
+        "timed, and no scatter of dk, dv back onto the key grid",
+    "window_patch_score": "torch.matmul of the 2x2-blocked queries against "
+                          "the patch rows gathered beforehand; gather not "
+                          "timed",
+    "quadtree_fine_topk": "null: no PyTorch call fuses a top-k selection "
+                          "into attention; unfused_ms holds kernel A plus "
+                          "the plain selection",
+    "window_patch_score_bwd": "null: dq (a product with the gathered patch) "
+                              "and dfeat1 (a scatter-add) need two calls",
+}
+LIBRARY_NOTES["window_cross_attention_bwd"] = \
+    LIBRARY_NOTES["quadtree_fine_attention_bwd"]
+LSE_NOTE = "; the message only: the public call returns no log-sum-exp"
 
 
 def log(*a):
@@ -163,13 +202,17 @@ def check(cond, msg):
 
 def time_ms(torch, fn, reps=25, warmup=3):
     """Median CUDA-event time of ``fn`` in ms; a 256 MB buffer is rewritten
-    before each launch, so every launch starts with a cold 50 MB L2."""
+    before each launch, so every launch starts with a cold 50 MB L2.  The
+    card then spins for HOLD_CYCLES before the start event, so the host's
+    time to enqueue ``fn`` (Python, argument checks, autograd) passes
+    during the spin and not between the events."""
     flush = torch.empty(64 * 2 ** 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(HOLD_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -239,10 +282,12 @@ def window_inputs(torch, gen, g2):
 
 
 def kernel_row(torch, rows, name, label, path, kernel, plain, inputs,
-               bytes_moved, flops, scattered=()):
+               bytes_moved, flops, scattered=(), library=None, note=""):
     """Hold ``kernel()`` against ``plain()`` (a tensor or a tuple of them),
-    time both, and append the row.  Outputs whose index is in ``scattered``
-    are sums of atomic adds: their tolerance scales with max |plain|."""
+    time both and ``library()`` (the row's library yardstick, a callable
+    returning its time in ms, or None), and append the row.  Outputs whose
+    index is in ``scattered`` are sums of atomic adds: their tolerance
+    scales with max |plain|.  ``note`` is added to the library note."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -258,30 +303,104 @@ def kernel_row(torch, rows, name, label, path, kernel, plain, inputs,
         errs.append((err, tol))
     t_kernel = time_ms(torch, kernel)
     t_plain = time_ms(torch, plain)
+    t_library = library() if library is not None else None
     t_bound, by = bound(bytes_moved, flops)
     err = max(e for e, _ in errs)
     log(f"kernel {name} [{label}] inputs {inputs}: max_abs_err "
         + ", ".join(f"{e:.3e} (tol {t:.3g})" for e, t in errs)
-        + f", kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, bound "
-        f"{t_bound:.4f} ms ({by}: {bytes_moved / 1e6:.1f} MB, "
+        + f", kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, library "
+        + ("null" if t_library is None else f"{t_library:.4f} ms")
+        + f", bound {t_bound:.4f} ms ({by}: {bytes_moved / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
     for i, (e, t) in enumerate(errs):
         check(e <= t, f"{name} [{label}] output {i}: max abs error {e:.3e} "
               f"> {t:.3g}")
     return add_row(rows, name, label, path, err, t_kernel, t_plain, t_bound,
-                   by)
+                   by, t_library, note)
 
 
-def add_row(rows, name, label, path, err, t_kernel, t_plain, t_bound, by):
+def add_row(rows, name, label, path, err, t_kernel, t_plain, t_bound, by,
+            t_library=None, note=""):
     row = {"name": name, "shape": label, "path": path, "route": "cuda",
            "source": SOURCES[name], "replaces": TPU_KERNELS[name],
            "max_abs_err": err, "ms": t_kernel, "plain_ms": t_plain,
-           "bound_ms": t_bound, "bound_by": by, "library_ms": None,
-           "library_note": NO_LIBRARY,
+           "bound_ms": t_bound, "bound_by": by, "library_ms": t_library,
+           "library_note": LIBRARY_NOTES[name] + note,
            # max_err and kernel_ms repeat max_abs_err and ms
            "max_err": err, "kernel_ms": t_kernel}
     rows.append(row)
     return row
+
+
+def sdpa_library(torch, qb, k_g, v_g, want, g=None):
+    """The library yardstick of an attention row: a callable that times
+    ``scaled_dot_product_attention`` (backend SDPA_BACKEND) on gathered
+    queries qb [N, h, 4, D] and candidates k_g/v_g [N, h, C, D] -- with the
+    cotangent ``g`` its backward alone, ``torch.autograd.grad`` of the same
+    call.  Its forward output is first held against ``want`` (the plain
+    message laid out as qb)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backend = getattr(SDPBackend, SDPA_BACKEND)
+
+    def run():
+        with sdpa_kernel(backend):
+            if g is None:
+                return time_ms(torch, lambda: sdpa(qb, k_g, v_g))
+            xs = [t.detach().requires_grad_(True) for t in (qb, k_g, v_g)]
+            out = sdpa(*xs)
+            return time_ms(torch, lambda: torch.autograd.grad(
+                out, xs, g, retain_graph=True))
+
+    with sdpa_kernel(backend):
+        err = float((sdpa(qb, k_g, v_g) - want).abs().max())
+    check(err <= KERNEL_TOL, f"library yardstick: {SDPA_BACKEND} differs "
+          f"from the plain message by {err:.3e}")
+    return run
+
+
+def window_library(torch, q, k, v, corners, hw, w, with_grad):
+    """C's (or with ``with_grad`` C-bwd's) library yardstick: the patch
+    candidates gathered as in the plain version, laid out [B*P, H, C, D]."""
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    from casmtr_tpu_torch.ops.quadtree import block_children
+    B, _, H, D = q.shape
+    idx = kernels.clip_index(wk._expand_corner_indices(corners, w, hw[1]),
+                             hw[0] * hw[1])
+    bi = torch.arange(B, device=q.device)[:, None, None]
+
+    def heads_first(t):          # [B, P, n, H, D] -> [B*P, H, n, D]
+        return t.permute(0, 1, 3, 2, 4).flatten(0, 1).contiguous()
+
+    k_g, v_g = heads_first(k[bi, idx]), heads_first(v[bi, idx])
+    qb = heads_first(block_children(q, *hw))
+    want = heads_first(wk.window_cross_attention_plain(q, k, v, corners, hw,
+                                                       hw, w))
+    g = (torch.randn(qb.shape, device=q.device) if with_grad else None)
+    return sdpa_library(torch, qb, k_g, v_g, want, g)
+
+
+def quadtree_library(torch, q, k, v, ids, hw, with_grad):
+    """A's (or A-bwd's) library yardstick: each (parent, head)'s 4K
+    candidates gathered as in the plain version, [B*P*H, 1, 4K, D]."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.quadtree import block_children
+    B, _, H, D = q.shape
+    P, K = ids.shape[1:3]
+    k_g, v_g, _ = qk_._candidates(k, v, ids, hw)        # [B, P, K, H, 4, D]
+
+    def rows(t):
+        return t.permute(0, 1, 3, 2, 4, 5).reshape(B * P * H, 1, 4 * K, D)
+
+    def queries(t):             # [B, P, 4, H, D] -> [B*P*H, 1, 4, D]
+        return t.permute(0, 1, 3, 2, 4).reshape(B * P * H, 1, 4, D)
+
+    qb = queries(block_children(q, *hw)).contiguous()
+    want = queries(qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw))
+    g = (torch.randn(qb.shape, device=q.device) if with_grad else None)
+    return sdpa_library(torch, qb, rows(k_g).contiguous(),
+                        rows(v_g).contiguous(), want, g)
 
 
 def attention_flops(n_tasks, n_cand, D, backward=False):
@@ -464,6 +583,133 @@ def topk_nan_check(torch, gen):
           "NaN check: the all-NaN row does not select in candidate order")
 
 
+def score_library(torch, q_blk, feat1, corners, w):
+    """B's library yardstick: torch.matmul of q_blk [B, P, 4, C] against
+    the patch rows [B, P, 4w^2, C] gathered beforehand."""
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    B, H1, W1, C = feat1.shape
+    idx = kernels.clip_index(wk._expand_corner_indices(corners, w, W1),
+                             H1 * W1)
+    f1_g = feat1.reshape(B, H1 * W1, C)[
+        torch.arange(B, device=feat1.device)[:, None, None], idx]
+    f1_t = f1_g.transpose(-1, -2)
+    err = float((torch.matmul(q_blk, f1_t) - wk.window_patch_score_plain(
+        q_blk, feat1, corners, w)).abs().max())
+    check(err <= KERNEL_TOL, f"library yardstick: matmul differs from the "
+          f"plain scores by {err:.3e}")
+    return lambda: time_ms(torch, lambda: torch.matmul(q_blk, f1_t))
+
+
+def edge_corners(torch, gen, corners, g2):
+    """A copy of ``corners`` (on a g2 x g2 half grid) whose patches leave
+    the grid: a quarter of the parents take corners from [-3, g2 + 3), and
+    four take (-1, -1), (g2 - 1, g2 - 1), (0, g2) and (-P, 3) -- a flat
+    index below -n, which the clipped-gather rule clamps to row 0."""
+    out = corners.clone()
+    P = corners.shape[1]
+    pick = torch.randperm(P, generator=gen, device="cuda")[:P // 4]
+    out[0, pick] = torch.randint(-3, g2 + 3, (len(pick), 2), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+    out[0, :4] = torch.tensor([[-1, -1], [g2 - 1, g2 - 1], [0, g2],
+                               [-P, 3]], dtype=torch.int32)
+    return out
+
+
+def window_edge_check(torch, gen, q, k, v, corners, hw, w):
+    """Kernels C (with its log-sum-exp) and C-bwd at the training shapes on
+    corners whose patches run past the grid edge or are negative, against
+    the plain versions: the flat clipped-gather rule on the card."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    edge = edge_corners(torch, gen, corners, hw[0] // 2)
+    out, lse = wk._launch_wca_fwd(q, k, v, edge, hw, hw, w, True)
+    p_out, p_lse = wk.window_cross_attention_plain(q, k, v, edge, hw, hw, w,
+                                                   with_lse=True)
+    g = torch.randn(out.shape, generator=gen, device="cuda")
+    got = wk.window_cross_attention_bwd(q, k, v, edge, out, lse, g, hw, hw, w)
+    want = wk.window_cross_attention_bwd_plain(
+        q, k, v, edge, p_out.contiguous(), p_lse.contiguous(), g, hw, hw, w)
+    torch.cuda.synchronize()
+    errs = {"message": float((out - p_out).abs().max()),
+            "lse": float((lse - p_lse).abs().max())}
+    tols = {"message": KERNEL_TOL, "lse": KERNEL_TOL}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = float((a - b).abs().max())
+        tols[name] = KERNEL_TOL * (1.0 if name == "dq"
+                                   else max(1.0, float(b.abs().max())))
+    log(f"kernel window_cross_attention(_bwd) [{hw[0]}x{hw[1]} edge corners, "
+        f"y {int(edge[..., 0].min())}..{int(edge[..., 0].max())}, x "
+        f"{int(edge[..., 1].min())}..{int(edge[..., 1].max())}]: max_abs_err "
+        + ", ".join(f"{n} {e:.3e} (tol {tols[n]:.3g})"
+                    for n, e in errs.items()))
+    for n, e in errs.items():
+        check(e <= tols[n], f"window_cross_attention edge corners: {n} max "
+              f"abs error {e:.3e}")
+
+
+# (B, H, D, grid, w, corners past the edge, inputs 4 bytes off 16-byte
+# alignment).  Kernels C and C-bwd are instantiated for 16- or 4-byte copies
+# (H*D % 4, alignment), float4 or float columns (D % 4) and one or four
+# columns per thread (rows of more than 128 columns); these cases take all
+# eight, and chunks cut short (rows of 2048 floats), w = 1 and a batch of two.
+WINDOW_CASES = (
+    (1, 3, 5, 12, 3, True, False),      # 4-byte copies, float columns
+    (1, 2, 6, 12, 2, False, False),     # 16-byte copies, float columns
+    (1, 4, 32, 16, 5, False, True),     # 4-byte copies, float4 columns
+    (1, 4, 32, 24, 5, True, False),     # 16-byte, float4: the main paths'
+    (1, 1, 64, 8, 1, False, False),     # w = 1, 4 candidates
+    (1, 8, 256, 4, 1, True, False),     # 16-byte, float4, four per thread
+    (1, 3, 45, 8, 2, True, False),      # 4-byte, float, four per thread
+    (1, 40, 6, 8, 2, True, False),      # 16-byte, float, four per thread
+    (1, 4, 160, 8, 2, True, True),      # 4-byte, float4, four per thread
+    (2, 2, 32, 12, 5, True, False))     # a batch of two
+
+
+def window_cases_check(torch):
+    """Kernels C (with and without its log-sum-exp) and C-bwd through their
+    public wrappers on WINDOW_CASES, against the plain versions."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for B, H, D, grid, w, edge, offset in WINDOW_CASES:
+        L, half, hw = grid * grid, grid // 2, (grid, grid)
+
+        def randn(*shape):       # contiguous; 4 bytes off with ``offset``
+            n = int(np.prod(shape)) + int(offset)
+            return torch.randn(n, generator=gen,
+                               device="cuda")[int(offset):].view(shape)
+
+        q, k, v = (randn(B, L, H, D) for _ in range(3))
+        lo, hi = (-2, half - w + 3) if edge else (0, half - w + 1)
+        corners = torch.randint(lo, hi, (B, L // 4, 2), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        if edge:
+            corners[0, :4] = torch.tensor([[-1, -1], [half - 1, half - 1],
+                                           [0, half], [-L, 3]])
+        out, lse = (t.contiguous() for t in wk.window_cross_attention_plain(
+            q, k, v, corners, hw, hw, w, with_lse=True))
+        g = randn(*out.shape)
+        want = (out, out, lse) + wk.window_cross_attention_bwd_plain(
+            q, k, v, corners, out, lse, g, hw, hw, w)
+        got = ((wk.window_cross_attention(q, k, v, corners, hw, hw, w),)
+               + wk._launch_wca_fwd(q, k, v, corners, hw, hw, w, True)
+               + wk.window_cross_attention_bwd(q, k, v, corners, out, lse, g,
+                                               hw, hw, w))
+        torch.cuda.synchronize()
+        names = ("message", "message with LSE", "lse", "dq", "dk", "dv")
+        errs = {}
+        for n, a, b in zip(names, got, want):
+            tol = KERNEL_TOL * (max(1.0, float(b.abs().max()))
+                                if n in ("dk", "dv") else 1.0)
+            errs[n] = (float((a - b).abs().max()), tol)
+        log(f"kernel window_cross_attention(_bwd) [B={B} H={H} D={D} "
+            f"{grid}x{grid} w={w}" + (" edge corners" if edge else "")
+            + (" misaligned" if offset else "") + "]: max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items()))
+        for n, (e, tol) in errs.items():
+            check(e <= tol, f"window_cross_attention B={B} H={H} D={D} "
+                  f"grid={grid} w={w}: {n} max abs error {e:.3e} > {tol:.3g}")
+
+
 def window_rows(torch, rows, gen, path, grid, C, H, train):
     """Kernels B and C on a grid x grid cascade level (w = 5; window scores
     over C channels, cross-attention with H heads of 32); for training with
@@ -485,14 +731,16 @@ def window_rows(torch, rows, gen, path, grid, C, H, train):
                    lambda: wk.window_patch_score_plain(q_blk, feat1,
                                                           corners, w),
                    desc, nbytes(q_blk, feat1, corners) + P * 4 * NC * 4,
-                   P * 4 * NC * C * 2)
+                   P * 4 * NC * C * 2,
+                   library=score_library(torch, q_blk, feat1, corners, w))
     else:
         g = torch.randn((1, P, 4, NC), generator=gen, device="cuda")
         kernel_row(torch, rows, "window_patch_score", label, path,
                    lambda: wk.window_patch_score(q_blk, feat1, corners, w),
                    lambda: wk.window_patch_score_plain(q_blk, feat1,
                                                           corners, w),
-                   desc, nbytes(q_blk, feat1, corners, g), P * 2 * 4 * NC * C)
+                   desc, nbytes(q_blk, feat1, corners, g), P * 2 * 4 * NC * C,
+                   library=score_library(torch, q_blk, feat1, corners, w))
         kernel_row(torch, rows, "window_patch_score_bwd", label, path,
                    lambda: wk.window_patch_score_bwd(q_blk, feat1,
                                                         corners, g, w),
@@ -513,7 +761,9 @@ def window_rows(torch, rows, gen, path, grid, C, H, train):
                    lambda: wk.window_cross_attention_plain(
                        q, k, v, corners, hw, hw, w),
                    desc, nbytes(q, k, v, corners) + P * 4 * H * D * 4,
-                   attention_flops(P * H, NC, D))
+                   attention_flops(P * H, NC, D),
+                   library=window_library(torch, q, k, v, corners, hw, w,
+                                          False))
         return
     out, lse = (t.contiguous() for t in wk.window_cross_attention_plain(
         q, k, v, corners, hw, hw, w, with_lse=True))
@@ -525,14 +775,19 @@ def window_rows(torch, rows, gen, path, grid, C, H, train):
                lambda: wk.window_cross_attention_plain(
                    q, k, v, corners, hw, hw, w, with_lse=True),
                desc, nbytes(q, k, v, corners, out, lse),
-               attention_flops(P * H, NC, D))
+               attention_flops(P * H, NC, D),
+               library=window_library(torch, q, k, v, corners, hw, w, False),
+               note=LSE_NOTE)
     kernel_row(torch, rows, "window_cross_attention_bwd", label, path,
                lambda: wk.window_cross_attention_bwd(
                    q, k, v, corners, out, lse, g, hw, hw, w),
                lambda: wk.window_cross_attention_bwd_plain(
                    q, k, v, corners, out, lse, g, hw, hw, w),
                desc, nbytes(q, k, v, corners, out, lse, g) + 3 * nbytes(q),
-               attention_flops(P * H, NC, D, backward=True), scattered=(1, 2))
+               attention_flops(P * H, NC, D, backward=True), scattered=(1, 2),
+               library=window_library(torch, q, k, v, corners, hw, w, True))
+    if grid == TRAIN_SIZE // 4:
+        window_edge_check(torch, gen, q, k, v, corners, hw, w)
 
 
 def kernel_phase(torch):
@@ -552,7 +807,8 @@ def kernel_phase(torch):
             lambda: quadtree_fine_attention_plain(q, k, v, ids, hw, hw),
             f"q/k/v {list(q.shape)} ids {list(ids.shape)}",
             nbytes(q, k, v, ids) + P * 4 * H * D * 4,
-            attention_flops(P * H, 4 * K, D))
+            attention_flops(P * H, 4 * K, D),
+            library=quadtree_library(torch, q, k, v, ids, hw, False))
     # kernel A′ at the intermediate level, top 16 of 128 candidates
     inter, finest = levels.values()
     topk_row(torch, rows, "intermediate 52x52", path, inter, finest, 16,
@@ -589,7 +845,9 @@ def train_kernel_phase(torch):
             lambda: qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw,
                                                       with_lse=True),
             desc, nbytes(q, k, v, ids, out, lse),
-            attention_flops(P * H, 4 * K, D))
+            attention_flops(P * H, 4 * K, D),
+            library=quadtree_library(torch, q, k, v, ids, hw, False),
+            note=LSE_NOTE)
         kernel_row(
             torch, rows, "quadtree_fine_attention_bwd", label, path,
             lambda: qk_.quadtree_fine_attention_bwd(q, k, v, ids, out, lse,
@@ -597,7 +855,8 @@ def train_kernel_phase(torch):
             lambda: qk_.quadtree_fine_attention_bwd_plain(
                 q, k, v, ids, out, lse, g, hw, hw),
             desc, nbytes(q, k, v, ids, out, lse, g) + 3 * nbytes(q),
-            attention_flops(P * H, 4 * K, D, backward=True), scattered=(1, 2))
+            attention_flops(P * H, 4 * K, D, backward=True), scattered=(1, 2),
+            library=quadtree_library(torch, q, k, v, ids, hw, True))
     inter, finest = levels.values()
     topk_row(torch, rows, f"intermediate {g8 // 2}x{g8 // 2} with LSE", path,
              inter, finest, 16, True)
@@ -605,6 +864,7 @@ def train_kernel_phase(torch):
     window_rows(torch, rows, gen, path, TRAIN_SIZE // 4, 128, 4, True)
     window_rows(torch, rows, gen, path + " (2c)", TRAIN_SIZE // 2, 64, 2,
                 True)
+    window_cases_check(torch)
     return rows
 
 
@@ -723,6 +983,7 @@ def serving_phase(torch, recipe):
     reqs = requests(np.random.default_rng(0))
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    steady = []
     for i, (name, img0, img1) in enumerate(reqs):
         before = dict(kernels.LAUNCHES)
         torch.cuda.synchronize()
@@ -743,6 +1004,8 @@ def serving_phase(torch, recipe):
                          res.mkpts0[:, 1].max() <= h0),
               "serving: keypoints outside image0")
         tag = "warm-up" if i == 0 else "steady"
+        if i:
+            steady.append(ms)
         log(f"serving: {recipe} request {i} ({tag}) {name}: {ms:.1f} ms, {n} "
             f"matches at thr {matcher.thr}, kernel launches {counts}")
         check(counts == expected,
@@ -754,7 +1017,7 @@ def serving_phase(torch, recipe):
     for k, v in totals.items():
         check(v > 0 or expected[k] == 0,
               f"serving: {recipe}: kernel {k} never launched on the main path")
-    return totals, counts, matcher, reqs[1]
+    return totals, counts, matcher, reqs[1], steady
 
 
 def top(avgs, keep, n):
@@ -1019,7 +1282,7 @@ def training_phase(torch, recipe):
         + ("; the reference's own 4c GPU step, for context only: "
            f"{REFERENCE_S_PER_STEP} s (fp16, bench.py)"
            if len(levels) == 1 else ""))
-    return totals, counts, step, state, batch, statistics.median(times)
+    return totals, counts, step, state, batch, times
 
 
 def train_profile_phase(torch, recipe, step, state, batch, median_s):
@@ -1141,7 +1404,7 @@ def main():
     timed("finite difference", finite_difference_phase, torch)
     serve_totals, per_pair = {}, {}
     for recipe in RECIPES:
-        totals, per_pair[recipe], matcher, request = timed(
+        totals, per_pair[recipe], matcher, request, _ = timed(
             f"serving {recipe}", serving_phase, torch, recipe)
         serve_totals[recipe] = totals
         timed(f"profile {recipe}", profile_phase, torch, recipe, matcher,
@@ -1152,11 +1415,11 @@ def main():
         timed(f"reference {recipe}", reference_phase, torch, recipe)
     train_totals, per_step = {}, {}
     for recipe in RECIPES:
-        totals, per_step[recipe], step, state, batch, median_s = timed(
+        totals, per_step[recipe], step, state, batch, times = timed(
             f"training {recipe}", training_phase, torch, recipe)
         train_totals[recipe] = totals
         timed(f"training profile {recipe}", train_profile_phase, torch,
-              recipe, step, state, batch, median_s)
+              recipe, step, state, batch, statistics.median(times))
         del step, state
         torch.cuda.empty_cache()
     for recipe in RECIPES:
