@@ -1,27 +1,26 @@
-// The block-per-parent layout shared by kernel C (window_attention.cu) and
-// kernel C-bwd (window_attention_bwd.cu).
+// The block-per-parent layout of the chunked attention kernels A, A′,
+// A-bwd (quadtree_fine*.cu) and C, C-bwd (window_attention*.cu), whose
+// bodies are in chunk_attention.cuh.
 //
 // One block of kThreads threads serves one (batch b, parent block p), all
-// heads at once.  A query row and each candidate key/value row are H*D
-// contiguous floats, so the block copies whole rows with cp.async:
-// neighbouring threads on neighbouring 16-byte words (4-byte words when
-// H*D % 4 != 0 or a pointer is not 16-byte aligned: the kCopy16 template
-// parameter).  K and V rows whose width is a multiple of 32 floats are kept
-// unpadded in shared memory with their 16-byte words XOR-swizzled by row
-// (kv_col), so threads reading the same column of 8 consecutive rows, or
-// 8 neighbouring words of one row, hit distinct banks; other widths are
-// padded (row_stride).
+// heads at once.  A query row is H*D contiguous floats, and so is a row of
+// candidate keys (or values) in shared memory: its H head slices come from
+// one key position (kernel C: one candidate set for all heads) or from one
+// position per head (kernel A: each head has its own).  The block copies
+// them with cp.async, neighbouring threads on neighbouring 16-byte words
+// (4-byte words when a slice is not a multiple of 4 floats or a pointer is
+// not 16-byte aligned: the kCopy16 template parameter), so each 128-byte
+// head slice is 8 threads' copy.  K and V rows whose width is a multiple of
+// 32 floats are kept unpadded in shared memory with their 16-byte words
+// XOR-swizzled by row (kv_col), so threads reading the same column of 8
+// consecutive rows, or 8 neighbouring words of one row, hit distinct banks;
+// other widths are padded (row_stride).
 //
-// The 4w^2 candidates stream through shared memory in chunks of
-// chunk_rows(H) rows of K and of V, in a ring of kStages stages: the next
-// chunks' copies are in flight while the current one computes.  Each
-// candidate's row is its FLAT clipped position (clip_index.cuh), so a patch
-// that runs past the grid edge, or a negative corner, stays exact.
-// Positions are computed kStages chunks ahead into a ring of kStages + 1
-// small buffers (the backward still reads chunk n's positions while chunk
-// n + kStages's are written).  Shared memory does not grow with w.
+// The candidates stream through shared memory in chunks of chunk_rows(H)
+// rows of K and of V, in a ring of kStages stages: the next chunk's copies
+// are in flight while the current one computes.
 //
-// Work split inside a chunk (both kernels):
+// Work split inside a chunk:
 // - scores: threads over (child pair, head, candidate); the CH candidates of
 //   one (child pair, head) are CH neighbouring lanes of one warp (CH divides
 //   32), so a softmax row's max and sum over the chunk are warp shuffles;
@@ -42,14 +41,16 @@
 #include "clip_index.cuh"
 
 namespace casmtr {
-namespace wca {
 
 constexpr int kThreads = 128;      // 4 warps per block
+constexpr int kWarp = 32;
 constexpr int kChunkPairs = 64;    // (head, candidate) pairs per chunk
 constexpr int kStages = 2;         // chunks of K and V rows in shared memory
 constexpr int kMaxSlots = 4;       // row columns per thread: H*D <= 2048
                                    // (float4 columns) or 512 (floats)
 constexpr size_t kMaxSmem = 227 * 1024;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Candidates per chunk for H heads: kChunkPairs / H rounded down to a power
 // of two, at most 32 (a softmax row's candidates share a warp), at least 1.
@@ -200,35 +201,6 @@ __device__ __forceinline__ int query_row(int p, int w0, int f) {
   return (2 * pr + (f >> 1)) * w0 + 2 * pc + (f & 1);
 }
 
-// Key token of candidate c = (wy * w + wx) * 4 + (dr * 2 + dc) of the
-// (2w x 2w) patch at corner (cy, cx) * 2 on an (h1, w1) key grid, under the
-// flat clipped-gather rule.
-__device__ __forceinline__ int candidate_row(int c, int cy, int cx, int w,
-                                             int w1, long long n_pos) {
-  const int g = c >> 2;
-  const long long row = 2LL * cy + 2 * (g / w) + ((c >> 1) & 1);
-  const long long col = 2LL * cx + 2 * (g % w) + (c & 1);
-  return (int)clip_index(row * w1 + col, n_pos);
-}
-
-// Chunk n's ring buffer of positions.
-__device__ __forceinline__ int* chunk_pos(int* pos, int n, int CH) {
-  return pos + (n % (kStages + 1)) * CH;
-}
-
-// Positions of chunk n (its rows beyond NC hold 0), when it exists.
-__device__ __forceinline__ void chunk_positions(int* pos, int n, int CH,
-                                                int NC, int cy, int cx,
-                                                int w, int w1,
-                                                long long n_pos) {
-  if (n * CH >= NC) return;
-  int* dst = chunk_pos(pos, n, CH);
-  for (int i = threadIdx.x; i < CH; i += kThreads) {
-    const int c = n * CH + i;
-    dst[i] = c < NC ? candidate_row(c, cy, cx, w, w1, n_pos) : 0;
-  }
-}
-
 // A destination row in shared memory and its source row.
 struct RowCopy {
   float* dst;
@@ -238,16 +210,19 @@ struct RowCopy {
 // The stream of chunks of K and V rows into the ring `kv`
 // ([kStages][K rows | V rows][CH][SK], swizzled when swz), and of the
 // block's fixed rows (the query rows; for the backward also the cotangent
-// rows), by cp.async copies of 16 bytes (kCopy16) or 4.  Each chunk is one
-// copy group; the fixed rows join chunk 0's.
+// rows), by cp.async copies of 16 bytes (kCopy16) or 4.  Row r of chunk n
+// is HD / slice slices of `slice` floats, slice s copied from key position
+// pos[(n * CH + r) * (HD / slice) + s] (slice = HD: one position per row;
+// slice = D: one per head).  Each chunk is one copy group; the fixed rows
+// join chunk 0's.
 template <bool kCopy16>
 struct ChunkStream {
   static constexpr int kWord = kCopy16 ? 4 : 1;   // floats per copy
   float* kv;
-  int* pos;
+  const int* pos;
   const float* k;
   const float* v;
-  int CH, NC, SK, HD;
+  int CH, NC, SK, HD, slice;
   bool swz;
 
   __device__ float* stage(int n) const {
@@ -272,23 +247,24 @@ struct ChunkStream {
     }
   }
 
-  // Start the copies of chunk n, when it exists, from the positions in its
-  // ring buffer, and commit them as one group (an empty group past the last
-  // chunk).  The stage it overwrites must be free: every thread has passed
-  // a __syncthreads since its last read.
+  // Start the copies of chunk n, when it exists, and commit them as one
+  // group (an empty group past the last chunk).  The stage it overwrites
+  // must be free: every thread has passed a __syncthreads since its last
+  // read.
   __device__ void issue(int n) const {
     if (n * CH < NC) {
       const int cnt = min(CH, NC - n * CH);
-      const int* p = chunk_pos(pos, n, CH);
+      const int parts = HD / slice;
+      const int* p = pos + (size_t)n * CH * parts;
       float* ks = stage(n);
       float* vs = ks + (size_t)CH * SK;
       const int per_row = HD / kWord;
       if (kThreads % per_row == 0) {   // a fixed word of rows r0, r0 + step..
-        const int j = (threadIdx.x % per_row) * kWord;
+        const int j = (threadIdx.x % per_row) * kWord, s = j / slice;
         const int step = kThreads / per_row;
         for (int r = threadIdx.x / per_row; r < cnt; r += step) {
           const int d = r * SK + kv_col(j, kv_key(r, swz));
-          const size_t src = (size_t)p[r] * HD + j;
+          const size_t src = (size_t)p[r * parts + s] * HD + j;
           copy(ks + d, k + src);
           copy(vs + d, v + src);
         }
@@ -296,7 +272,7 @@ struct ChunkStream {
         for (int i = threadIdx.x; i < cnt * per_row; i += kThreads) {
           const int r = i / per_row, j = (i - r * per_row) * kWord;
           const int d = r * SK + kv_col(j, kv_key(r, swz));
-          const size_t src = (size_t)p[r] * HD + j;
+          const size_t src = (size_t)p[r * parts + j / slice] * HD + j;
           copy(ks + d, k + src);
           copy(vs + d, v + src);
         }
@@ -377,8 +353,11 @@ inline int column_slots(int n_cols) {
 
 // Launch::run<kCopy16, kVecD, kSlots>(args...) for the instance that rows
 // of HD floats allow: 16-byte copies when `copy16`, float4 columns when
-// `vec`, one column slot per thread or kMaxSlots.
-template <typename Launch, typename... Args>
+// `vec`, one column slot per thread or kMaxSlots.  With kCopyNeedsVec
+// (per-head slices, where a 16-byte copy needs D % 4 == 0 as float4
+// columns do) the callers never ask for 16-byte copies without float4
+// columns, and that instance is not built.
+template <typename Launch, bool kCopyNeedsVec = false, typename... Args>
 inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
   const int slots = column_slots(vec ? HD / 4 : HD);
   if (slots == 0) return cudaErrorInvalidValue;
@@ -389,9 +368,14 @@ inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
   };
   using T = std::true_type;
   using F = std::false_type;
-  if (copy16) return vec ? run(T{}, T{}) : run(T{}, F{});
+  if (copy16) {
+    if (vec) return run(T{}, T{});
+    if constexpr (kCopyNeedsVec)
+      return cudaErrorInvalidValue;
+    else
+      return run(T{}, F{});
+  }
   return vec ? run(F{}, T{}) : run(F{}, F{});
 }
 
-}  // namespace wca
 }  // namespace casmtr

@@ -31,8 +31,7 @@ BUILD_ROOT = _PKG / "_build"
 SOURCES = ("quadtree_fine.cu", "window_score.cu", "window_attention.cu",
            "quadtree_fine_bwd.cu", "window_score_bwd.cu",
            "window_attention_bwd.cu")
-HEADERS = ("child_attention.cuh", "child_attention_bwd.cuh", "clip_index.cuh",
-           "window_chunk.cuh")
+HEADERS = ("block_chunk.cuh", "chunk_attention.cuh", "clip_index.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libcasmtr_kernels.so"

@@ -167,6 +167,12 @@ def _check(q, k, v, topk_idx_prev, hw_q, hw_k):
     if h0 % 2 or w0 % 2 or h1 % 2 or w1 % 2:
         raise ValueError(f"quadtree_fine_attention: grids {hw_q}, {hw_k} "
                          "must have even sides")
+    # a thread owns at most 4 columns of 4 floats (1 when D % 4 != 0) of a
+    # row of the 128-thread block (csrc/block_chunk.cuh)
+    max_hd = 2048 if D % 4 == 0 else 512
+    if H * D > max_hd:
+        raise ValueError(f"quadtree_fine_attention: H*D = {H * D} floats, "
+                         f"the kernels take at most {max_hd} for D = {D}")
     dev = q.device
     kernels.check_cuda(q, "q", (B, h0 * w0, H, D), torch.float32, dev)
     kernels.check_cuda(k, "k", (B, h1 * w1, H, D), torch.float32, dev)

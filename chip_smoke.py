@@ -41,7 +41,10 @@ full width.  Phases, each printing its own lines and its seconds:
    clipped-gather rule), against the plain versions, and through their
    public wrappers on tiny cases that take every instance of the two
    kernels (WINDOW_CASES: other H and D, misaligned inputs, w = 1, a batch
-   of two).  Then each autograd
+   of two); likewise A, A′ and A-bwd through their public wrappers and
+   launchers (QUADTREE_CASES: other H and D, misaligned inputs, K = 1,
+   n_topk 1 and 4K, repeated ids, ids outside the block grid, a batch of
+   two).  Then each autograd
    function on the card at a tiny shape: its kernel gradient against a
    central finite difference of its kernel forward along a random
    direction (float32 forward, so within 1e-2 relative).
@@ -647,6 +650,14 @@ def window_edge_check(torch, gen, q, k, v, corners, hw, w):
               f"abs error {e:.3e}")
 
 
+def offset_randn(torch, gen, offset, shape):
+    """A contiguous normal tensor on the card, 4 bytes off 16-byte alignment
+    when ``offset``."""
+    n = int(np.prod(shape)) + int(offset)
+    return torch.randn(n, generator=gen, device="cuda")[int(offset):].view(
+        shape)
+
+
 # (B, H, D, grid, w, corners past the edge, inputs 4 bytes off 16-byte
 # alignment).  Kernels C and C-bwd are instantiated for 16- or 4-byte copies
 # (H*D % 4, alignment), float4 or float columns (D % 4) and one or four
@@ -673,10 +684,8 @@ def window_cases_check(torch):
     for B, H, D, grid, w, edge, offset in WINDOW_CASES:
         L, half, hw = grid * grid, grid // 2, (grid, grid)
 
-        def randn(*shape):       # contiguous; 4 bytes off with ``offset``
-            n = int(np.prod(shape)) + int(offset)
-            return torch.randn(n, generator=gen,
-                               device="cuda")[int(offset):].view(shape)
+        def randn(*shape):
+            return offset_randn(torch, gen, offset, shape)
 
         q, k, v = (randn(B, L, H, D) for _ in range(3))
         lo, hi = (-2, half - w + 3) if edge else (0, half - w + 1)
@@ -708,6 +717,94 @@ def window_cases_check(torch):
         for n, (e, tol) in errs.items():
             check(e <= tol, f"window_cross_attention B={B} H={H} D={D} "
                   f"grid={grid} w={w}: {n} max abs error {e:.3e} > {tol:.3g}")
+
+
+# (B, H, D, grid, K, ids, n_topk, inputs 4 bytes off 16-byte alignment).
+# Kernels A and A′ (one body, with and without the selection) and A-bwd are
+# instantiated for 16- or 4-byte copies (16 only when D % 4 == 0 and the
+# inputs are aligned), float4 or float columns (D % 4) and one or four
+# columns per thread (rows of more than 128 columns); these cases take all
+# six instances of each, K = 1, n_topk 1 and 4K, repeated ids, ids below 0
+# and past the block grid (the clipped-gather rule) and a batch of two.
+QUADTREE_CASES = (
+    (1, 2, 8, (8, 12), 3, "repeated", 1, False),   # 16-byte, float4
+    (1, 4, 32, (8, 8), 4, "distinct", 16, True),   # 4-byte copies, float4
+    (1, 3, 5, (8, 12), 3, "clip", 12, False),      # 4-byte, float; all 4K
+    (1, 8, 80, (4, 8), 2, "repeated", 3, False),   # 16-byte, float4, four
+    (1, 8, 80, (4, 8), 2, "clip", 8, True),        # 4-byte, float4, four
+    (1, 6, 30, (8, 8), 2, "distinct", 5, False),   # 4-byte, float, four
+    (1, 2, 8, (8, 8), 1, "clip", 4, False),        # K = 1: 4 candidates
+    (1, 8, 12, (8, 8), 16, "repeated", 16, False),  # the finest K, D = 12
+    (2, 8, 32, (8, 12), 5, "clip", 7, False))      # a batch of two
+
+
+def quadtree_cases_check(torch):
+    """Kernels A (through its public wrapper, and with its log-sum-exp
+    through the launcher), A′ (public wrapper) and A-bwd on
+    QUADTREE_CASES, against the plain versions; A′'s selection as in
+    phase 2 (every candidate when n_topk = 4K)."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for B, H, D, hw, K, kind, topk, offset in QUADTREE_CASES:
+        L, n_blk = hw[0] * hw[1], (hw[0] // 2) * (hw[1] // 2)
+
+        def randn(*shape):
+            return offset_randn(torch, gen, offset, shape)
+
+        q, k, v = (randn(B, L, H, D) for _ in range(3))
+        if kind == "distinct":
+            ids = torch.argsort(torch.rand((B, n_blk, n_blk, H), generator=gen,
+                                           device="cuda"), dim=2)[:, :, :K]
+        else:
+            lo, hi = (0, n_blk) if kind == "repeated" else (-n_blk - 3,
+                                                           n_blk + 3)
+            ids = torch.randint(lo, hi, (B, n_blk, K, H), generator=gen,
+                                device="cuda")
+            if kind == "repeated":
+                ids[0, 0, :, 0] = ids[0, 0, 0, 0]
+            else:
+                ids[0, 0, :3, 0] = torch.tensor([-1, -2 * n_blk, n_blk])[:K]
+        ids = ids.to(torch.int32).contiguous()
+        out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
+            q, k, v, ids, hw, hw, with_lse=True))
+        g = randn(*out.shape)
+        want = (out, out, lse) + qk_.quadtree_fine_attention_bwd_plain(
+            q, k, v, ids, out, lse, g, hw, hw)
+        got = ((qk_.quadtree_fine_attention(q, k, v, ids, hw, hw),)
+               + qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2]
+               + qk_.quadtree_fine_attention_bwd(q, k, v, ids, out, lse, g,
+                                                 hw, hw))
+        msg, score, idx = qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, topk)
+        p_msg, p_score, p_idx = qk_.quadtree_fine_topk_plain(
+            q, k, v, ids, hw, hw, min(topk + 1, 4 * K))
+        torch.cuda.synchronize()
+        names = ("message", "message with LSE", "lse", "dq", "dk", "dv")
+        errs = {}
+        for n, a, b in zip(names, got, want):
+            tol = KERNEL_TOL * (max(1.0, float(b.abs().max()))
+                                if n in ("dk", "dv") else 1.0)
+            errs[n] = (float((a - b).abs().max()), tol)
+        errs["A′ message"] = (float((msg - p_msg).abs().max()), KERNEL_TOL)
+        if topk < 4 * K:
+            everywhere = torch.ones((B, L, H), dtype=torch.bool,
+                                    device="cuda")
+            s_err, idx_bad, _, _, _ = selection_errors(
+                torch, score, idx, p_score, p_idx, topk, everywhere)
+        else:   # every candidate: the same scores and positions
+            s_err = float((score - p_score).abs().max())
+            idx_bad = int((idx.sort(dim=2).values
+                           != p_idx.sort(dim=2).values).any(dim=2).sum())
+        errs["A′ score"] = (s_err, SCORE_TOL)
+        log(f"kernel quadtree_fine_attention(_topk, _bwd) [B={B} H={H} D={D} "
+            f"{hw[0]}x{hw[1]} K={K} {kind} ids top {topk}"
+            + (" misaligned" if offset else "") + "]: max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
+            + f"; A′ index sets differ on {idx_bad} rows")
+        for n, (e, tol) in errs.items():
+            check(e <= tol, f"quadtree B={B} H={H} D={D} grid={hw} K={K} "
+                  f"{kind}: {n} max abs error {e:.3e} > {tol:.3g}")
+        check(idx_bad == 0, f"quadtree B={B} H={H} D={D} grid={hw} K={K} "
+              f"{kind}: A′ selects other indices on {idx_bad} rows")
 
 
 def window_rows(torch, rows, gen, path, grid, C, H, train):
@@ -865,6 +962,7 @@ def train_kernel_phase(torch):
     window_rows(torch, rows, gen, path + " (2c)", TRAIN_SIZE // 2, 64, 2,
                 True)
     window_cases_check(torch)
+    quadtree_cases_check(torch)
     return rows
 
 

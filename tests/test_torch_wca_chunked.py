@@ -2,7 +2,7 @@
 and its backward), modelled in PyTorch on the CPU.
 
 The kernels run one block per (batch, parent) and stream the parent's 4w^2
-candidates through shared memory in chunks (``csrc/window_chunk.cuh``): the
+candidates through shared memory in chunks (``csrc/chunk_attention.cuh``): the
 forward keeps FlashAttention's running max and sum per (child, head) row
 and rescales its accumulator chunk by chunk; the backward recomputes each
 chunk's probabilities from the forward's log-sum-exp, accumulates dq across
@@ -13,9 +13,6 @@ card) and the JAX package's jnp oracle and its gradient, on the same numpy
 inputs: a tail chunk, fewer candidates than a chunk (w = 1), H*D not a
 multiple of 4, both recipes' head geometries, and corners that run past
 the grid edge or are negative (the flat clipped-gather rule)."""
-
-import re
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -30,20 +27,9 @@ from casmtr_tpu.ops.pallas.window_kernels import \
     window_cross_attention_oracle  # noqa: E402
 from casmtr_tpu_torch.ops.kernels.window_kernels import (  # noqa: E402
     window_cross_attention_bwd_plain, window_cross_attention_plain)
+from tests.torch_parity import child_rows, kernel_chunk  # noqa: E402
 
 ATOL = 1e-5  # f32, sums in another order
-CHUNK_SRC = (Path(__file__).resolve().parents[1] / "casmtr_tpu_torch"
-             / "csrc" / "window_chunk.cuh")
-
-
-def kernel_chunk(H):
-    """Candidates per chunk for H heads, by the kernels' rule
-    (``chunk_rows`` in window_chunk.cuh): kChunkPairs / H rounded down to a
-    power of two, at most 32, at least 1."""
-    pairs = int(re.search(r"kChunkPairs = (\d+);",
-                          CHUNK_SRC.read_text()).group(1))
-    c = min(32, max(1, pairs // H))
-    return 1 << (c.bit_length() - 1)
 
 
 def candidates(corners, w, grid_k):
@@ -59,14 +45,6 @@ def candidates(corners, w, grid_k):
     idx = rows * w1 + cols
     n = h1 * w1
     return np.clip(np.where(idx < 0, idx + n, idx), 0, n - 1)
-
-
-def child_rows(grid_q):
-    """Query rows [P, 4] of each parent's 2x2 children (row-major)."""
-    h0, w0 = grid_q
-    pr, pc = np.divmod(np.arange((h0 // 2) * (w0 // 2)), w0 // 2)
-    return np.stack([(2 * pr + f // 2) * w0 + 2 * pc + f % 2
-                     for f in range(4)], -1)
 
 
 def chunked_forward(q, k, v, corners, grid_q, grid_k, w, chunk):

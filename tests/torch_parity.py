@@ -1,10 +1,35 @@
 """Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
-tiny CasMTR-4c and CasMTR-2c configurations built in both packages, and flax
+tiny CasMTR-4c and CasMTR-2c configurations built in both packages, flax
 variables made non-trivial and handed to the port as nested dicts of numpy
-arrays."""
+arrays, and the chunk rule and child rows of the CPU models of the chunked
+CUDA kernels."""
+
+import re
+from pathlib import Path
 
 import jax
 import numpy as np
+
+CHUNK_SRC = (Path(__file__).resolve().parents[1] / "casmtr_tpu_torch"
+             / "csrc" / "block_chunk.cuh")
+
+
+def kernel_chunk(H):
+    """Candidates per chunk for H heads, by the chunked kernels' rule
+    (``chunk_rows`` in csrc/block_chunk.cuh): kChunkPairs / H rounded down
+    to a power of two, at most 32, at least 1."""
+    pairs = int(re.search(r"kChunkPairs = (\d+);",
+                          CHUNK_SRC.read_text()).group(1))
+    c = min(32, max(1, pairs // H))
+    return 1 << (c.bit_length() - 1)
+
+
+def child_rows(grid_q):
+    """Query rows [P, 4] of each parent's 2x2 children (row-major)."""
+    h0, w0 = grid_q
+    pr, pc = np.divmod(np.arange((h0 // 2) * (w0 // 2)), w0 // 2)
+    return np.stack([(2 * pr + f // 2) * w0 + 2 * pc + f % 2
+                     for f in range(4)], -1)
 
 
 def tiny_4c_overrides(train_size: int = 128, zero_thresholds: bool = False):
