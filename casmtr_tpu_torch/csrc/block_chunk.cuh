@@ -1,6 +1,7 @@
 // The block-per-parent layout of the chunked attention kernels A, A′,
 // A-bwd (quadtree_fine*.cu) and C, C-bwd (window_attention*.cu), whose
-// bodies are in chunk_attention.cuh.
+// bodies are in chunk_attention.cuh; kernels B and B-bwd
+// (window_score*.cu) use its copies, loads and dispatch_copy.
 //
 // One block of kThreads threads serves one (batch b, parent block p), all
 // heads at once.  A query row is H*D contiguous floats, and so is a row of
@@ -124,6 +125,15 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
                "l"(src));
 }
 
+// One word of a row: 16 bytes (kCopy16) or 4.
+template <bool kCopy16>
+__device__ __forceinline__ void cp_async_word(float* dst, const float* src) {
+  if constexpr (kCopy16)
+    cp_async16(dst, src);
+  else
+    cp_async4(dst, src);
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -230,10 +240,7 @@ struct ChunkStream {
   }
 
   __device__ static void copy(float* dst, const float* src) {
-    if constexpr (kCopy16)
-      cp_async16(dst, src);
-    else
-      cp_async4(dst, src);
+    cp_async_word<kCopy16>(dst, src);
   }
 
   // Copy n_rows fixed rows, row(r) giving each's RowCopy.
@@ -351,20 +358,16 @@ inline int column_slots(int n_cols) {
   return n_cols <= kMaxSlots * kThreads ? kMaxSlots : 0;
 }
 
-// Launch::run<kCopy16, kVecD, kSlots>(args...) for the instance that rows
-// of HD floats allow: 16-byte copies when `copy16`, float4 columns when
-// `vec`, one column slot per thread or kMaxSlots.  With kCopyNeedsVec
-// (per-head slices, where a 16-byte copy needs D % 4 == 0 as float4
-// columns do) the callers never ask for 16-byte copies without float4
-// columns, and that instance is not built.
+// Launch::run<kCopy16, kVecD>(args...) for the instance that the rows
+// allow: 16-byte copies when `copy16`, float4 columns when `vec`.  With
+// kCopyNeedsVec (where a 16-byte copy needs the float4 columns' alignment)
+// the callers never ask for 16-byte copies without float4 columns, and that
+// instance is not built.
 template <typename Launch, bool kCopyNeedsVec = false, typename... Args>
-inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
-  const int slots = column_slots(vec ? HD / 4 : HD);
-  if (slots == 0) return cudaErrorInvalidValue;
+inline cudaError_t dispatch_copy(bool copy16, bool vec, Args... args) {
   auto run = [&](auto c16, auto v4) {
-    constexpr bool kC = decltype(c16)::value, kV = decltype(v4)::value;
-    return slots == 1 ? Launch::template run<kC, kV, 1>(args...)
-                      : Launch::template run<kC, kV, kMaxSlots>(args...);
+    return Launch::template run<decltype(c16)::value, decltype(v4)::value>(
+        args...);
   };
   using T = std::true_type;
   using F = std::false_type;
@@ -376,6 +379,30 @@ inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
       return run(T{}, F{});
   }
   return vec ? run(F{}, T{}) : run(F{}, F{});
+}
+
+// Launch::run<kCopy16, kVecD, kSlots> seen as dispatch_copy's Launch.
+template <typename Launch, int kSlots>
+struct WithSlots {
+  template <bool kCopy16, bool kVecD, typename... Args>
+  static cudaError_t run(Args... args) {
+    return Launch::template run<kCopy16, kVecD, kSlots>(args...);
+  }
+};
+
+// Launch::run<kCopy16, kVecD, kSlots>(args...) for the instance that rows
+// of HD floats allow: dispatch_copy's, with one column slot per thread or
+// kMaxSlots.  For the quadtree's per-head slices (kCopyNeedsVec) a 16-byte
+// copy needs D % 4 == 0, as float4 columns do.
+template <typename Launch, bool kCopyNeedsVec = false, typename... Args>
+inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
+  const int slots = column_slots(vec ? HD / 4 : HD);
+  if (slots == 0) return cudaErrorInvalidValue;
+  return slots == 1
+             ? dispatch_copy<WithSlots<Launch, 1>, kCopyNeedsVec>(
+                   copy16, vec, args...)
+             : dispatch_copy<WithSlots<Launch, kMaxSlots>, kCopyNeedsVec>(
+                   copy16, vec, args...);
 }
 
 }  // namespace casmtr

@@ -20,104 +20,213 @@
 // g (16 + 16 + 12 MB) and writes dq and dfeat1 (16 + 16 MB), 76 MB in all
 // (23 us at 3.35 TB/s), against ~1.6 GFLOP of f32 work outside the tensor
 // cores (24 us at 67 TFLOP/s): bytes and operations bound it about evenly.
-// The dfeat1 scatter adds B * P * 4w^2 * C atomic adds (99 M), which land in
-// the 50 MB L2 since neighbouring parents' patches overlap.
+// A design that reads each parent's patch from the L2 sends as many bytes
+// of atomic adds back (B * P * 4w^2 * C floats each way: 397 MB at
+// 176^2), which land in the 50 MB L2 since neighbouring parents' patches
+// overlap; that traffic is the floor of this design.
 //
-// Design: one block per (b, p), as kernel B.  The cotangent rows and the
-// four query rows sit in shared memory; threads run over channels, so each
-// candidate row of feat1 is read and each dfeat1 row is updated coalesced.
-// dq is written directly (each (b, p) owns its rows); dfeat1 must be zeroed
-// by the caller.
+// Design (window_score.cuh): one block of 128 threads per (b, p), as kernel
+// B.  The four query rows are staged once; the patch streams through a
+// two-stage ring in chunks of 32 candidates by 32 columns (128 floats when
+// C % 4 == 0), each with its 4 x 32 cotangents, by 16-byte cp.async, the
+// next chunk in flight while the current one computes; channel blocks are
+// the outer loop, so a thread's column stays fixed across the candidates.
+// Threads run over (candidate group, column of 4 floats): at C = 128, 4
+// groups of 32 columns, at C = 64, 8 groups of 16, so every thread has
+// work.  Per candidate a thread loads one 16-byte patch word and the 4
+// cotangents, adds g[f, c] * patch into its dq registers (4 children x 4
+// floats) and forms the candidate's dfeat1 word sum_f g[f, c] * q[f, :]
+// from the query column in its registers, added with one
+// atomicAdd(float4 *, float4) under the scatter rule (a warp covers
+// neighbouring words of rows).  After a channel block's last chunk the
+// candidate groups' dq registers are added once through shared memory and
+// written.  dfeat1 must be zeroed by the caller.  Any w up to 64 and any C:
+// float columns and scalar adds when C % 4 != 0 or an output is not
+// 16-byte aligned, 4-byte copies then or when an input is not.
 
 #include <cuda_runtime.h>
 
-#include "clip_index.cuh"
+#include "window_score.cuh"
 
 namespace casmtr {
 
-constexpr int kScoreBwdThreads = 128;
+// Columns per channel block and candidate groups of a block for C
+// channels: every column of a block has a thread in each group.
+__host__ __device__ inline int score_bwd_cols(int C, int W) {
+  const int cols = (C + W - 1) / W;
+  return cols < kScoreCols ? cols : kScoreCols;
+}
 
-__global__ void __launch_bounds__(kScoreBwdThreads)
+__host__ __device__ inline int score_bwd_groups(int n_cols) {
+  const int g = kThreads / n_cols;
+  return g < kScoreChunk ? g : kScoreChunk;
+}
+
+template <bool kCopy16, bool kVec>
+__global__ void __launch_bounds__(kThreads)
 window_score_bwd_kernel(const float* __restrict__ q,
                         const float* __restrict__ feat1,
                         const int* __restrict__ corners,
                         const float* __restrict__ g, float* __restrict__ dq,
                         float* dfeat1, int P, int C, int H1, int W1, int w) {
-  extern __shared__ float smem[];
+  constexpr int W = kVec ? 4 : 1;           // floats per column
+  constexpr int CH = kScoreChunk;
+  extern __shared__ __align__(16) float smem[];
   const int NC = 4 * w * w;
-  float* gs = smem;                                  // [4, NC]
-  float* qs = gs + 4 * NC;                           // [4, C]
-  int* pos = reinterpret_cast<int*>(qs + 4 * C);     // [NC] gather rule
-  int* spos = pos + NC;                              // [NC] scatter rule
+  const int KC = kScoreCols * W;            // floats per channel block
+  const int kcb = min(KC, C);               // floats of a full block
+  const int S = score_stride<kVec>(kcb);
+  const int QS = (C + 3) & ~3;
+  const int n_cols = score_bwd_cols(C, W), n_cg = score_bwd_groups(n_cols);
+  float* qs = smem;                               // [4][QS]
+  float* ring = qs + 4 * QS;                      // [kStages][CH][S]
+  float* gring = ring + kStages * CH * S;         // [kStages][4][CH]
+  float* red = gring + kStages * 4 * CH;          // [n_cg][4][kcb]
+  int* pos = reinterpret_cast<int*>(red + n_cg * 4 * kcb);   // [NC]
+  int* spos = pos + NC;                                        // [NC]
   const long long bp = blockIdx.x;
   const int b = (int)(bp / P);
   const int tid = threadIdx.x;
-
-  for (int i = tid; i < 4 * NC; i += kScoreBwdThreads)
-    gs[i] = g[bp * 4 * NC + i];
-  for (int i = tid; i < 4 * C; i += kScoreBwdThreads)
-    qs[i] = q[bp * 4 * C + i];
-  const int cy = corners[bp * 2], cx = corners[bp * 2 + 1];
   const long long n_pos = (long long)H1 * W1;
-  for (int c = tid; c < NC; c += kScoreBwdThreads) {
-    const int gi = c >> 2;
-    const long long row = 2LL * cy + 2 * (gi / w) + ((c >> 1) & 1);
-    const long long col = 2LL * cx + 2 * (gi % w) + (c & 1);
-    long long flat = row * W1 + col;
-    pos[c] = (int)clip_index(flat, n_pos);
-    if (flat < 0) flat += n_pos;
-    spos[c] = (flat < 0 || flat >= n_pos) ? -1 : (int)flat;
-  }
-  __syncthreads();
-
   const float* f1 = feat1 + (size_t)b * n_pos * C;
   float* df1 = dfeat1 + (size_t)b * n_pos * C;
-  for (int ch = tid; ch < C; ch += kScoreBwdThreads) {
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    const float q0 = qs[ch], q1 = qs[C + ch], q2 = qs[2 * C + ch],
-                q3 = qs[3 * C + ch];
-    for (int c = 0; c < NC; ++c) {
-      const float g0 = gs[c], g1 = gs[NC + c], g2 = gs[2 * NC + c],
-                  g3 = gs[3 * NC + c];
-      const float fv = __ldg(f1 + (size_t)pos[c] * C + ch);
-      a0 = fmaf(g0, fv, a0);
-      a1 = fmaf(g1, fv, a1);
-      a2 = fmaf(g2, fv, a2);
-      a3 = fmaf(g3, fv, a3);
-      if (spos[c] >= 0)
-        atomicAdd(df1 + (size_t)spos[c] * C + ch,
-                  fmaf(g3, q3, fmaf(g2, q2, fmaf(g1, q1, g0 * q0))));
+  const float* gb = g + bp * 4 * NC;
+
+  patch_positions(corners, bp, w, W1, n_pos, pos, spos);
+  __syncthreads();
+  // the query rows join chunk 0's copy group
+  copy_rows<kCopy16>(qs, QS, q + bp * 4 * C, 4, C,
+                     [=](int f) { return (size_t)f * C; });
+  const int n_kb = (C + KC - 1) / KC, n_cb = (NC + CH - 1) / CH;
+  const int n_chunks = n_kb * n_cb;
+  auto issue = [&](int n) {   // chunk n = (channel block, candidate block)
+    if (n < n_chunks) {
+      const int kb = n / n_cb, c0 = (n - kb * n_cb) * CH, k0 = kb * KC;
+      const int cnt = min(CH, NC - c0);
+      copy_rows<kCopy16>(ring + (n % kStages) * CH * S, S, f1 + k0, cnt,
+                         min(KC, C - k0),
+                         [=](int r) { return (size_t)pos[c0 + r] * C; });
+      copy_rows<kCopy16>(gring + (n % kStages) * 4 * CH, CH, gb + c0, 4, cnt,
+                         [=](int f) { return (size_t)f * NC; });
     }
-    float* dqr = dq + bp * 4 * C + ch;
-    dqr[0] = a0;
-    dqr[C] = a1;
-    dqr[2 * C] = a2;
-    dqr[3 * C] = a3;
+    cp_async_commit();
+  };
+
+  const int cg = tid / n_cols, col = tid - cg * n_cols;
+  float dqa[4][W];   // [child f][float of the column]
+  float qr[4][W];
+#pragma unroll
+  for (int n = 0; n < kStages - 1; ++n) issue(n);
+  for (int n = 0; n < n_chunks; ++n) {
+    issue(n + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int kb = n / n_cb, cb = n - kb * n_cb;
+    const int c0 = cb * CH, k0 = kb * KC;
+    const int cnt = min(CH, NC - c0), kc = min(KC, C - k0);
+    const bool active = cg < n_cg && col * W < kc;
+    if (cb == 0 && active) {   // a new channel block
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        load_cols<W>(qr[f], qs + f * QS + k0 + col * W);
+#pragma unroll
+        for (int e = 0; e < W; ++e) dqa[f][e] = 0.f;
+      }
+    }
+    if (active) {
+      const float* st = ring + (n % kStages) * CH * S + col * W;
+      const float* gs = gring + (n % kStages) * 4 * CH;
+      for (int r = cg; r < cnt; r += n_cg) {
+        float p[W];
+        load_cols<W>(p, st + r * S);
+        const float g0 = gs[r], g1 = gs[CH + r], g2 = gs[2 * CH + r],
+                    g3 = gs[3 * CH + r];
+        float row[W];
+#pragma unroll
+        for (int e = 0; e < W; ++e) {
+          dqa[0][e] = fmaf(g0, p[e], dqa[0][e]);
+          dqa[1][e] = fmaf(g1, p[e], dqa[1][e]);
+          dqa[2][e] = fmaf(g2, p[e], dqa[2][e]);
+          dqa[3][e] = fmaf(g3, p[e], dqa[3][e]);
+          row[e] = fmaf(g3, qr[3][e],
+                        fmaf(g2, qr[2][e], fmaf(g1, qr[1][e], g0 * qr[0][e])));
+        }
+        const int sp = spos[c0 + r];
+        if (sp >= 0) {
+          float* dst = df1 + (size_t)sp * C + k0 + col * W;
+          if constexpr (W == 4)
+            atomicAdd(reinterpret_cast<float4*>(dst),
+                      make_float4(row[0], row[1], row[2], row[3]));
+          else
+            atomicAdd(dst, row[0]);
+        }
+      }
+    }
+    if (cb == n_cb - 1) {   // add the candidate groups' dq once
+      if (active) {
+#pragma unroll
+        for (int f = 0; f < 4; ++f)
+          store_cols<W>(red + (cg * 4 + f) * kcb + col * W, dqa[f]);
+      }
+      __syncthreads();
+      float* dqb = dq + bp * 4 * C + k0;
+      for (int i = tid; i < 4 * kc; i += kThreads) {
+        const int f = i / kc, x = i - f * kc;
+        float sum = 0.f;
+        for (int gi = 0; gi < n_cg; ++gi) sum += red[(gi * 4 + f) * kcb + x];
+        dqb[(size_t)f * C + x] = sum;
+      }
+    }
+    __syncthreads();
   }
 }
+
+// Shared memory of one block.
+inline size_t score_bwd_smem_bytes(int C, int w, bool vec) {
+  const int W = vec ? 4 : 1, KC = kScoreCols * W;
+  const int kcb = C < KC ? C : KC;
+  const int S = vec ? score_stride<true>(kcb) : score_stride<false>(kcb);
+  const int n_cg = score_bwd_groups(score_bwd_cols(C, W));
+  return (size_t)(4 * ((C + 3) & ~3) + kStages * kScoreChunk * (S + 4) +
+                  n_cg * 4 * kcb) *
+             sizeof(float) +
+         (size_t)2 * 4 * w * w * sizeof(int);
+}
+
+struct LaunchScoreBwd {
+  template <bool kCopy16, bool kVec>
+  static cudaError_t run(const float* q, const float* feat1,
+                         const int* corners, const float* g, float* dq,
+                         float* dfeat1, int B, int P, int C, int H1, int W1,
+                         int w, cudaStream_t stream) {
+    auto kernel = window_score_bwd_kernel<kCopy16, kVec>;
+    const size_t bytes = score_bwd_smem_bytes(C, w, kVec);
+    if (bytes > kMaxSmem) return cudaErrorInvalidValue;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return err;
+    const long long blocks = (long long)B * P;
+    if (blocks == 0) return cudaSuccess;
+    kernel<<<(unsigned)blocks, kThreads, bytes, stream>>>(
+        q, feat1, corners, g, dq, dfeat1, P, C, H1, W1, w);
+    return cudaGetLastError();
+  }
+};
 
 }  // namespace casmtr
 
 // q/dq [B, P, 4, C], feat1/dfeat1 [B, H1*W1, C], corners [B, P, 2] int32
 // (y, x) on the half grid, g [B, P, 4, 4w^2]; all f32 contiguous on one
-// device; dfeat1 zeroed.  Returns the cudaError_t of the launch.
+// device; dfeat1 zeroed.  Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue when w is outside 1..kMaxWindow or the block's
+// shared memory exceeds 227 KB).
 extern "C" int casmtr_window_patch_score_bwd_f32(
     const float* q, const float* feat1, const int* corners, const float* g,
     float* dq, float* dfeat1, int B, int P, int C, int H1, int W1, int w,
     void* stream) {
   using namespace casmtr;
-  const int NC = 4 * w * w;
-  const size_t smem = (size_t)(4 * NC + 4 * C + 2 * NC) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        window_score_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const long long blocks = (long long)B * P;
-  if (blocks == 0) return (int)cudaSuccess;
-  window_score_bwd_kernel<<<(unsigned)blocks, kScoreBwdThreads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
-      q, feat1, corners, g, dq, dfeat1, P, C, H1, W1, w);
-  return (int)cudaGetLastError();
+  if (w < 1 || w > kMaxWindow || C < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = C % 4 == 0 && aligned16(dq, dfeat1);
+  return (int)dispatch_copy<LaunchScoreBwd, true>(
+      vec && aligned16(q, feat1, g), vec, q, feat1, corners, g, dq, dfeat1,
+      B, P, C, H1, W1, w, static_cast<cudaStream_t>(stream));
 }

@@ -26,6 +26,11 @@ import torch
 from casmtr_tpu_torch.ops import kernels
 
 
+# Kernels B and B-bwd keep each parent's 4w^2 candidate positions in shared
+# memory (kMaxWindow in csrc/window_score.cuh).
+MAX_SCORE_WINDOW = 64
+
+
 def _candidate_offsets(w: int) -> np.ndarray:
     """(dy, dx) pixel offsets from the patch corner, candidate-ordered."""
     return np.asarray([(2 * wy + dr, 2 * wx + dc)
@@ -84,15 +89,15 @@ def window_patch_score_bwd_plain(q_blk, feat1, corners, g, w: int):
 
 def _check_score(q_blk, feat1, corners, w: int):
     """Kernel B's argument contract (CUDA tensors only)."""
+    if not 1 <= w <= MAX_SCORE_WINDOW:
+        raise ValueError(f"window_patch_score: window {w} outside the "
+                         f"kernels' 1..{MAX_SCORE_WINDOW}")
     B, P, _, C = q_blk.shape
     H1, W1 = feat1.shape[1:3]
     dev = q_blk.device
     kernels.check_cuda(q_blk, "q_blk", (B, P, 4, C), torch.float32, dev)
     kernels.check_cuda(feat1, "feat1", (B, H1, W1, C), torch.float32, dev)
     kernels.check_cuda(corners, "corners", (B, P, 2), torch.int32, dev)
-    if not 1 <= w <= 8:
-        raise ValueError(f"window_patch_score: window {w} outside the "
-                         "kernel's 1..8")
     return B, P, C, H1, W1
 
 

@@ -41,7 +41,9 @@ full width.  Phases, each printing its own lines and its seconds:
    clipped-gather rule), against the plain versions, and through their
    public wrappers on tiny cases that take every instance of the two
    kernels (WINDOW_CASES: other H and D, misaligned inputs, w = 1, a batch
-   of two); likewise A, A′ and A-bwd through their public wrappers and
+   of two); likewise B and B-bwd (SCORE_CASES: other C, misaligned inputs,
+   several channel blocks, w = 1 and 9, corners past the edge under the gather
+   and the scatter rule, a batch of two) and A, A′ and A-bwd through their public wrappers and
    launchers (QUADTREE_CASES: other H and D, misaligned inputs, K = 1,
    n_topk 1 and 4K, repeated ids, ids outside the block grid, a batch of
    two).  Then each autograd
@@ -719,6 +721,66 @@ def window_cases_check(torch):
                   f"grid={grid} w={w}: {n} max abs error {e:.3e} > {tol:.3g}")
 
 
+# (B, C, grid, w, corners past the edge, inputs 4 bytes off 16-byte
+# alignment).  Kernels B and B-bwd are instantiated for 16- or 4-byte copies
+# (C % 4, alignment) and float4 or float columns (C % 4; for B-bwd also the
+# outputs' alignment), B also for its narrow tile (rows of at most 16
+# columns) and its wide one; these cases take all six instances of B and
+# the three of B-bwd, one and two channel blocks (of 128 floats, or 32 when
+# C % 4 != 0), w = 1, a w beyond the old limit of 8 (324 candidates, 11
+# chunks), corners past the edge under the gather and the scatter rule,
+# and a batch of two.
+SCORE_CASES = (
+    (1, 128, 24, 5, False, False),   # 16-byte, float4, wide: 4c's
+    (1, 64, 24, 5, True, True),      # 4-byte copies, float4, narrow
+    (1, 6, 18, 3, True, False),      # 4-byte, float, narrow
+    (1, 45, 16, 2, False, True),     # 4-byte, float, wide, two blocks
+    (1, 256, 12, 2, True, True),     # 4-byte, float4, wide, two blocks
+    (1, 32, 8, 1, False, False),     # 16-byte, narrow; w = 1
+    (1, 64, 40, 9, True, False),     # 16-byte, narrow: 2c's; w = 9
+    (2, 128, 14, 5, True, False))    # a batch of two
+
+
+def score_cases_check(torch):
+    """Kernels B (through its public wrapper) and B-bwd on SCORE_CASES,
+    against the plain versions: scores and dq within KERNEL_TOL, the
+    atomically summed dfeat1 within KERNEL_TOL x max(1, max |plain|)."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for B, C, grid, w, edge, offset in SCORE_CASES:
+        half, P = grid // 2, (grid // 2) ** 2
+
+        def randn(*shape, scale=1.0):
+            return offset_randn(torch, gen, offset, shape).mul_(scale)
+
+        q = randn(B, P, 4, C, scale=C ** -0.25)
+        feat1 = randn(B, grid, grid, C, scale=C ** -0.25)
+        g = randn(B, P, 4, 4 * w * w)
+        lo, hi = (-2, half - w + 3) if edge else (0, half - w + 1)
+        corners = torch.randint(lo, hi, (B, P, 2), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        if edge:
+            corners[0, :4] = torch.tensor([[-1, -1], [half - 1, half - 1],
+                                           [0, half], [-grid * grid, 3]])
+        got = ((wk.window_patch_score(q, feat1, corners, w),)
+               + wk.window_patch_score_bwd(q, feat1, corners, g, w))
+        want = ((wk.window_patch_score_plain(q, feat1, corners, w),)
+                + wk.window_patch_score_bwd_plain(q, feat1, corners, g, w))
+        torch.cuda.synchronize()
+        errs = {}
+        for n, a, b in zip(("scores", "dq", "dfeat1"), got, want):
+            tol = KERNEL_TOL * (max(1.0, float(b.abs().max()))
+                                if n == "dfeat1" else 1.0)
+            errs[n] = (float((a - b).abs().max()), tol)
+        log(f"kernel window_patch_score(_bwd) [B={B} C={C} {grid}x{grid} "
+            f"w={w}" + (" edge corners" if edge else "")
+            + (" misaligned" if offset else "") + "]: max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items()))
+        for n, (e, tol) in errs.items():
+            check(e <= tol, f"window_patch_score B={B} C={C} grid={grid} "
+                  f"w={w}: {n} max abs error {e:.3e} > {tol:.3g}")
+
+
 # (B, H, D, grid, K, ids, n_topk, inputs 4 bytes off 16-byte alignment).
 # Kernels A and A′ (one body, with and without the selection) and A-bwd are
 # instantiated for 16- or 4-byte copies (16 only when D % 4 == 0 and the
@@ -962,6 +1024,7 @@ def train_kernel_phase(torch):
     window_rows(torch, rows, gen, path + " (2c)", TRAIN_SIZE // 2, 64, 2,
                 True)
     window_cases_check(torch)
+    score_cases_check(torch)
     quadtree_cases_check(torch)
     return rows
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Two checkouts of the PyTorch port (casmtr_tpu_torch) timed in turns on one
-NVIDIA GPU: kernels A, A′, A-bwd, C and C-bwd, the serving request and the
-training step.
+NVIDIA GPU: kernels A, A′, A-bwd, B, B-bwd, C and C-bwd, the serving
+request and the training step.
 
-    python3 scripts/torch_ab.py OTHER
+    python3 scripts/torch_ab.py [--kernels] OTHER
 
 OTHER is the root of another checkout of the repository, for instance the
 parent commit unpacked with ``git archive``.  Four processes run one after
@@ -17,14 +17,21 @@ measuring code from this checkout's ``chip_smoke.py``:
   its LSE, of the 704^2 step (88^2); A′ (top 16) at the intermediate
   levels, 52^2 and 44^2 with its LSE; A-bwd at 88^2 and 44^2; C at the
   serving shapes (208^2 with H=4, 416^2 with H=2), C with its LSE and C-bwd
-  at the training shapes (176^2, 352^2), w = 5, D = 32.  Each is held
-  against its plain version (chip_smoke.KERNEL_TOL; A′ by message and
-  sorted scores), timed on the card by ``chip_smoke.time_ms`` and on the
+  at the training shapes (176^2, 352^2), w = 5, D = 32; B at the serving
+  (208^2 with C=128, 416^2 with C=64) and training shapes (176^2, 352^2),
+  B-bwd at the training shapes, on chip_smoke.window_inputs' corners.  Each
+  is held against its plain version (chip_smoke.KERNEL_TOL; A′ by message
+  and sorted scores), timed on the card by ``chip_smoke.time_ms`` and on the
   host by ``host_us`` (one call's enqueue, the card held busy);
 - ``chip_smoke.serving_phase`` and ``chip_smoke.training_phase`` for both
   recipes: three requests at bucket 832 (two steady), a warm-up and four
   steps at 704^2; then one more step under torch.profiler (``host_step``):
   its wall, host and device time and its CUDA API calls (cuda* and cu*).
+
+With ``--kernels`` the processes time only the kernels, for instance to
+split a kernel into its passes: OTHER is then a copy of this checkout whose
+kernel source was edited to leave a pass out, so OTHER's outputs are
+printed beside the plain versions' but not checked.
 
 Prints the card's name and power limit, each process's lines, and last one
 JSON object with every reading per checkout.  Exits non-zero without CUDA
@@ -41,10 +48,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 TAG = "torch_ab: "
-# (kernel, grid of the level, heads): the quadtree rows take H=8, D=32 and
-# K=16 (finest) or 32 (intermediate) from chip_smoke.quadtree_inputs
+# (kernel, grid of the level, heads; channels for B and B-bwd): the quadtree
+# rows take H=8, D=32 and K=16 (finest) or 32 (intermediate) from
+# chip_smoke.quadtree_inputs
 SHAPES = (("A", 104, 8), ("A with LSE", 88, 8), ("A′", 52, 8),
           ("A′ with LSE", 44, 8), ("A-bwd", 88, 8), ("A-bwd", 44, 8),
+          ("B", 208, 128), ("B", 416, 64), ("B", 176, 128), ("B", 352, 64),
+          ("B-bwd", 176, 128), ("B-bwd", 352, 64),
           ("C", 208, 4), ("C", 416, 2), ("C with LSE", 176, 4),
           ("C with LSE", 352, 2), ("C-bwd", 176, 4), ("C-bwd", 352, 2))
 TOPK = 16   # A′'s selection: the 1/8 stack's second topk
@@ -96,6 +106,23 @@ def _quadtree_case(torch, cs, gen, cache, kind, grid):
                                                   hw, hw), (1, 2))
 
 
+def _score_case(torch, cs, gen, kind, grid, C):
+    """(fn, want, scattered outputs) of a B or B-bwd row, on chip_smoke's
+    window corners (w = 5) and inputs."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    corners = cs.window_inputs(torch, gen, grid // 2)
+    P = corners.shape[1]
+    q = torch.randn((1, P, 4, C), generator=gen, device="cuda") * C ** -0.25
+    feat1 = torch.randn((1, grid, grid, C), generator=gen,
+                        device="cuda") * C ** -0.25
+    if kind == "B":
+        return (lambda: (wk.window_patch_score(q, feat1, corners, 5),),
+                (wk.window_patch_score_plain(q, feat1, corners, 5),), ())
+    g = torch.randn((1, P, 4, 100), generator=gen, device="cuda")
+    return (lambda: wk.window_patch_score_bwd(q, feat1, corners, g, 5),
+            wk.window_patch_score_bwd_plain(q, feat1, corners, g, 5), (1,))
+
+
 def _window_case(torch, cs, gen, kind, grid, H):
     """(fn, want, scattered outputs) of a C or C-bwd row."""
     from casmtr_tpu_torch.ops.kernels import window_kernels as wk
@@ -132,9 +159,10 @@ def host_us(torch, cs, fn, reps=25):
     return statistics.median(times) * 1e6
 
 
-def kernel_times(torch, cs):
-    """The kernels at SHAPES, each first held against its plain version:
-    ({label: device ms}, {label: host us})."""
+def kernel_times(torch, cs, checked=True):
+    """The kernels at SHAPES, each first held against its plain version
+    (only printed when not ``checked``): ({label: device ms}, {label: host
+    us})."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     cache = {}
     times, host = {}, {}
@@ -142,9 +170,12 @@ def kernel_times(torch, cs):
         if kind.startswith("A"):
             fn, want, scattered = _quadtree_case(torch, cs, gen, cache, kind,
                                                  grid)
+        elif kind.startswith("B"):
+            fn, want, scattered = _score_case(torch, cs, gen, kind, grid, H)
         else:
             fn, want, scattered = _window_case(torch, cs, gen, kind, grid, H)
-        label = f"{kind} {grid}^2 H={H}"
+        label = f"{kind} {grid}^2 " + (f"C={H}" if kind.startswith("B")
+                                        else f"H={H}")
         got = fn()
         torch.cuda.synchronize()
         for i, (a, b) in enumerate(zip(got, want)):
@@ -153,6 +184,10 @@ def kernel_times(torch, cs):
             if i in scattered:
                 tol *= max(1.0, float(b.abs().max()))
             err = float((a - b).abs().max())
+            if not checked:
+                print(f"{TAG}{label}: output {i} max abs error {err:.3e} "
+                      "(not checked)", flush=True)
+                continue
             cs.check(err <= tol, f"{label}: output {i} max abs error "
                      f"{err:.3e} > {tol:.3g}")
         times[label] = cs.time_ms(torch, fn)
@@ -188,8 +223,9 @@ def host_step(torch, step, state, batch):
             "calls": calls}
 
 
-def child(tree):
-    """One checkout's readings, printed as the last line."""
+def child(tree, kernels_only=False):
+    """One checkout's readings, printed as the last line; with
+    ``kernels_only`` only the kernels'."""
     sys.path.insert(0, str(tree))
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -203,7 +239,11 @@ def child(tree):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     res = {"serving_ms": {}, "step_s": {}, "step_profile": {}}
-    res["kernels_ms"], res["kernels_host_us"] = kernel_times(torch, cs)
+    res["kernels_ms"], res["kernels_host_us"] = kernel_times(
+        torch, cs, checked=not kernels_only or tree == ROOT)
+    if kernels_only:
+        print(TAG + json.dumps(res), flush=True)
+        return
     for recipe in cs.RECIPES:
         res["serving_ms"][recipe] = cs.serving_phase(torch, recipe)[4]
         torch.cuda.empty_cache()
@@ -220,12 +260,13 @@ def child(tree):
     print(TAG + json.dumps(res), flush=True)
 
 
-def run_children(plan):
-    """Run (name, tree) children in order; {name: [readings]}, or None
-    when one fails."""
+def run_children(plan, flags):
+    """Run (name, tree) children in order, each with ``flags``; {name:
+    [readings]}, or None when one fails."""
     runs = {}
     for name, tree in plan:
-        proc = subprocess.run([sys.executable, __file__, "--child", str(tree)],
+        proc = subprocess.run([sys.executable, __file__, *flags, "--child",
+                               str(tree)],
                               capture_output=True, text=True, cwd=tree)
         lines = proc.stdout.splitlines()
         for line in lines[:-1]:
@@ -238,10 +279,38 @@ def run_children(plan):
     return runs
 
 
+def summary(runs):
+    """Print, per reading, the median over each checkout's processes (and
+    over the requests or steps within them)."""
+    def med(name, get):
+        vals = []
+        for res in runs[name]:
+            got = get(res)
+            vals.extend(got if isinstance(got, list) else [got])
+        return statistics.median(vals)
+
+    for label in runs["this"][0]["kernels_ms"]:
+        o, t = (med(n, lambda r: r["kernels_ms"][label])
+                for n in ("other", "this"))
+        ho, ht = (med(n, lambda r: r["kernels_host_us"][label])
+                  for n in ("other", "this"))
+        print(f"{TAG}summary {label}: other {o:.4f} ms, this {t:.4f} ms "
+              f"(other/this {o / t:.2f}x); host other {ho:.1f} us, this "
+              f"{ht:.1f} us", flush=True)
+    for key, unit in (("serving_ms", "ms"), ("step_s", "s")):
+        for recipe in runs["this"][0][key]:
+            o, t = (med(n, lambda r: r[key][recipe])
+                    for n in ("other", "this"))
+            print(f"{TAG}summary {recipe} {key}: other {o:.4f} {unit}, "
+                  f"this {t:.4f} {unit}", flush=True)
+
+
 def main():
     args = sys.argv[1:]
+    flags = [a for a in args if a == "--kernels"]
+    args = [a for a in args if a != "--kernels"]
     if len(args) == 2 and args[0] == "--child":
-        child(Path(args[1]).resolve())
+        child(Path(args[1]).resolve(), kernels_only=bool(flags))
         return 0
     if len(args) != 1:
         print(__doc__, file=sys.stderr)
@@ -255,9 +324,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
     runs = run_children([("other", other), ("this", ROOT), ("this", ROOT),
-                         ("other", other)])
+                         ("other", other)], flags)
     if runs is None:
         return 1
+    summary(runs)
     print(json.dumps({"other": str(other), "runs": runs}), flush=True)
     return 0
 
