@@ -4,18 +4,22 @@
 // (window_score*.cu) use its copies, loads and dispatch_copy.
 //
 // One block of kThreads threads serves one (batch b, parent block p), all
-// heads at once.  A query row is H*D contiguous floats, and so is a row of
+// heads at once.  A query row is H*D contiguous elements, and so is a row of
 // candidate keys (or values) in shared memory: its H head slices come from
 // one key position (kernel C: one candidate set for all heads) or from one
-// position per head (kernel A: each head has its own).  The block copies
-// them with cp.async, neighbouring threads on neighbouring 16-byte words
-// (4-byte words when a slice is not a multiple of 4 floats or a pointer is
-// not 16-byte aligned: the kCopy16 template parameter), so each 128-byte
-// head slice is 8 threads' copy.  K and V rows whose width is a multiple of
-// 32 floats are kept unpadded in shared memory with their 16-byte words
-// XOR-swizzled by row (kv_col), so threads reading the same column of 8
-// consecutive rows, or 8 neighbouring words of one row, hit distinct banks;
-// other widths are padded (row_stride).
+// position per head (kernel A: each head has its own).  The elements are
+// floats, or bf16 for the forward kernels' bf16-input instances (the T
+// template parameter): K and V rows are then staged as bf16, as they lie in
+// device memory, and turned into floats where they are read; all arithmetic
+// is f32.  The block copies them with cp.async, neighbouring threads on
+// neighbouring 16-byte words (4-byte words when a slice is not a whole
+// number of 16-byte words or a pointer is not 16-byte aligned: the kCopy16
+// template parameter), so each 128-byte head slice is 8 threads' copy.  K
+// and V rows whose width is a multiple of 128 bytes are kept unpadded in
+// shared memory with their 16-byte words XOR-swizzled by row (kv_col), so
+// threads reading the same column of 8 consecutive rows, or 8 neighbouring
+// words of one row, hit distinct banks; other widths are padded
+// (row_stride).
 //
 // The candidates stream through shared memory in chunks of chunk_rows(H)
 // rows of K and of V, in a ring of kStages stages: the next chunk's copies
@@ -37,6 +41,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <cuda_bf16.h>
+
 #include <type_traits>
 
 #include "clip_index.cuh"
@@ -48,7 +54,7 @@ constexpr int kWarp = 32;
 constexpr int kChunkPairs = 64;    // (head, candidate) pairs per chunk
 constexpr int kStages = 2;         // chunks of K and V rows in shared memory
 constexpr int kMaxSlots = 4;       // row columns per thread: H*D <= 2048
-                                   // (float4 columns) or 512 (floats)
+                                   // (columns of 4 elements) or 512 (of 1)
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -71,27 +77,48 @@ __host__ __device__ inline int candidate_groups(int CH, int n_cols) {
   return g < 1 ? 1 : (g > CH ? CH : g);
 }
 
-// Shared-memory stride of a row of H*D floats: rounded up to 4 floats, plus
-// 4.  Rows stay 16-byte aligned, and consecutive rows start 4 banks apart,
-// so 8 threads reading 16 bytes each from 8 consecutive rows (one phase of
-// a 16-byte shared load) touch 32 distinct banks.
+// Elements of type T in a 16-byte word: 4 floats, 8 bf16; and its log2.
+template <typename T>
+__host__ __device__ constexpr int word_elems() {
+  return 16 / (int)sizeof(T);
+}
+
+template <typename T>
+__host__ __device__ constexpr int word_shift() {
+  return sizeof(T) == 4 ? 2 : 3;
+}
+
+// Shared-memory stride, in elements, of a row of H*D elements: rounded up
+// to a 16-byte word, plus one word.  Rows stay 16-byte aligned, and
+// consecutive rows start 4 banks apart, so 8 threads reading 16 bytes each
+// from 8 consecutive rows (one phase of a 16-byte shared load) touch 32
+// distinct banks.
+template <typename T = float>
 __host__ __device__ inline int row_stride(int HD) {
-  return ((HD + 3) & ~3) + 4;
+  constexpr int E = word_elems<T>();
+  return (HD + E - 1) / E * E + E;
 }
 
-// K and V rows of H*D floats are swizzled when H*D is a multiple of 32
-// (8 words of 16 bytes), and then unpadded.
-__host__ __device__ inline bool swizzled(int HD) { return HD % 32 == 0; }
+// K and V rows of H*D elements are swizzled when a row is a multiple of 128
+// bytes (8 words of 16 bytes: H*D % 32 == 0 for floats, % 64 for bf16), and
+// then unpadded.
+template <typename T = float>
+__host__ __device__ inline bool swizzled(int HD) {
+  return (HD * (int)sizeof(T)) % 128 == 0;
+}
 
+template <typename T = float>
 __host__ __device__ inline int kv_stride(int HD) {
-  return swizzled(HD) ? HD : row_stride(HD);
+  return swizzled<T>(HD) ? HD : row_stride<T>(HD);
 }
 
-// Offset of float j in a K/V row whose swizzle key is `key` (the row's
+// Offset of element j in a K/V row whose swizzle key is `key` (the row's
 // index mod 8 for swizzled rows, 0 otherwise): its 16-byte word moves
 // within its aligned group of 8.
+template <typename T = float>
 __device__ __forceinline__ int kv_col(int j, int key) {
-  return (((j >> 2) ^ key) << 2) | (j & 3);
+  constexpr int L = word_shift<T>();
+  return (((j >> L) ^ key) << L) | (j & ((1 << L) - 1));
 }
 
 __device__ __forceinline__ int kv_key(int r, bool swz) {
@@ -103,23 +130,28 @@ __device__ __forceinline__ int kv_key(int r, bool swz) {
 // heads fall in distinct banks.
 __host__ __device__ inline int prob_stride(int CH) { return 4 * CH + 4; }
 
-// Whether every pointer is 16-byte aligned.
+// Whether every pointer is 16-byte (4-byte) aligned.
 template <typename... Ptrs>
 inline bool aligned16(const Ptrs*... p) {
   return (((reinterpret_cast<uintptr_t>(p) & 15) == 0) && ...);
+}
+
+template <typename... Ptrs>
+inline bool aligned4(const Ptrs*... p) {
+  return (((reinterpret_cast<uintptr_t>(p) & 3) == 0) && ...);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src));
@@ -127,7 +159,7 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src) {
 
 // One word of a row: 16 bytes (kCopy16) or 4.
 template <bool kCopy16>
-__device__ __forceinline__ void cp_async_word(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async_word(void* dst, const void* src) {
   if constexpr (kCopy16)
     cp_async16(dst, src);
   else
@@ -152,14 +184,49 @@ __device__ __forceinline__ void st4(float* p, float4 x) {
   *reinterpret_cast<float4*>(p) = x;
 }
 
-// W consecutive floats (W = 4 or 1) as an array, and back.
-template <int W>
-__device__ __forceinline__ void load_cols(float (&x)[W], const float* p) {
-  if constexpr (W == 4) {
+// A float, or a bf16 value widened to one (exactly: its bits are the
+// float's upper half).
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// The two bf16 values packed in a 32-bit word, low half first.
+__device__ __forceinline__ float bf16_lo(unsigned u) {
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float bf16_hi(unsigned u) {
+  return __uint_as_float(u & 0xffff0000u);
+}
+
+// W consecutive elements (W = 4 or 1; 16 or 8 bytes when W = 4) as an
+// array of floats, and floats back.
+template <int W, typename T>
+__device__ __forceinline__ void load_cols(float (&x)[W], const T* p) {
+  if constexpr (W == 4 && std::is_same<T, float>::value) {
     const float4 v = ld4(p);
     x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+  } else if constexpr (W == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    x[0] = bf16_lo(u.x); x[1] = bf16_hi(u.x);
+    x[2] = bf16_lo(u.y); x[3] = bf16_hi(u.y);
   } else {
-    x[0] = *p;
+    x[0] = to_float(*p);
+  }
+}
+
+// One 16-byte word of a shared row (4 floats or 8 bf16) as floats.
+template <typename T>
+__device__ __forceinline__ void load_word(float (&x)[word_elems<T>()],
+                                          const T* p) {
+  if constexpr (std::is_same<T, float>::value) {
+    load_cols<4>(x, p);
+  } else {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    x[0] = bf16_lo(u.x); x[1] = bf16_hi(u.x);
+    x[2] = bf16_lo(u.y); x[3] = bf16_hi(u.y);
+    x[4] = bf16_lo(u.z); x[5] = bf16_hi(u.z);
+    x[6] = bf16_lo(u.w); x[7] = bf16_hi(u.w);
   }
 }
 
@@ -171,33 +238,38 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[W]) {
     *p = x[0];
 }
 
-// Dot products of D floats of two shared rows a0, a1 with the floats
+// Dot products of D floats of two shared rows a0, a1 with the elements
 // j0 .. j0 + D - 1 of the K/V row b (swizzle key `key`), added to s0 and
-// s1; 16 bytes at a time when kVecD (D % 4 == 0), in four independent
-// partial sums each.
-template <bool kVecD>
+// s1; one 16-byte word of b at a time when kVecD (D a whole number of
+// words), in four independent partial sums each.
+template <bool kVecD, typename T>
 __device__ __forceinline__ void dot2(const float* a0, const float* a1,
-                                     const float* b, int j0, int key, int D,
+                                     const T* b, int j0, int key, int D,
                                      float& s0, float& s1) {
   if constexpr (kVecD) {
+    constexpr int E = word_elems<T>();
     float4 x0 = make_float4(0.f, 0.f, 0.f, 0.f), x1 = x0;
-    for (int d = 0; d < D; d += 4) {
-      const float4 y = ld4(b + kv_col(j0 + d, key));
-      const float4 u = ld4(a0 + d), t = ld4(a1 + d);
-      x0.x = fmaf(u.x, y.x, x0.x);
-      x0.y = fmaf(u.y, y.y, x0.y);
-      x0.z = fmaf(u.z, y.z, x0.z);
-      x0.w = fmaf(u.w, y.w, x0.w);
-      x1.x = fmaf(t.x, y.x, x1.x);
-      x1.y = fmaf(t.y, y.y, x1.y);
-      x1.z = fmaf(t.z, y.z, x1.z);
-      x1.w = fmaf(t.w, y.w, x1.w);
+    for (int d = 0; d < D; d += E) {
+      float y[E];
+      load_word<T>(y, b + kv_col<T>(j0 + d, key));
+#pragma unroll
+      for (int e = 0; e < E; e += 4) {
+        const float4 u = ld4(a0 + d + e), t = ld4(a1 + d + e);
+        x0.x = fmaf(u.x, y[e], x0.x);
+        x0.y = fmaf(u.y, y[e + 1], x0.y);
+        x0.z = fmaf(u.z, y[e + 2], x0.z);
+        x0.w = fmaf(u.w, y[e + 3], x0.w);
+        x1.x = fmaf(t.x, y[e], x1.x);
+        x1.y = fmaf(t.y, y[e + 1], x1.y);
+        x1.z = fmaf(t.z, y[e + 2], x1.z);
+        x1.w = fmaf(t.w, y[e + 3], x1.w);
+      }
     }
     s0 += (x0.x + x0.y) + (x0.z + x0.w);
     s1 += (x1.x + x1.y) + (x1.z + x1.w);
   } else {
     for (int d = 0; d < D; ++d) {
-      const float y = b[kv_col(j0 + d, key)];
+      const float y = to_float(b[kv_col<T>(j0 + d, key)]);
       s0 = fmaf(a0[d], y, s0);
       s1 = fmaf(a1[d], y, s1);
     }
@@ -218,34 +290,36 @@ struct RowCopy {
 };
 
 // The stream of chunks of K and V rows into the ring `kv`
-// ([kStages][K rows | V rows][CH][SK], swizzled when swz), and of the
-// block's fixed rows (the query rows; for the backward also the cotangent
-// rows), by cp.async copies of 16 bytes (kCopy16) or 4.  Row r of chunk n
-// is HD / slice slices of `slice` floats, slice s copied from key position
-// pos[(n * CH + r) * (HD / slice) + s] (slice = HD: one position per row;
-// slice = D: one per head).  Each chunk is one copy group; the fixed rows
-// join chunk 0's.
-template <bool kCopy16>
+// ([kStages][K rows | V rows][CH][SK] elements of T, swizzled when swz),
+// and of the block's fixed float rows (the query rows; for the backward
+// also the cotangent rows), by cp.async copies of 16 bytes (kCopy16) or 4.
+// Row r of chunk n is HD / slice slices of `slice` elements, slice s copied
+// from key position pos[(n * CH + r) * (HD / slice) + s] (slice = HD: one
+// position per row; slice = D: one per head).  Each chunk is one copy
+// group; the fixed rows join chunk 0's.
+template <bool kCopy16, typename T = float>
 struct ChunkStream {
-  static constexpr int kWord = kCopy16 ? 4 : 1;   // floats per copy
-  float* kv;
+  // elements per copy
+  static constexpr int kWord = (kCopy16 ? 16 : 4) / (int)sizeof(T);
+  T* kv;
   const int* pos;
-  const float* k;
-  const float* v;
+  const T* k;
+  const T* v;
   int CH, NC, SK, HD, slice;
   bool swz;
 
-  __device__ float* stage(int n) const {
+  __device__ T* stage(int n) const {
     return kv + (size_t)(n % kStages) * 2 * CH * SK;
   }
 
-  __device__ static void copy(float* dst, const float* src) {
+  __device__ static void copy(T* dst, const T* src) {
     cp_async_word<kCopy16>(dst, src);
   }
 
-  // Copy n_rows fixed rows, row(r) giving each's RowCopy.
+  // Copy n_rows fixed rows, row(r) giving each's RowCopy (float rows).
   template <typename Row>
   __device__ void stage_rows(int n_rows, Row row) const {
+    static_assert(std::is_same<T, float>::value, "fixed rows are floats");
     const int per_row = HD / kWord;
     for (int i = threadIdx.x; i < n_rows * per_row; i += kThreads) {
       const int r = i / per_row, j = (i - r * per_row) * kWord;
@@ -263,14 +337,14 @@ struct ChunkStream {
       const int cnt = min(CH, NC - n * CH);
       const int parts = HD / slice;
       const int* p = pos + (size_t)n * CH * parts;
-      float* ks = stage(n);
-      float* vs = ks + (size_t)CH * SK;
+      T* ks = stage(n);
+      T* vs = ks + (size_t)CH * SK;
       const int per_row = HD / kWord;
       if (kThreads % per_row == 0) {   // a fixed word of rows r0, r0 + step..
         const int j = (threadIdx.x % per_row) * kWord, s = j / slice;
         const int step = kThreads / per_row;
         for (int r = threadIdx.x / per_row; r < cnt; r += step) {
-          const int d = r * SK + kv_col(j, kv_key(r, swz));
+          const int d = r * SK + kv_col<T>(j, kv_key(r, swz));
           const size_t src = (size_t)p[r * parts + s] * HD + j;
           copy(ks + d, k + src);
           copy(vs + d, v + src);
@@ -278,7 +352,7 @@ struct ChunkStream {
       } else {
         for (int i = threadIdx.x; i < cnt * per_row; i += kThreads) {
           const int r = i / per_row, j = (i - r * per_row) * kWord;
-          const int d = r * SK + kv_col(j, kv_key(r, swz));
+          const int d = r * SK + kv_col<T>(j, kv_key(r, swz));
           const size_t src = (size_t)p[r * parts + j / slice] * HD + j;
           copy(ks + d, k + src);
           copy(vs + d, v + src);
@@ -391,9 +465,10 @@ struct WithSlots {
 };
 
 // Launch::run<kCopy16, kVecD, kSlots>(args...) for the instance that rows
-// of HD floats allow: dispatch_copy's, with one column slot per thread or
-// kMaxSlots.  For the quadtree's per-head slices (kCopyNeedsVec) a 16-byte
-// copy needs D % 4 == 0, as float4 columns do.
+// of HD elements allow: dispatch_copy's, with one column slot per thread or
+// kMaxSlots (columns of 4 elements when vec).  For the quadtree's per-head
+// slices (kCopyNeedsVec) a 16-byte copy needs a slice of whole 16-byte
+// words, as the launchers' vec does (D % 4 == 0 for floats, % 8 for bf16).
 template <typename Launch, bool kCopyNeedsVec = false, typename... Args>
 inline cudaError_t dispatch(bool copy16, bool vec, int HD, Args... args) {
   const int slots = column_slots(vec ? HD / 4 : HD);

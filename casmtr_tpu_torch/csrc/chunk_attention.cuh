@@ -34,9 +34,18 @@
 // occurrence adds, as autograd of the gather oracles does, in an order that
 // varies from run to run.  dk and dv must be zeroed by the caller.
 //
+// The forward body also takes bf16 q/k/v (T = __nv_bfloat16, the bf16
+// eval path): the four query rows are widened to f32 in shared memory once,
+// K and V rows are staged as bf16 (half the bytes copied and held) and
+// widened where they are read, each shared word once per thread for all the
+// children it serves; scores, the softmax, P.V, the message, the LSE and
+// A′'s selection are f32 as in the float instances.  The backward takes
+// floats only.
+//
 // No tensor cores: a (parent, head) has 4 query rows, a quarter of an mma
 // tile, over keys of its own, and the 1e-4 f32 tolerance rules out TF32.
-// Any H and D: H*D up to 2048 floats (512 when D % 4 != 0).
+// Any H and D: H*D up to 2048 elements (512 when D is not a whole number of
+// 16-byte words, or for floats D % 4 != 0).
 #pragma once
 
 #include <limits.h>
@@ -189,43 +198,58 @@ __device__ void select_topk(float* sc, int SCS, const float* m_run,
 // forward
 // ---------------------------------------------------------------------------
 
-// Bytes of the forward's shared memory: query rows [4][row_stride], the
-// ring of K and V chunks, the chunk's probabilities [H][prob_stride], the
-// rescale factor, running max and running sum [H][4] each, with kTopk the
-// scores [4H][score_stride], and the positions [NC][parts].
-inline size_t fwd_smem_bytes(int H, int D, int CH, int NC, int parts,
-                             bool topk) {
-  const size_t S = row_stride(H * D), R = 4 * H;
-  return (4 * S + (size_t)kStages * 2 * CH * kv_stride(H * D) +
-          H * (size_t)prob_stride(CH) + 3 * R +
-          (topk ? R * score_stride(NC) : 0) + (size_t)NC * parts) *
-         sizeof(float);
+// Bytes of the forward's ring of K and V chunks (rows of T), at least the
+// candidate groups' partial sums that reuse it after the last chunk
+// ([n_cg][4][H * D] floats; only bf16 rows can be the smaller).  A multiple
+// of 16 bytes.
+template <typename T>
+__host__ __device__ inline size_t ring_bytes(int HD, int CH, int n_cg) {
+  const size_t ring =
+      (size_t)kStages * 2 * CH * kv_stride<T>(HD) * sizeof(T);
+  const size_t red = (size_t)n_cg * 4 * HD * sizeof(float);
+  return ring > red ? ring : red;
 }
 
-template <typename Cand, bool kTopk, bool kCopy16, bool kVecD, int kSlots>
+// Bytes of the forward's shared memory: query rows [4][row_stride] (f32),
+// the ring of K and V chunks, the chunk's probabilities [H][prob_stride],
+// the rescale factor, running max and running sum [H][4] each, with kTopk
+// the scores [4H][score_stride], and the positions [NC][parts]; columns of
+// W elements in the product pass.
+template <typename T>
+inline size_t fwd_smem_bytes(int H, int D, int CH, int NC, int parts,
+                             bool topk, int W) {
+  const size_t S = row_stride(H * D), R = 4 * H;
+  return (4 * S + H * (size_t)prob_stride(CH) + 3 * R +
+          (topk ? R * score_stride(NC) : 0) + (size_t)NC * parts) *
+             sizeof(float) +
+         ring_bytes<T>(H * D, CH, candidate_groups(CH, H * D / W));
+}
+
+template <typename Cand, bool kTopk, bool kCopy16, bool kVecD, int kSlots,
+          typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_attention_kernel(const float* __restrict__ q,
-                       const float* __restrict__ k,
-                       const float* __restrict__ v, Cand cand,
+chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, Cand cand,
                        float* __restrict__ out, float* __restrict__ lse,
                        TopkOut sel, int P, int H, int D, int h0, int w0,
                        int h1, int w1, int CH, float scale) {
-  constexpr int W = kVecD ? 4 : 1;       // floats per column
+  constexpr int W = kVecD ? 4 : 1;       // elements per column
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const long long bp = blockIdx.x;
   const int p = (int)(bp % P), b = (int)(bp / P);
   cand.begin(bp);
-  const int HD = H * D, S = row_stride(HD), SK = kv_stride(HD), R = 4 * H;
+  const int HD = H * D, S = row_stride(HD), SK = kv_stride<T>(HD), R = 4 * H;
   const int PS = prob_stride(CH), NC = cand.count(), SCS = score_stride(NC);
   const int parts = Cand::kPerHead ? H : 1;
   const int n_chunks = (NC + CH - 1) / CH, n_cg = candidate_groups(CH, HD / W);
-  const bool swz = swizzled(HD);
+  const bool swz = swizzled<T>(HD);
   // softmax in base 2: scores carry log2(e), the LSE is converted back
   const float scale2 = scale * kLog2e;
-  float* qs = smem;                                // [4][S]
-  float* kv = qs + 4 * S;                          // [kStages][2][CH][SK]
-  float* pb = kv + (size_t)kStages * 2 * CH * SK;  // [H][PS]: [c][f]
+  float* qs = smem;                                // [4][S] floats
+  T* kv = reinterpret_cast<T*>(qs + 4 * S);        // [kStages][2][CH][SK]
+  float* pb = reinterpret_cast<float*>(            // [H][PS]: [c][f]
+      reinterpret_cast<char*>(kv) + ring_bytes<T>(HD, CH, n_cg));
   float* alpha = pb + H * PS;                      // [H][4], row h * 4 + f
   float* m_run = alpha + R;                        // [H][4]
   float* l_run = m_run + R;                        // [H][4]
@@ -233,9 +257,10 @@ chunk_attention_kernel(const float* __restrict__ q,
   int* pos = reinterpret_cast<int*>(sc + (kTopk ? (size_t)R * SCS : 0));
 
   const size_t k_off = (size_t)b * h1 * w1 * HD;
-  const float* qb = q + (size_t)b * h0 * w0 * HD;
-  const ChunkStream<kCopy16> stream{kv, pos, k + k_off, v + k_off, CH, NC,
-                                    SK, HD, Cand::kPerHead ? D : HD, swz};
+  const T* qb = q + (size_t)b * h0 * w0 * HD;
+  const ChunkStream<kCopy16, T> stream{kv, pos, k + k_off, v + k_off, CH,
+                                       NC, SK, HD, Cand::kPerHead ? D : HD,
+                                       swz};
 
   parent_positions(pos, cand, NC, parts);
   for (int i = tid; i < R; i += kThreads) {
@@ -243,9 +268,16 @@ chunk_attention_kernel(const float* __restrict__ q,
     l_run[i] = 0.f;
   }
   __syncthreads();
-  stream.stage_rows(4, [=](int f) {
-    return RowCopy{qs + f * S, qb + (size_t)query_row(p, w0, f) * HD};
-  });
+  if constexpr (std::is_same<T, float>::value) {
+    stream.stage_rows(4, [=](int f) {
+      return RowCopy{qs + f * S, qb + (size_t)query_row(p, w0, f) * HD};
+    });
+  } else {   // widened once: every candidate lane of a head reads them
+    for (int i = tid; i < 4 * HD; i += kThreads) {
+      const int f = i / HD, j = i - f * HD;
+      qs[f * S + j] = to_float(qb[(size_t)query_row(p, w0, f) * HD + j]);
+    }
+  }
   for (int n = 0; n < kStages - 1; ++n) stream.issue(n);
 
   const Columns<W, kSlots> col(HD, D, n_cg);
@@ -254,8 +286,8 @@ chunk_attention_kernel(const float* __restrict__ q,
     const int cnt = min(CH, NC - n * CH);
     stream.issue(n + kStages - 1);
     stream.wait();
-    const float* ks = stream.stage(n);
-    const float* vs = ks + (size_t)CH * SK;
+    const T* ks = stream.stage(n);
+    const T* vs = ks + (size_t)CH * SK;
 
     // scores and online softmax: threads over (child pair, head,
     // candidate); a row's CH candidates are CH neighbouring lanes
@@ -315,7 +347,8 @@ chunk_attention_kernel(const float* __restrict__ q,
         for (int c = col.cg; c < cnt; c += n_cg) {
           const float4 pp = ld4(pr + c * 4);
           float x[W];
-          load_cols<W>(x, vs + c * SK + kv_col(col.j[s], kv_key(c, swz)));
+          load_cols<W>(x,
+                       vs + c * SK + kv_col<T>(col.j[s], kv_key(c, swz)));
 #pragma unroll
           for (int e = 0; e < W; ++e) {
             acc[s][0][e] = fmaf(pp.x, x[e], acc[s][0][e]);
@@ -329,10 +362,10 @@ chunk_attention_kernel(const float* __restrict__ q,
     __syncthreads();
   }
 
-  // add the candidate groups' partial sums ([n_cg][4][H * D] over the K/V
-  // ring, free now: every chunk has landed), then write the message rows
-  // [4][H * D], whole and coalesced
-  float* red = kv;
+  // add the candidate groups' partial sums ([n_cg][4][H * D] floats over
+  // the K/V ring, free now: every chunk has landed), then write the message
+  // rows [4][H * D], whole and coalesced
+  float* red = reinterpret_cast<float*>(kv);
   if (col.cg < n_cg) {
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -563,17 +596,18 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
 // limit, one block per (batch, parent)
 // ---------------------------------------------------------------------------
 
-template <typename Cand, bool kTopk>
+template <typename Cand, bool kTopk, typename T = float>
 struct LaunchFwd {
   template <bool kCopy16, bool kVecD, int kSlots>
-  static cudaError_t run(const float* q, const float* k, const float* v,
-                         Cand cand, float* out, float* lse, TopkOut sel,
-                         int B, int P, int H, int D, int h0, int w0, int h1,
-                         int w1, float scale, cudaStream_t stream) {
-    auto kernel = chunk_attention_kernel<Cand, kTopk, kCopy16, kVecD, kSlots>;
+  static cudaError_t run(const T* q, const T* k, const T* v, Cand cand,
+                         float* out, float* lse, TopkOut sel, int B, int P,
+                         int H, int D, int h0, int w0, int h1, int w1,
+                         float scale, cudaStream_t stream) {
+    auto kernel =
+        chunk_attention_kernel<Cand, kTopk, kCopy16, kVecD, kSlots, T>;
     const int NC = cand.count(), parts = Cand::kPerHead ? H : 1;
     auto bytes = [=](int ch) {
-      return fwd_smem_bytes(H, D, ch, NC, parts, kTopk);
+      return fwd_smem_bytes<T>(H, D, ch, NC, parts, kTopk, kVecD ? 4 : 1);
     };
     const int CH = fit_chunk(H, bytes);
     if (CH == 0) return cudaErrorInvalidValue;

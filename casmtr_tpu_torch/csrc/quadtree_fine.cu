@@ -1,5 +1,7 @@
-// Quadtree fine-level attention for Hopper, f32: kernel A, and kernel A′,
-// the same body with the next level's top-k selection fused in.
+// Quadtree fine-level attention for Hopper: kernel A, and kernel A′, the
+// same body with the next level's top-k selection fused in; each on f32
+// q/k/v and, for the bf16 eval path, on bf16 q/k/v (f32 arithmetic and
+// outputs in both).
 //
 // Replaces: casmtr_tpu/ops/pallas/quadtree_kernels.py:_fwd_kernel, with
 // n_topk = 0 (kernel A, reached through masked_fine_level -> _message ->
@@ -33,7 +35,10 @@
 // (parent, head)'s candidate slices from the 50 MB L2 (neighbouring parents
 // select overlapping key blocks): 64 K and 64 V slices of 128 B per
 // (parent, head), 354 MB at 104^2, and by the f32 score and softmax work
-// (PERF.md holds the measured times).
+// (PERF.md holds the measured times).  The bf16 instances read half the
+// input bytes (bound 0.0087 ms at 104^2) and stage 64-byte slices, 4
+// threads' copy each, so the L2 traffic halves too; their arithmetic is
+// the f32 instances'.
 //
 // Design (chunk_attention.cuh, candidates BlockChildren): the TPU kernel's
 // child-major K/V, dense QK against every key with a membership bias, exp2
@@ -52,22 +57,31 @@
 // on 32 rows at a time.  Any H and D: H*D up to 2048 floats (512 when
 // D % 4 != 0).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "chunk_attention.cuh"
 
 namespace casmtr {
 
-template <bool kTopk>
-cudaError_t launch_quadtree_fine(const float* q, const float* k,
-                                 const float* v, const int* ids, float* out,
-                                 float* lse, TopkOut sel, int B, int P, int K,
-                                 int H, int D, int h0, int w0, int h1, int w1,
+// Kernel A (kTopk false) or A′ on q/k/v of element type T (float, or bf16
+// for the bf16 eval path).  A slice of whole 16-byte words (D % 4 == 0 for
+// floats, % 8 for bf16) takes float4-style columns and, with aligned
+// inputs, 16-byte copies; otherwise 4-byte copies, which a bf16 slice
+// allows only when D is even and q/k/v are 4-byte aligned.
+template <bool kTopk, typename T>
+cudaError_t launch_quadtree_fine(const T* q, const T* k, const T* v,
+                                 const int* ids, float* out, float* lse,
+                                 TopkOut sel, int B, int P, int K, int H,
+                                 int D, int h0, int w0, int h1, int w1,
                                  float scale, cudaStream_t stream) {
+  if (sizeof(T) == 2 && (D % 2 != 0 || !aligned4(q, k, v)))
+    return cudaErrorInvalidValue;
   const BlockChildren cand{ids, K, H, w1, (h1 / 2) * (w1 / 2)};
-  // a 16-byte copy stays within one head's slice only when D % 4 == 0
-  const bool vec = D % 4 == 0 && aligned16(out);
-  return dispatch<LaunchFwd<BlockChildren, kTopk>, true>(
+  // a 16-byte copy stays within one head's slice only when the slice is a
+  // whole number of 16-byte words
+  const bool vec = D % word_elems<T>() == 0 && aligned16(out);
+  return dispatch<LaunchFwd<BlockChildren, kTopk, T>, true>(
       vec && aligned16(q, k, v), vec, H * D, q, k, v, cand, out, lse, sel, B,
       P, H, D, h0, w0, h1, w1, scale, stream);
 }
@@ -93,6 +107,29 @@ extern "C" int casmtr_quadtree_fine_topk_f32(
     const float* q, const float* k, const float* v, const int* ids, float* out,
     float* lse, float* score, int* idx, int B, int P, int K, int H, int D,
     int h0, int w0, int h1, int w1, int n_topk, float scale, void* stream) {
+  if (n_topk < 1 || n_topk > 4 * K) return (int)cudaErrorInvalidValue;
+  return (int)casmtr::launch_quadtree_fine<true>(
+      q, k, v, ids, out, lse, casmtr::TopkOut{score, idx, n_topk}, B, P, K, H,
+      D, h0, w0, h1, w1, scale, static_cast<cudaStream_t>(stream));
+}
+
+// The bf16-input instances of kernels A and A′: q/k/v bf16, D even and
+// q/k/v 4-byte aligned (16-byte copies when D % 8 == 0 and they are 16-byte
+// aligned); every output as in the f32 entry points.
+extern "C" int casmtr_quadtree_fine_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const int* ids, float* out, float* lse, int B, int P, int K, int H, int D,
+    int h0, int w0, int h1, int w1, float scale, void* stream) {
+  return (int)casmtr::launch_quadtree_fine<false>(
+      q, k, v, ids, out, lse, casmtr::TopkOut{}, B, P, K, H, D, h0, w0, h1,
+      w1, scale, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int casmtr_quadtree_fine_topk_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const int* ids, float* out, float* lse, float* score, int* idx, int B,
+    int P, int K, int H, int D, int h0, int w0, int h1, int w1, int n_topk,
+    float scale, void* stream) {
   if (n_topk < 1 || n_topk > 4 * K) return (int)cudaErrorInvalidValue;
   return (int)casmtr::launch_quadtree_fine<true>(
       q, k, v, ids, out, lse, casmtr::TopkOut{score, idx, n_topk}, B, P, K, H,

@@ -1,13 +1,30 @@
 """Conv/BatchNorm building blocks that the Twins FPN shares with the ResNet
-FPN family (counterpart of the helpers in
-casmtr_tpu/models/backbone/resnet_fpn.py).  ``ResNetFPN_8_4_2`` itself is
-not ported yet (ROADMAP queue A: ResNetFPN_8_4_2)."""
+FPN family, and the backbone's compute dtype (counterpart of the helpers
+and ``backbone_dtype`` in casmtr_tpu/models/backbone/resnet_fpn.py).
+``ResNetFPN_8_4_2`` itself is not ported yet (ROADMAP queue A:
+ResNetFPN_8_4_2)."""
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+def backbone_dtype(device: torch.device, train: bool) -> torch.dtype:
+    """The backbone's compute dtype.  ``CASMTR_BACKBONE_BF16=0/1`` forces
+    float32 or bfloat16; otherwise bfloat16 on the card in eval, float32 on
+    the CPU and in training.  (The JAX package computes its backbone in bf16
+    on its TPU in training too; the port trains in float32 until its bf16
+    backward instances exist, ROADMAP queue A.)  Parameters and BatchNorm
+    statistics stay float32, and the backbone returns float32 maps."""
+    forced = os.environ.get("CASMTR_BACKBONE_BF16")
+    if forced is not None:
+        return torch.bfloat16 if forced == "1" else torch.float32
+    cuda = torch.device(device).type == "cuda"
+    return torch.bfloat16 if cuda and not train else torch.float32
 
 
 def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:

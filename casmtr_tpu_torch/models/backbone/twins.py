@@ -1,6 +1,8 @@
 """Twins-SVT backbone + FPN (counterpart of
 casmtr_tpu/models/backbone/twins.py: PatchEmbed, PosCNN, TwinsSVT,
-FPNBasicBlock, TwinsFPN_8_4_2).  Layout NCHW in and out.
+FPNBasicBlock, TwinsFPN_8_4_2).  Layout NCHW in and out.  The whole
+backbone computes in ``backbone_dtype`` (models/precision.py casts each
+step) and returns float32 maps.
 
 The strided patch-embedding and spatial-reduction convs use padding 0, which
 floors the grid -- the shapes and values of the JAX package's VALID padding.
@@ -14,9 +16,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from casmtr_tpu_torch.models.backbone.resnet_fpn import (bn, conv1x1, conv3x3,
+from casmtr_tpu_torch.models.backbone.resnet_fpn import (backbone_dtype, bn,
+                                                         conv1x1, conv3x3,
                                                          out_conv2)
 from casmtr_tpu_torch.models.cascade_attention import GroupBlock
+from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.ops.image_ops import resize_bilinear_align_corners
 
 # size presets: embed_dims, num_heads, depths, wss, sr_ratios
@@ -40,10 +44,11 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv2d(in_dim, embed_dim, patch_size, stride=patch_size)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
-    def forward(self, x: torch.Tensor):
-        x = self.proj(x)
+    def forward(self, x: torch.Tensor, dtype=None):
+        dt = dtype or x.dtype
+        x = run(self.proj, x, dt)
         H, W = x.shape[-2:]
-        return self.norm(x.flatten(2).transpose(1, 2)), (H, W)
+        return run(self.norm, x.flatten(2).transpose(1, 2), dt), (H, W)
 
 
 class PosCNN(nn.Module):
@@ -53,17 +58,18 @@ class PosCNN(nn.Module):
         super().__init__()
         self.proj = nn.Sequential(nn.Conv2d(dim, dim, 3, 1, 1, groups=dim))
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
         B, N, C = x.shape
-        xi = x.transpose(1, 2).reshape(B, C, h, w)
-        return (self.proj(xi) + xi).flatten(2).transpose(1, 2)
+        xi = x.transpose(1, 2).reshape(B, C, h, w).to(dtype or x.dtype)
+        return (run(self.proj, xi, xi.dtype) + xi).flatten(2).transpose(1, 2)
 
 
 class TwinsSVT(nn.Module):
     """Twins-SVT truncated to its first ``n_stages`` stages.  Blocks alternate
     window attention (even index) and global sr attention (odd); PosCNN
     follows the first block of each stage; each stage ends in a LayerNorm.
-    Returns the stage outputs NCHW."""
+    Returns the stage outputs NCHW, in ``dtype`` (default: x's)."""
 
     def __init__(self, model_type: str = "large", n_stages: int = 2):
         super().__init__()
@@ -84,15 +90,16 @@ class TwinsSVT(nn.Module):
         self.norm_list = nn.ModuleList(nn.LayerNorm(dims[i], eps=_LN_EPS)
                                        for i in range(n_stages))
 
-    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x: torch.Tensor, dtype=None) -> List[torch.Tensor]:
+        dt = dtype or x.dtype
         outputs = []
         for i, embed in enumerate(self.patch_embeds):
-            x, (H, W) = embed(x)
+            x, (H, W) = embed(x, dt)
             for j, blk in enumerate(self.blocks[i]):
-                x = blk(x, H, W)
+                x = blk(x, H, W, dt)
                 if j == 0:
-                    x = self.pos_block[i](x, H, W)
-            x = self.norm_list[i](x)
+                    x = self.pos_block[i](x, H, W, dt)
+            x = run(self.norm_list[i], x, dt)
             x = x.transpose(1, 2).reshape(x.shape[0], -1, H, W)
             outputs.append(x)
         return outputs
@@ -113,10 +120,12 @@ class FPNBasicBlock(nn.Module):
         else:
             self.shortcut = nn.Identity()
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(self.shortcut(x) + y)
+    def forward(self, x, dtype=None):
+        dt = dtype or x.dtype
+        x = x.to(dt)
+        y = F.relu(run(self.bn1, run(self.conv1, x, dt), dt))
+        y = run(self.bn2, run(self.conv2, y, dt), dt)
+        return F.relu(run(self.shortcut, x, dt) + y)
 
 
 _IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -125,8 +134,9 @@ _IMAGENET_STD = (0.229, 0.224, 0.225)
 
 class TwinsFPN_8_4_2(nn.Module):
     """Conv stem (1/2) + Twins ViT (1/4, 1/8) + FPN fusion.  Input: RGB in
-    [0, 1], [B, 3, H, W] (ImageNet normalization inline).  Returns
-    [1/8 (bd[2]), 1/4 (bd[1]), 1/2 (bd[0])] NCHW."""
+    [0, 1], [B, 3, H, W] (ImageNet normalization inline).  Computes in
+    ``backbone_dtype(device, self.training)``; returns [1/8 (bd[2]), 1/4
+    (bd[1]), 1/2 (bd[0])] NCHW float32 maps."""
 
     def __init__(self, initial_dim: int = 64, block_dims=(64, 128, 256),
                  model_type: str = "large"):
@@ -150,12 +160,17 @@ class TwinsFPN_8_4_2(nn.Module):
                              persistent=False)
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        dt = backbone_dtype(x.device, self.training)
         x = (x - self.mean) / self.std
-        x1 = self.layer1(self.conv1(x))
-        x2, x3 = self.vit(x)
-        x3_out = self.layer3_outconv(x3)
+        x1 = run(self.conv1, x, dt)
+        for blk in self.layer1:
+            x1 = blk(x1, dt)
+        x2, x3 = self.vit(x, dt)
+        x3_out = run(self.layer3_outconv, x3, dt)
         x3_2x = resize_bilinear_align_corners(x3_out, *x2.shape[-2:])
-        x2_out = self.layer2_outconv2(self.layer2_outconv(x2) + x3_2x)
+        x2_out = run(self.layer2_outconv2,
+                     run(self.layer2_outconv, x2, dt) + x3_2x, dt)
         x2_2x = resize_bilinear_align_corners(x2_out, *x1.shape[-2:])
-        x1_out = self.layer1_outconv2(self.layer1_outconv(x1) + x2_2x)
-        return [x3_out, x2_out, x1_out]
+        x1_out = run(self.layer1_outconv2,
+                     run(self.layer1_outconv, x1, dt) + x2_2x, dt)
+        return [x3_out.float(), x2_out.float(), x1_out.float()]

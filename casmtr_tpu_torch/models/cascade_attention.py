@@ -1,13 +1,18 @@
 """Window and global self-attention blocks (counterpart of
 casmtr_tpu/models/cascade_attention.py: GroupAttention, Attention, VITMlp,
 GroupBlock, LocalBlock).  Twins uses GroupBlock; the 1/4 cascade self layers
-use LocalBlock.  Tokens are [B, N, C]."""
+use LocalBlock.  Tokens are [B, N, C].  Each block computes in the
+``dtype`` its caller passes (default: the input's), steps cast by
+models/precision.py; attention scores and softmaxes are float32 and the
+probabilities are rounded to the values' dtype, as the JAX package's."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from casmtr_tpu_torch.models.precision import run
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -48,16 +53,19 @@ class GroupAttention(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
         B, N, C = x.shape
+        dt = dtype or x.dtype
         nh, ws = self.num_heads, self.ws
         hd = C // nh
         xi, pad_b, pad_r = pad_to_multiple(x.reshape(B, h, w, C), ws)
         Hp, Wp = xi.shape[1:3]
-        qkv = window_partition(self.qkv(xi), ws)            # [BW, WW, 3C]
+        qkv = window_partition(run(self.qkv, xi, dt), ws)   # [BW, WW, 3C]
         BW, WW, _ = qkv.shape
         q, k, v = qkv.reshape(BW, WW, 3, nh, hd).unbind(2)
-        attn = torch.einsum("wlhd,wshd->whls", q, k) * (hd ** -0.5)
+        attn = torch.einsum("wlhd,wshd->whls", q.float(),
+                            k.float()) * (hd ** -0.5)
         if pad_b or pad_r:
             is_pad = torch.zeros((1, Hp, Wp, 1), device=x.device)
             if pad_b:
@@ -69,10 +77,10 @@ class GroupAttention(nn.Module):
             nW = pm.shape[0]
             attn = (attn.reshape(B, nW, nh, WW, WW) + bias[:, None]) \
                 .reshape(BW, nh, WW, WW)
-        attn = torch.softmax(attn, dim=-1)
+        attn = torch.softmax(attn, dim=-1).to(v.dtype)
         out = torch.einsum("whls,wshd->wlhd", attn, v).reshape(BW, WW, C)
         out = window_reverse(out, ws, Hp, Wp)[:, :h, :w].reshape(B, N, C)
-        return self.proj(out)
+        return run(self.proj, out, dt)
 
 
 class Attention(nn.Module):
@@ -91,21 +99,25 @@ class Attention(nn.Module):
             self.sr = nn.Conv2d(dim, dim, sr_ratio, stride=sr_ratio)
             self.norm = nn.LayerNorm(dim, eps=ln_eps)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
         B, N, C = x.shape
+        dt = dtype or x.dtype
         nh = self.num_heads
         hd = C // nh
-        q = self.q(x).reshape(B, N, nh, hd)
+        q = run(self.q, x, dt).reshape(B, N, nh, hd)
         if self.sr_ratio > 1:
             xi = x.transpose(1, 2).reshape(B, C, h, w)
-            xi = self.norm(self.sr(xi).flatten(2).transpose(1, 2))
+            xi = run(self.norm, run(self.sr, xi, dt).flatten(2).transpose(
+                1, 2), dt)
         else:
             xi = x
-        k, v = self.kv(xi).reshape(B, -1, 2, nh, hd).unbind(2)
-        attn = torch.softmax(
-            torch.einsum("blhd,bshd->bhls", q, k) * (hd ** -0.5), dim=-1)
-        out = torch.einsum("bhls,bshd->blhd", attn, v).reshape(B, N, C)
-        return self.proj(out)
+        k, v = run(self.kv, xi, dt).reshape(B, -1, 2, nh, hd).unbind(2)
+        attn = torch.softmax(torch.einsum("blhd,bshd->bhls", q.float(),
+                                          k.float()) * (hd ** -0.5), dim=-1)
+        out = torch.einsum("bhls,bshd->blhd", attn.to(v.dtype),
+                           v).reshape(B, N, C)
+        return run(self.proj, out, dt)
 
 
 class VITMlp(nn.Module):
@@ -116,8 +128,9 @@ class VITMlp(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, out)
 
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+    def forward(self, x, dtype=None):
+        dt = dtype or x.dtype
+        return run(self.fc2, F.gelu(run(self.fc1, x, dt)), dt)
 
 
 class GroupBlock(nn.Module):
@@ -135,9 +148,12 @@ class GroupBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=ln_eps)
         self.mlp = VITMlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x), h, w)
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
+        dt = dtype or x.dtype
+        x = x.to(dt)
+        x = x + self.attn(run(self.norm1, x, dt), h, w, dt)
+        return x + self.mlp(run(self.norm2, x, dt), dt)
 
 
 class LocalBlock(nn.Module):
@@ -148,5 +164,6 @@ class LocalBlock(nn.Module):
         super().__init__()
         self.block_local = GroupBlock(dim, num_heads, mlp_ratio, 1, ws)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        return self.block_local(x, h, w)
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
+        return self.block_local(x, h, w, dtype)

@@ -1,6 +1,8 @@
 """Cascade-stage transformer: window cross attention around the previous
 stage's matches (counterpart of casmtr_tpu/models/cascade_transformer.py;
-the 'local' self layers and the structured 'window' cross layers)."""
+the 'local' self layers and the structured 'window' cross layers).  The
+stack computes in ``transformer_dtype``, feeds kernel C q/k/v in
+``table_dtype`` and returns float32 tokens for window matching."""
 
 from __future__ import annotations
 
@@ -11,7 +13,9 @@ import torch
 import torch.nn as nn
 
 from casmtr_tpu_torch.models.cascade_attention import LocalBlock
-from casmtr_tpu_torch.models.transformer import Mlp
+from casmtr_tpu_torch.models.precision import run
+from casmtr_tpu_torch.models.transformer import (Mlp, table_dtype,
+                                                 transformer_dtype)
 from casmtr_tpu_torch.ops.propagation import get_propagations
 from casmtr_tpu_torch.ops.quadtree import cascade_qtatt_b
 
@@ -47,16 +51,22 @@ class CascadeQuadtreeAttention(nn.Module):
         self.v_proj = nn.Linear(dim, dim, bias=False)
         self.proj = nn.Linear(dim, dim)
 
-    def forward(self, x, target, hw_x, hw_t, idx):
+    def forward(self, x, target, hw_x, hw_t, idx, dtype=None, tables=None):
+        """Computes in ``dtype`` (default: x's); kernel C reads q/k/v cast
+        to ``tables`` (default: float32)."""
         B, L, C = x.shape
+        dt = dtype or x.dtype
+        tab = tables or torch.float32
         D = C // self.num_heads
-        q = self.q_proj(x).reshape(B, L, self.num_heads, D)
-        k = self.k_proj(target).reshape(B, -1, self.num_heads, D)
-        v = self.v_proj(target).reshape(B, -1, self.num_heads, D)
+        q = run(self.q_proj, x, dt).to(tab).reshape(B, L, self.num_heads, D)
+        k = run(self.k_proj, target, dt).to(tab).reshape(B, -1,
+                                                         self.num_heads, D)
+        v = run(self.v_proj, target, dt).to(tab).reshape(B, -1,
+                                                         self.num_heads, D)
         msg, up_idx = cascade_qtatt_b(q, k, v, idx, hw_x, hw_t,
                                       dilated=self.dilated,
                                       window_structured=self.window_structured)
-        return self.proj(msg.reshape(B, L, C)), up_idx
+        return run(self.proj, msg.reshape(B, L, C), dt), up_idx
 
 
 class CascadeQuadtreeBlock(nn.Module):
@@ -72,11 +82,15 @@ class CascadeQuadtreeBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x, target, hw_x, hw_t, idx):
-        y, up_idx = self.attn(self.norm1(x), self.norm1(target), hw_x, hw_t,
-                              idx)
+    def forward(self, x, target, hw_x, hw_t, idx, dtype=None, tables=None):
+        dt = dtype or x.dtype
+        x, target = x.to(dt), target.to(dt)
+        y, up_idx = self.attn(run(self.norm1, x, dt),
+                              run(self.norm1, target, dt), hw_x, hw_t, idx,
+                              dt, tables)
         x = x + y
-        return x + self.mlp(self.norm2(x), hw_x[0], hw_x[1]), up_idx
+        return (x + self.mlp(run(self.norm2, x, dt), hw_x[0], hw_x[1], dt),
+                up_idx)
 
 
 class CascadeFeatureTransformer(nn.Module):
@@ -116,20 +130,22 @@ class CascadeFeatureTransformer(nn.Module):
                 hw1: Tuple[int, int]):
         """feat0/feat1: [B, L, C] at this level; idx_c01/idx_c10: [B, L/4]
         previous-stage best-match indices on the TARGET image's 2x coarser
-        grid.  Returns (feat0, feat1, idx_c01 [B, L0, 4ww], idx_c10,
+        grid.  Returns (feat0, feat1 float32, idx_c01 [B, L0, 4ww], idx_c10,
         corners01 [B, L0/4, 2], corners10)."""
         H0, W0 = hw0
         H1, W1 = hw1
+        dt = transformer_dtype(feat0.device, self.training)
+        tab = table_dtype(feat0.device, self.training, dt)
         win01 = window_warp_idx(idx_c01, self.window, H1 // 2, W1 // 2)
         win10 = window_warp_idx(idx_c10, self.window, H0 // 2, W0 // 2)
         up01 = up10 = None
         for layer, name in zip(self.layers, self.config.layer_names):
             if name == "self":
-                feat0 = layer(feat0, H0, W0)
-                feat1 = layer(feat1, H1, W1)
+                feat0 = layer(feat0, H0, W0, dt)
+                feat1 = layer(feat1, H1, W1, dt)
             else:
                 (feat0, up01), (feat1, up10) = (
-                    layer(feat0, feat1, hw0, hw1, win01),
-                    layer(feat1, feat0, hw1, hw0, win10))
-        return (feat0, feat1, up01, up10, win01[:, :, 0, :],
+                    layer(feat0, feat1, hw0, hw1, win01, dt, tab),
+                    layer(feat1, feat0, hw1, hw0, win10, dt, tab))
+        return (feat0.float(), feat1.float(), up01, up10, win01[:, :, 0, :],
                 win10[:, :, 0, :])

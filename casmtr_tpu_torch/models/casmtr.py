@@ -2,10 +2,20 @@
 casmtr_tpu/models/casmtr.py for ``cascade_levels`` (4,) and (4, 2)):
 backbone pyramid -> 1/8 quadtree transformer + dual-softmax -> per cascade
 level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
-matching -> fine sub-pixel refinement.  Computes in float32.
+matching -> fine sub-pixel refinement.
 ``module.training`` selects the mode: in training BatchNorm uses batch
 statistics and each cascade level's matches are the ground-truth-filtered
-ones that the loss supervises."""
+ones that the loss supervises.
+
+Precision follows the JAX package's policy, read from the tensors' device
+and the mode: on the card in eval the backbone and the coarse, cascade and
+fine stacks compute in bfloat16 (``backbone_dtype``,
+``transformer_dtype``) and kernels A, A′ and C take bf16 q/k/v
+(``table_dtype``); parameters and normalization statistics stay float32,
+every stack returns float32, and the UpBlocks, matching heads and fine
+preprocessing compute in float32.  In training and on the CPU everything is
+float32 unless ``CASMTR_BACKBONE_BF16`` / ``CASMTR_TRANSFORMER_BF16`` force
+a dtype."""
 
 from __future__ import annotations
 

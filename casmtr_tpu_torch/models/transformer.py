@@ -1,20 +1,62 @@
-"""Coarse-level transformer stacks (counterpart of
-casmtr_tpu/models/transformer.py: Mlp, LoFTREncoderLayer, QuadtreeAttention,
-QuadtreeBlock, LocalFeatureTransformer).  Tokens are [B, L, C]; module and
-parameter names follow the reference torch modules, so ``state_dict`` keys
-are the JAX package's flax paths as utils/convert.py maps them."""
+"""Coarse-level transformer stacks and their precision policy (counterpart
+of casmtr_tpu/models/transformer.py: transformer_dtype, Mlp,
+LoFTREncoderLayer, QuadtreeAttention, QuadtreeBlock,
+LocalFeatureTransformer).  Tokens are [B, L, C]; module and parameter names
+follow the reference torch modules, so ``state_dict`` keys are the JAX
+package's flax paths as utils/convert.py maps them.
+
+A stack computes in ``transformer_dtype`` (each step cast by
+models/precision.py), feeds the attention kernels q/k/v in
+``table_dtype``, and returns float32 tokens for the matching heads.  A
+block called on its own computes in the ``dtype`` passed (default: its
+input's)."""
 
 from __future__ import annotations
 
+import os
 from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.ops.attention import full_attention, linear_attention
 from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
 from casmtr_tpu_torch.ops.quadtree import qtatt_b
+
+
+def transformer_dtype(device: torch.device, train: bool) -> torch.dtype:
+    """The compute dtype of the coarse, cascade and fine stacks.
+    ``CASMTR_TRANSFORMER_BF16=0/1`` forces float32 or bfloat16 in both
+    modes; otherwise bfloat16 on the card in eval, float32 in training and
+    on the CPU, as the JAX package chooses on its TPU.  Parameters and
+    normalization statistics stay float32; attention scores and softmaxes
+    are float32."""
+    forced = os.environ.get("CASMTR_TRANSFORMER_BF16")
+    if forced is not None:
+        return torch.bfloat16 if forced == "1" else torch.float32
+    cuda = torch.device(device).type == "cuda"
+    return torch.bfloat16 if cuda and not train else torch.float32
+
+
+def table_dtype(device: torch.device, train: bool,
+                compute: torch.dtype) -> torch.dtype:
+    """The dtype of the q/k/v "gather tables" that the attention kernels
+    A, A′ and C read (the JAX package's ``cdt``), chosen by device and
+    mode, never read from the environment: float32 on the CPU, as the JAX
+    package's CPU graph (bf16 stacks forced by the environment still feed
+    the kernels float32 there), and on the card bfloat16 in eval, which
+    takes the kernels' bf16 instances.  Two choices differ from the JAX
+    package, which uses bf16 tables on its TPU whatever the stack dtype and
+    mode: the card keeps float32 tables in training, where the bf16
+    instances have no backward yet (ROADMAP queue A), and with a stack
+    forced to float32 (``compute``), so that such a request is the all-f32
+    graph."""
+    cuda = torch.device(device).type == "cuda"
+    if cuda and not train and compute == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
 
 
 class DWConv(nn.Module):
@@ -24,9 +66,11 @@ class DWConv(nn.Module):
         super().__init__()
         self.dwconv = nn.Conv2d(dim, dim, 3, 1, 1, groups=dim)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
         B, L, C = x.shape
-        y = self.dwconv(x.transpose(1, 2).reshape(B, C, h, w))
+        y = run(self.dwconv, x.transpose(1, 2).reshape(B, C, h, w),
+                dtype or x.dtype)
         return y.flatten(2).transpose(1, 2)
 
 
@@ -39,9 +83,11 @@ class Mlp(nn.Module):
         self.dwconv = DWConv(hidden)
         self.fc2 = nn.Linear(hidden, out)
 
-    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
-        x = self.dwconv(F.relu(self.fc1(x)), h, w)
-        return self.fc2(F.gelu(x))
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
+        dt = dtype or x.dtype
+        x = self.dwconv(F.relu(run(self.fc1, x, dt)), h, w, dt)
+        return run(self.fc2, F.gelu(x), dt)
 
 
 class LoFTREncoderLayer(nn.Module):
@@ -61,16 +107,19 @@ class LoFTREncoderLayer(nn.Module):
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, x, source, x_mask=None, source_mask=None):
+    def forward(self, x, source, x_mask=None, source_mask=None, dtype=None):
         B, _, C = x.shape
+        dt = dtype or x.dtype
+        x, source = x.to(dt), source.to(dt)
         D = C // self.nhead
-        q = self.q_proj(x).reshape(B, -1, self.nhead, D)
-        k = self.k_proj(source).reshape(B, -1, self.nhead, D)
-        v = self.v_proj(source).reshape(B, -1, self.nhead, D)
+        q = run(self.q_proj, x, dt).reshape(B, -1, self.nhead, D)
+        k = run(self.k_proj, source, dt).reshape(B, -1, self.nhead, D)
+        v = run(self.v_proj, source, dt).reshape(B, -1, self.nhead, D)
         attn = linear_attention if self.attention == "linear" else full_attention
-        msg = attn(q, k, v, q_mask=x_mask, kv_mask=source_mask)
-        msg = self.norm1(self.merge(msg.reshape(B, -1, C)))
-        y = self.norm2(self.mlp(torch.cat([x, msg], dim=-1)))
+        msg = attn(q, k, v, q_mask=x_mask, kv_mask=source_mask)  # float32
+        msg = run(self.norm1, run(self.merge, msg.reshape(B, -1, C), dt), dt)
+        y = run(self.norm2, run(self.mlp, torch.cat([x, msg], dim=-1), dt),
+                dt)
         return x + y
 
 
@@ -103,17 +152,22 @@ class QuadtreeAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, target, hw_x: Tuple[int, int],
-                hw_t: Tuple[int, int]) -> torch.Tensor:
+                hw_t: Tuple[int, int], dtype=None,
+                tables=None) -> torch.Tensor:
+        """Computes in ``dtype`` (default: x's) and pools the pyramid in it;
+        the kernels read q/k/v cast to ``tables`` (default: float32)."""
         B, L, C = x.shape
         h, w = hw_x
+        dt = dtype or x.dtype
         D = C // self.num_heads
-        q = self.q_proj(x.transpose(1, 2).reshape(B, C, h, w))
-        k = self.k_proj(target.transpose(1, 2).reshape(B, C, *hw_t))
-        v = self.v_proj(target.transpose(1, 2).reshape(B, C, *hw_t))
+        q = run(self.q_proj, x.transpose(1, 2).reshape(B, C, h, w), dt)
+        k = run(self.k_proj, target.transpose(1, 2).reshape(B, C, *hw_t), dt)
+        v = run(self.v_proj, target.transpose(1, 2).reshape(B, C, *hw_t), dt)
 
         def tokens(t):  # [B, C, hh, ww] -> [B, hh*ww, H, D] contiguous
             return t.flatten(2).transpose(1, 2).reshape(
-                B, -1, self.num_heads, D).contiguous()
+                B, -1, self.num_heads, D).contiguous().to(
+                    tables or torch.float32)
 
         qs, ks, vs, sizes = [], [], [], []
         for i in range(self.scale):
@@ -123,8 +177,8 @@ class QuadtreeAttention(nn.Module):
             sizes.append(tuple(q.shape[-2:]))
             if i != self.scale - 1:
                 q, k, v = avg_pool_2x2(q), avg_pool_2x2(k), avg_pool_2x2(v)
-        msg = self.py_att(qs, ks, vs, sizes, self.topks)
-        return self.proj(msg.reshape(B, L, C))
+        msg = self.py_att(qs, ks, vs, sizes, self.topks)      # float32
+        return run(self.proj, msg.reshape(B, L, C), dt)
 
 
 class QuadtreeBlock(nn.Module):
@@ -139,15 +193,19 @@ class QuadtreeBlock(nn.Module):
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x, target, hw_x, hw_t):
-        x = x + self.attn(self.norm1(x), self.norm1(target), hw_x, hw_t)
-        return x + self.mlp(self.norm2(x), hw_x[0], hw_x[1])
+    def forward(self, x, target, hw_x, hw_t, dtype=None, tables=None):
+        dt = dtype or x.dtype
+        x, target = x.to(dt), target.to(dt)
+        x = x + self.attn(run(self.norm1, x, dt), run(self.norm1, target, dt),
+                          hw_x, hw_t, dt, tables)
+        return x + self.mlp(run(self.norm2, x, dt), hw_x[0], hw_x[1], dt)
 
 
 class LocalFeatureTransformer(nn.Module):
     """Interleaved self/cross stack.  Quadtree cross layers update both
     images from the pre-update features (simultaneously); 'loftr' cross
-    layers update them in sequence, so feat1 sees the new feat0."""
+    layers update them in sequence, so feat1 sees the new feat0.  Computes
+    in ``transformer_dtype`` and returns float32 tokens."""
 
     def __init__(self, config):
         super().__init__()
@@ -171,18 +229,20 @@ class LocalFeatureTransformer(nn.Module):
 
     def forward(self, feat0, feat1, hw0, hw1, mask0=None, mask1=None):
         loftr = self.config.block_type == "loftr"
+        dt = transformer_dtype(feat0.device, self.training)
+        tab = table_dtype(feat0.device, self.training, dt)
         for layer, name in zip(self.layers, self.config.layer_names):
             if loftr:
                 if name == "self":
-                    feat0 = layer(feat0, feat0, mask0, mask0)
-                    feat1 = layer(feat1, feat1, mask1, mask1)
+                    feat0 = layer(feat0, feat0, mask0, mask0, dt)
+                    feat1 = layer(feat1, feat1, mask1, mask1, dt)
                 else:
-                    feat0 = layer(feat0, feat1, mask0, mask1)
-                    feat1 = layer(feat1, feat0, mask1, mask0)
+                    feat0 = layer(feat0, feat1, mask0, mask1, dt)
+                    feat1 = layer(feat1, feat0, mask1, mask0, dt)
             elif name == "self":
-                feat0 = layer(feat0, feat0, hw0, hw0)
-                feat1 = layer(feat1, feat1, hw1, hw1)
+                feat0 = layer(feat0, feat0, hw0, hw0, dt, tab)
+                feat1 = layer(feat1, feat1, hw1, hw1, dt, tab)
             else:
-                feat0, feat1 = (layer(feat0, feat1, hw0, hw1),
-                                layer(feat1, feat0, hw1, hw0))
-        return feat0, feat1
+                feat0, feat1 = (layer(feat0, feat1, hw0, hw1, dt, tab),
+                                layer(feat1, feat0, hw1, hw0, dt, tab))
+        return feat0.float(), feat1.float()

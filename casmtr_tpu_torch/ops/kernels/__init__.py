@@ -8,7 +8,9 @@ a hash of the sources and the flags, so a changed source builds anew and an
 unchanged one is reused.  Nothing is built at import time.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and nowhere else; ``reset_launch_counts`` zeroes them.
+kernel, and nowhere else; ``reset_launch_counts`` zeroes them.  Kernels A,
+A′ and C also have bf16-input instances (the bf16 eval path), counted
+apart under ``<name>_bf16``.
 """
 
 from __future__ import annotations
@@ -45,6 +47,9 @@ LAUNCHES: Dict[str, int] = {
     "window_patch_score_bwd": 0,
     "window_cross_attention_bwd": 0,
     "quadtree_fine_topk": 0,
+    "quadtree_fine_attention_bf16": 0,
+    "quadtree_fine_topk_bf16": 0,
+    "window_cross_attention_bf16": 0,
 }
 
 _P = ctypes.c_void_p
@@ -60,6 +65,9 @@ _SIGNATURES = {
     "casmtr_window_cross_attention_bwd_f32":
         [_P] * 10 + [_I] * 9 + [_F, _P],
     "casmtr_quadtree_fine_topk_f32": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "casmtr_quadtree_fine_attention_bf16": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "casmtr_window_cross_attention_bf16": [_P] * 6 + [_I] * 9 + [_F, _P],
+    "casmtr_quadtree_fine_topk_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -161,6 +169,61 @@ def clip_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     from the end, then the result is clamped into [0, n - 1].  The CUDA
     kernels apply the same rule."""
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+# The element types of the attention kernels' q/k/v (kernels A, A′, C):
+# f32, and bf16 for the forward-only bf16 instances; the entry point's
+# suffix for each.
+INPUT_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def input_dtype(name: str, *ts: torch.Tensor) -> torch.dtype:
+    """The one element type of a kernel's q/k/v ``ts``; raise ValueError
+    when they differ or the type has no kernel instance."""
+    dtypes = {t.dtype for t in ts}
+    if len(dtypes) != 1:
+        raise ValueError(f"{name}: q, k and v must share one dtype, got "
+                         f"{sorted(str(d) for d in dtypes)}")
+    dtype = dtypes.pop()
+    if dtype not in INPUT_DTYPES:
+        raise ValueError(f"{name}: q/k/v dtype {dtype}; the kernels take "
+                         f"{' or '.join(str(d) for d in INPUT_DTYPES)}")
+    return dtype
+
+
+def check_rows(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               width: int, what: str) -> torch.dtype:
+    """The chunked attention kernels' limits on q/k/v [B, L, H, D], before
+    any device check.  Returns their one dtype.  ``width`` elements (a head
+    slice, ``what`` = "head width D", or a whole row, "row width H*D") are
+    staged in 16-byte words when they hold whole ones, else in 4-byte words:
+    bf16 needs an even width and 4-byte aligned q/k/v.  A thread owns at
+    most 4 columns of 4 elements (of 1 when D is not a whole number of
+    16-byte words) of a row of the 128-thread block (csrc/block_chunk.cuh).
+    """
+    dtype = input_dtype(name, q, k, v)
+    H, D = q.shape[2:]
+    if dtype == torch.bfloat16:
+        if width % 2:
+            raise ValueError(f"{name}: bf16 q/k/v need an even {what}, got "
+                             f"{width}")
+        if any(t.data_ptr() % 4 for t in (q, k, v)):
+            raise ValueError(f"{name}: bf16 q/k/v must be 4-byte aligned")
+    max_hd = 2048 if D % (16 // q.element_size()) == 0 else 512
+    if H * D > max_hd:
+        raise ValueError(f"{name}: H*D = {H * D}, the kernels take at most "
+                         f"{max_hd} for {dtype} with D = {D}")
+    return dtype
+
+
+def check_forward_only(name: str, dtype: torch.dtype, need_grad: bool
+                       ) -> None:
+    """The bf16 instances have no backward kernel: raise when a gradient
+    is requested through one (no silent f32 route)."""
+    if dtype == torch.bfloat16 and need_grad:
+        raise ValueError(f"{name}: a gradient was requested through the "
+                         "bf16 instance, which has no backward kernel; "
+                         "train with float32 q/k/v")
 
 
 def check_cuda(t: torch.Tensor, name: str, shape, dtype: torch.dtype,

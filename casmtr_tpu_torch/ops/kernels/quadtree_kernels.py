@@ -17,6 +17,12 @@ same CUDA body, through ``QuadtreeFineAttention`` with ``topk``; its
 gradient is kernel A-bwd's, since the selection carries none).  Its plain
 version ``quadtree_fine_topk_plain`` is the whole gather path of
 ``_fine_level_b`` with ``need_topk``.
+
+q/k/v may be float32 or, on the bf16 eval path, bfloat16 (one dtype for
+all three).  bf16 CUDA tensors launch the bf16 instances of A and A′: f32
+arithmetic on the bf16 values, f32 message and scores, no backward (a
+gradient through them raises).  The plain versions widen bf16 inputs to
+f32 and compute as for f32 ones.
 """
 
 from __future__ import annotations
@@ -64,6 +70,7 @@ def _attend(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
     from casmtr_tpu_torch.ops.quadtree import block_children
     B, _, H, D = q.shape
     K = topk_idx_prev.shape[2]
+    q, k, v = q.float(), k.float(), v.float()
     qb = block_children(q, *hw_q)                            # [B, P, 4, H, D]
     k_g, v_g, pos = _candidates(k, v, topk_idx_prev, hw_k)
     qk = _scores(qb, k_g, D)
@@ -79,7 +86,8 @@ def quadtree_fine_attention_plain(q, k, v, topk_idx_prev,
                                   with_lse: bool = False):
     """Gather-path fine-level message.
 
-    q: [B, Lq, H, D]; k/v: [B, Lk, H, D]; topk_idx_prev: [B, P, K, H] flat
+    q: [B, Lq, H, D]; k/v: [B, Lk, H, D] (float32, or bfloat16 widened to
+    float32 first); topk_idx_prev: [B, P, K, H] flat
     block ids on the 2x coarser key grid (P = Lq // 4).  Each 2x2 child query
     block attends, per head, to the 4K children of its K selected blocks.
     Returns msg [B, P, 4, H, D] float32, and with ``with_lse`` also the
@@ -158,8 +166,10 @@ def _scatter_rows(rows, pos, Lk: int):
     return out.reshape(B, Lk, H, D)
 
 
-def _check(q, k, v, topk_idx_prev, hw_q, hw_k):
-    """The kernels' argument contract (CUDA tensors only)."""
+def _check(q, k, v, topk_idx_prev, hw_q, hw_k) -> torch.dtype:
+    """The kernels' argument contract (CUDA tensors only; the shape, dtype
+    and alignment limits come first, so they raise on any device).
+    Returns the q/k/v dtype, which picks the instance."""
     h0, w0 = hw_q
     h1, w1 = hw_k
     B, _, H, D = q.shape
@@ -167,25 +177,25 @@ def _check(q, k, v, topk_idx_prev, hw_q, hw_k):
     if h0 % 2 or w0 % 2 or h1 % 2 or w1 % 2:
         raise ValueError(f"quadtree_fine_attention: grids {hw_q}, {hw_k} "
                          "must have even sides")
-    # a thread owns at most 4 columns of 4 floats (1 when D % 4 != 0) of a
-    # row of the 128-thread block (csrc/block_chunk.cuh)
-    max_hd = 2048 if D % 4 == 0 else 512
-    if H * D > max_hd:
-        raise ValueError(f"quadtree_fine_attention: H*D = {H * D} floats, "
-                         f"the kernels take at most {max_hd} for D = {D}")
+    # each head's slice is staged from its own key position
+    dtype = kernels.check_rows("quadtree_fine_attention", q, k, v, D,
+                               "head width D")
     dev = q.device
-    kernels.check_cuda(q, "q", (B, h0 * w0, H, D), torch.float32, dev)
-    kernels.check_cuda(k, "k", (B, h1 * w1, H, D), torch.float32, dev)
-    kernels.check_cuda(v, "v", (B, h1 * w1, H, D), torch.float32, dev)
+    kernels.check_cuda(q, "q", (B, h0 * w0, H, D), dtype, dev)
+    kernels.check_cuda(k, "k", (B, h1 * w1, H, D), dtype, dev)
+    kernels.check_cuda(v, "v", (B, h1 * w1, H, D), dtype, dev)
     kernels.check_cuda(topk_idx_prev, "topk_idx_prev",
                        (B, P, topk_idx_prev.shape[2], H), torch.int32, dev)
+    return dtype
 
 
 def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool, topk: int = 0):
-    """Kernel A (``topk`` 0) or A′ (``topk`` > 0).  Returns (out, lse,
-    score, idx); lse is None without ``with_lse``, score and idx are None
-    for kernel A."""
-    _check(q, k, v, ids, hw_q, hw_k)
+    """Kernel A (``topk`` 0) or A′ (``topk`` > 0), the instance of the
+    q/k/v dtype.  Returns (out, lse, score, idx); lse is None without
+    ``with_lse``, score and idx are None for kernel A."""
+    dtype = _check(q, k, v, ids, hw_q, hw_k)
+    suffix = kernels.INPUT_DTYPES[dtype]
+    count = "" if dtype == torch.float32 else "_bf16"
     B, Lq, H, D = q.shape
     P, K = ids.shape[1:3]
     if not 0 <= topk <= 4 * K:
@@ -199,20 +209,23 @@ def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool, topk: int = 0):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(),
             out.data_ptr(), lse_ptr)
     if not topk:
-        kernels.launch("casmtr_quadtree_fine_attention_f32",
-                       "quadtree_fine_attention", dev, *args, B, P, K, H, D,
-                       *hw_q, *hw_k, float(D ** -0.5))
+        kernels.launch(f"casmtr_quadtree_fine_attention_{suffix}",
+                       "quadtree_fine_attention" + count, dev, *args, B, P,
+                       K, H, D, *hw_q, *hw_k, float(D ** -0.5))
         return out, lse, None, None
     score = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.float32)
     idx = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.int32)
-    kernels.launch("casmtr_quadtree_fine_topk_f32", "quadtree_fine_topk", dev,
-                   *args, score.data_ptr(), idx.data_ptr(), B, P, K, H, D,
-                   *hw_q, *hw_k, topk, float(D ** -0.5))
+    kernels.launch(f"casmtr_quadtree_fine_topk_{suffix}",
+                   "quadtree_fine_topk" + count, dev, *args, score.data_ptr(),
+                   idx.data_ptr(), B, P, K, H, D, *hw_q, *hw_k, topk,
+                   float(D ** -0.5))
     return out, lse, score, idx
 
 
 def _launch_bwd(q, k, v, ids, out, lse, g, hw_q, hw_k):
-    _check(q, k, v, ids, hw_q, hw_k)
+    if _check(q, k, v, ids, hw_q, hw_k) != torch.float32:
+        raise ValueError("quadtree_fine_attention_bwd: kernel A-bwd takes "
+                         "float32 q/k/v only")
     B, _, H, D = q.shape
     P, K = ids.shape[1:3]
     kernels.check_cuda(out, "out", (B, P, 4, H, D), torch.float32, q.device)
@@ -253,6 +266,9 @@ class QuadtreeFineAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, topk_idx_prev, hw_q, hw_k, need_grad, topk=0):
+        if q.device.type != "cpu":
+            kernels.check_forward_only("quadtree_fine_attention", q.dtype,
+                                       need_grad)
         if q.device.type == "cpu":
             if topk:
                 out, score, idx, lse = quadtree_fine_topk_plain(
@@ -284,9 +300,10 @@ def quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
     """Quadtree fine-level message [B, P, 4, H, D] (see the plain version).
 
     CPU tensors take the plain version under ordinary autograd; CUDA
-    tensors (f32 q/k/v, int32 ids, all contiguous) go through
-    ``QuadtreeFineAttention``: kernel A, and kernel A-bwd for the gradient.
-    Anything else raises."""
+    tensors (f32 or bf16 q/k/v, int32 ids, all contiguous) go through
+    ``QuadtreeFineAttention``: kernel A, and kernel A-bwd for the gradient
+    (f32 only: a gradient through bf16 q/k/v raises).  Anything else
+    raises."""
     if q.device.type == "cpu":
         return quadtree_fine_attention_plain(q, k, v, topk_idx_prev, hw_q,
                                              hw_k)
@@ -306,8 +323,8 @@ def quadtree_fine_topk(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
 
     CPU tensors take the plain version (the message under autograd, the
     score detached); CUDA tensors go through ``QuadtreeFineAttention`` with
-    ``topk``: kernel A′, and kernel A-bwd for the message's gradient.
-    Anything else raises."""
+    ``topk``: kernel A′ (f32 or bf16 q/k/v), and kernel A-bwd for the
+    message's gradient (f32 only).  Anything else raises."""
     if q.device.type == "cpu":
         msg, score, idx = quadtree_fine_topk_plain(q, k, v, topk_idx_prev,
                                                    hw_q, hw_k, topk)

@@ -13,7 +13,10 @@ scatter rule instead (``scatter_index``).
 Each wrapper runs its plain version for CPU tensors (ordinary autograd
 differentiates it), goes through its autograd function for CUDA tensors
 (the forward kernel, and the backward kernel for the gradient), and raises
-for any other device.
+for any other device.  Kernel C also takes bfloat16 q/k/v (the bf16 eval
+path): f32 arithmetic on the bf16 values, an f32 message, no backward (a
+gradient through it raises); its plain version widens them to f32.  B and
+B-bwd take float32 only, as the JAX package feeds kernel B.
 """
 
 from __future__ import annotations
@@ -172,7 +175,8 @@ def window_cross_attention_plain(q, k, v, corners, hw_q: Tuple[int, int],
                                  with_lse: bool = False):
     """Window cross-attention (port of window_cross_attention_oracle).
 
-    q: [B, Lq, H, D]; k/v: [B, Lk, H, D] on the (h1, w1) grid; corners:
+    q: [B, Lq, H, D]; k/v: [B, Lk, H, D] on the (h1, w1) grid (float32, or
+    bfloat16 widened to float32 first); corners:
     [B, Lq//4, 2] (y, x) on the half grid of the keys.  Each 2x2 query block
     attends, per head with one softmax over 4w^2 candidates, to its patch.
     Returns msg [B, Lq//4, 4, H, D] float32, and with ``with_lse`` also the
@@ -181,6 +185,7 @@ def window_cross_attention_plain(q, k, v, corners, hw_q: Tuple[int, int],
     h0, w0 = hw_q
     h1, w1 = hw_k
     B, Lq, H, D = q.shape
+    q, k, v = q.float(), k.float(), v.float()
     idx = kernels.clip_index(_expand_corner_indices(corners, w, w1), h1 * w1)
     bi = torch.arange(B, device=q.device)[:, None, None]
     k_g = k[bi, idx]                                     # [B, P, C, H, D]
@@ -228,7 +233,9 @@ def window_cross_attention_bwd_plain(q, k, v, corners, out, lse, g,
 
 
 def _check_wca(q, k, v, corners, hw_q, hw_k, w: int):
-    """Kernel C's argument contract (CUDA tensors only)."""
+    """Kernel C's argument contract (CUDA tensors only; the shape, dtype
+    and alignment limits come first, so they raise on any device).
+    Returns (B, P, H, D, dtype); the q/k/v dtype picks the instance."""
     h0, w0 = hw_q
     h1, w1 = hw_k
     B, _, H, D = q.shape
@@ -238,22 +245,26 @@ def _check_wca(q, k, v, corners, hw_q, hw_k, w: int):
                          "have even sides")
     if w < 1:
         raise ValueError(f"window_cross_attention: window {w} < 1")
+    # whole rows are staged from one key position
+    dtype = kernels.check_rows("window_cross_attention", q, k, v, H * D,
+                               "row width H*D")
     dev = q.device
-    kernels.check_cuda(q, "q", (B, h0 * w0, H, D), torch.float32, dev)
-    kernels.check_cuda(k, "k", (B, h1 * w1, H, D), torch.float32, dev)
-    kernels.check_cuda(v, "v", (B, h1 * w1, H, D), torch.float32, dev)
+    kernels.check_cuda(q, "q", (B, h0 * w0, H, D), dtype, dev)
+    kernels.check_cuda(k, "k", (B, h1 * w1, H, D), dtype, dev)
+    kernels.check_cuda(v, "v", (B, h1 * w1, H, D), dtype, dev)
     kernels.check_cuda(corners, "corners", (B, P, 2), torch.int32, dev)
-    return B, P, H, D
+    return B, P, H, D, dtype
 
 
 def _launch_wca_fwd(q, k, v, corners, hw_q, hw_k, w: int, with_lse: bool):
-    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k, w)
+    B, P, H, D, dtype = _check_wca(q, k, v, corners, hw_q, hw_k, w)
     out = torch.empty((B, P, 4, H, D), device=q.device, dtype=torch.float32)
     lse = (torch.empty((B, P, 4, H), device=q.device, dtype=torch.float32)
            if with_lse else None)
     kernels.launch(
-        "casmtr_window_cross_attention_f32", "window_cross_attention",
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        f"casmtr_window_cross_attention_{kernels.INPUT_DTYPES[dtype]}",
+        "window_cross_attention"
+        + ("" if dtype == torch.float32 else "_bf16"), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
         corners.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, P, H, D, *hw_q, *hw_k, w,
         float(D ** -0.5))
@@ -261,7 +272,10 @@ def _launch_wca_fwd(q, k, v, corners, hw_q, hw_k, w: int, with_lse: bool):
 
 
 def _launch_wca_bwd(q, k, v, corners, out, lse, g, hw_q, hw_k, w: int):
-    B, P, H, D = _check_wca(q, k, v, corners, hw_q, hw_k, w)
+    B, P, H, D, dtype = _check_wca(q, k, v, corners, hw_q, hw_k, w)
+    if dtype != torch.float32:
+        raise ValueError("window_cross_attention_bwd: kernel C-bwd takes "
+                         "float32 q/k/v only")
     kernels.check_cuda(out, "out", (B, P, 4, H, D), torch.float32, q.device)
     kernels.check_cuda(lse, "lse", (B, P, 4, H), torch.float32, q.device)
     kernels.check_cuda(g, "grad_out", (B, P, 4, H, D), torch.float32,
@@ -299,6 +313,9 @@ class WindowCrossAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, corners, hw_q, hw_k, w, need_grad):
+        if q.device.type != "cpu":
+            kernels.check_forward_only("window_cross_attention", q.dtype,
+                                       need_grad)
         if q.device.type == "cpu":
             out, lse = window_cross_attention_plain(q, k, v, corners, hw_q,
                                                     hw_k, w, True)
@@ -322,9 +339,10 @@ def window_cross_attention(q, k, v, corners, hw_q: Tuple[int, int],
                            hw_k: Tuple[int, int], w: int) -> torch.Tensor:
     """Window cross-attention msg [B, P, 4, H, D] (see the plain version).
     CPU tensors take the plain version under ordinary autograd; CUDA tensors
-    (f32 q/k/v, int32 corners, all contiguous) go through
-    ``WindowCrossAttention``: kernel C, and kernel C-bwd for the gradient.
-    Anything else raises."""
+    (f32 or bf16 q/k/v, int32 corners, all contiguous) go through
+    ``WindowCrossAttention``: kernel C, and kernel C-bwd for the gradient
+    (f32 only: a gradient through bf16 q/k/v raises).  Anything else
+    raises."""
     if q.device.type == "cpu":
         return window_cross_attention_plain(q, k, v, corners, hw_q, hw_k, w)
     need_grad = torch.is_grad_enabled() and any(

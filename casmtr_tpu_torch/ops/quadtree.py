@@ -15,6 +15,11 @@ through kernel A-bwd.  The selection carries no gradient, as in the JAX
 package (its callers use only the selected indices).  The cascade window
 cross-attention goes through CUDA kernels C and C-bwd
 (ops/kernels/window_kernels.py).
+
+q/k/v may be bfloat16 (the bf16 eval path's gather tables): every
+contraction then runs in float32 on the bf16 values, as the JAX package's
+``preferred_element_type=float32`` does, so no score, probability or
+message is rounded to bf16, and every message is float32.
 """
 
 from __future__ import annotations
@@ -69,9 +74,12 @@ def expand_child_indices(topk_idx: torch.Tensor, w_prev: int, w_cur: int,
 
 
 def _coarse_level(q, k, v, topk: int):
-    """Full attention + top-k at the coarsest level.  q/k/v: [B, L, H, D].
-    Returns (message [B, L, H, D], topk_idx [B, L, K, H] int32)."""
+    """Full attention + top-k at the coarsest level.  q/k/v: [B, L, H, D],
+    widened to float32 (a bf16-rounded score would tie where the JAX
+    package's float32 one does not).  Returns (message [B, L, H, D] float32,
+    topk_idx [B, L, K, H] int32)."""
     D = q.shape[-1]
+    q, k, v = q.float(), k.float(), v.float()
     qk = torch.einsum("blhd,bshd->blhs", q, k) * (D ** -0.5)
     A = torch.softmax(qk, dim=-1)
     _, ti = torch.topk(A, topk, dim=-1)                  # [B, L, H, K]
@@ -112,7 +120,7 @@ def qtatt_b(queries: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
     """QTAttB forward.  queries/keys/values: pyramid lists, FINEST level
     first, each [B, L_i, H, D] contiguous; sizes: (h_i, w_i) finest first;
     topks: per level, coarsest first.  Returns the merged message
-    [B, L_finest, H, D]."""
+    [B, L_finest, H, D] float32."""
     n_levels = len(queries)
     messages, parent_hw = [], []
     topk_idx = None

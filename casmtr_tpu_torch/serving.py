@@ -71,14 +71,19 @@ class Matcher:
     seed / generator: the random weights are drawn from ``generator`` or, if
         none is given, from a CPU generator seeded with ``seed``.
 
-    The forward computes in float32.  On the card this class turns TF32 off
-    for matrix products and cuDNN convolutions, so the numbers are those of
-    full float32, and turns cuDNN's autotuner on: every request has the
-    bucket's shapes, so the first one pays the tuning and the rest reuse its
-    choices.  Without it, cuDNN's heuristic gave the Twins FPN's 3x3
-    256->128 conv at 208^2 an FFT algorithm that took about 320 ms on an
-    H100, against under 2 ms autotuned (chip_smoke.py, profile phase).
-    All three are process-wide PyTorch flags.
+    On the card the forward computes the backbone and the transformer
+    stacks in bfloat16 (the JAX package's eval policy; models/casmtr.py),
+    the rest in float32; on the CPU, or on the card with
+    ``CASMTR_BACKBONE_BF16=0 CASMTR_TRANSFORMER_BF16=0``, all in float32.
+    On the card this class turns TF32 off for matrix products and cuDNN
+    convolutions, so float32 work is full float32, keeps bf16 matrix
+    products' sums in float32 (no reduced-precision reductions), and turns
+    cuDNN's autotuner on: every request has the bucket's shapes, so the
+    first one pays the tuning and the rest reuse its choices.  Without it,
+    cuDNN's heuristic gave the Twins FPN's 3x3 256->128 conv at 208^2 an
+    FFT algorithm that took about 320 ms on an H100, against under 2 ms
+    autotuned (chip_smoke.py, profile phase).  All four are process-wide
+    PyTorch flags.
     """
 
     def __init__(self, model: Union[str, Config] = "outdoor_casmtr_4c",
@@ -97,6 +102,8 @@ class Matcher:
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cuda.matmul.\
+                allow_bf16_reduced_precision_reduction = False
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cudnn.benchmark = True
         self.model = build_model(cfg.loftr)

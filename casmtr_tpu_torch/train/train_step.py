@@ -36,13 +36,16 @@ class TrainState:
 
 
 def _set_precision(dev: torch.device) -> None:
-    """Full float32 on the card: the JAX package trains in float32, so TF32
-    is turned off for matrix products and cuDNN convolutions.  cuDNN's
-    autotuner is turned on: every step has the same shapes, and its
-    heuristic once chose a 300 ms FFT algorithm for an FPN conv (see
-    serving.Matcher).  All three are process-wide PyTorch flags."""
+    """The step computes in float32 (the precision policy's training
+    default), so on the card TF32 is turned off for matrix products and
+    cuDNN convolutions, and bf16 products forced by the environment keep
+    float32 sums.  cuDNN's autotuner is turned on: every step has the same
+    shapes, and its heuristic once chose a 300 ms FFT algorithm for an FPN
+    conv (see serving.Matcher).  All four are process-wide PyTorch flags."""
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
 

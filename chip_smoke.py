@@ -30,7 +30,16 @@ full width.  Phases, each printing its own lines and its seconds:
    version first): scaled_dot_product_attention, pinned to its
    memory-efficient backend (float32), over the gathered windows for A and
    C, torch.matmul against the gathered patch for B; A′ also beside the
-   unfused route (kernel A plus a plain top-k selection).
+   unfused route (kernel A plus a plain top-k selection).  Then the
+   bf16-input instances of A, A′ and C (the card's eval default) at the
+   same shapes on the inputs rounded to bf16, against their plain versions
+   on the same bf16 values (f32 arithmetic; message within 1e-4, A′ as
+   above), the yardstick SDPA on the bf16 windows and the bound's
+   multiply-adds at the bf16 tensor-core rate; every bf16 instance of A
+   and A′ (QUADTREE_BF16_CASES) and of C (WINDOW_BF16_CASES: other H and D,
+   inputs 4 bytes off, edge corners, w = 1, a batch of two); and the
+   refusals: an odd width, inputs 2 bytes off and a gradient through a
+   bf16 instance raise before any launch.
 3. Training kernels: the same at the shapes of the 704^2 training step for
    the forward kernels with their log-sum-exp output and for the three
    backward kernels (A-bwd at 88^2 and 44^2; B, B-bwd, C and C-bwd at 176^2
@@ -52,18 +61,31 @@ full width.  Phases, each printing its own lines and its seconds:
    direction (float32 forward, so within 1e-2 relative).
 4. Serving: Matcher(recipe, bucket=832) at full width on the card with
    seeded random weights answers three requests (textured images and
-   shifted copies, one non-square), for 4c and then 2c.  The kernels'
-   launch counts are zeroed just before each recipe's requests and read
-   after each request; each must match the recipe's count per pair.
-5. Profile: one more steady request of each recipe under torch.profiler
-   (device busy share, device time by operator and by kernel).
+   shifted copies, one non-square), for 4c and then 2c, first in the
+   card's eval default (bf16 backbone and stacks, bf16 kernel inputs), then
+   with CASMTR_BACKBONE_BF16=0 CASMTR_TRANSFORMER_BF16=0 (float32), from
+   the same weights.  The kernels' launch counts are zeroed just before
+   each precision's requests and read after each request; each must match
+   the recipe's count per pair: in bf16 the bf16 instances A 12, A′ 12, C 4
+   (4c) or 8 (2c) and no f32 A, A′ or C; in float32 the f32 ones and no
+   bf16 instance; B (float32 in both) 2 or 4.  Steady latency and peak
+   memory per precision.
+5. Profile: one more steady request of each recipe in each precision under
+   torch.profiler (device busy share, device time by operator and by
+   kernel).
 6. Reference: each full-width recipe at bucket 256 with its match
-   thresholds at 0, on the card and on the CPU (plain versions), on one
-   pair: coarse and window confidences and final matches must agree.
+   thresholds at 0, on one pair: the card with float32 forced against the
+   CPU (plain versions) -- coarse and window confidences and final matches
+   must agree as before; and the card's bf16 default against the CPU with
+   both variables at 1 (bf16 stacks, f32 kernel inputs, the JAX package's
+   CPU graph): at every stage, common confidences within max(5e-2, 1.5x)
+   and, at stages of 20 matches or more, Jaccard at least min(0.9, its) -
+   0.1, of the CPU's own bf16-against-f32 difference.
 7. Training: train_step on each recipe at 704^2, batch 1, full width and
-   depth, seeded random weights, on a pair whose image1 is a shifted crop
-   of image0 with the matching camera translation.  One warm-up step and
-   4 timed steps, each with the launch counts zeroed just before and read
+   depth, seeded random weights, in float32 (the policy's training
+   default; no bf16 instance may launch), on a pair whose image1 is a
+   shifted crop of image0 with the matching camera translation.  One
+   warm-up step and 4 timed steps, each with the launch counts zeroed just before and read
    just after; finite losses, matches to supervise at every cascade level,
    parameters that moved, nonzero finite gradients on the q/k/v
    projections that go through kernels A, A′ and C.  Then one more step
@@ -77,8 +99,10 @@ is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
 CUDA is unavailable or any phase fails.
 """
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -94,6 +118,18 @@ TIE_GAP = 1e-5      # A′ rows whose k-th and (k+1)-th scores are this close
 CONF_TOL = 1e-4     # match confidences, card vs CPU (f32, TF32 off)
 PX_TOL = 1e-2       # final keypoints in pixels, card vs CPU
 MIN_JACCARD = 0.99  # final match sets, card vs CPU (near-ties may flip)
+# card bf16 vs CPU bf16 stacks, per stage, held to the CPU's own bf16
+# against f32 difference (the scale of bf16 rounding there): common
+# confidences within max(BF16_CONF_TOL, BF16_NOISE x its error); at stages
+# of at least BF16_MIN_MATCHES matches, Jaccard at least min(BF16_MIN_JACCARD,
+# its Jaccard) - BF16_JACCARD_SLACK
+BF16_CONF_TOL = 5e-2
+BF16_MIN_JACCARD = 0.9
+BF16_JACCARD_SLACK = 0.1
+BF16_NOISE = 1.5
+BF16_MIN_MATCHES = 20
+LIBRARY_BF16_TOL = 2e-2  # SDPA on bf16 windows rounds P and its output to
+                         # bf16: its check against the f32 plain message
 FD_EPS = 1e-3       # finite-difference step along a unit-variance direction
 FD_TOL = 1e-2       # relative: the kernels' float32 outputs round at 1e-7
 TRAIN_LOSS_RTOL = 1e-4   # one training step, card vs CPU
@@ -103,10 +139,13 @@ REFERENCE_S_PER_STEP = 1.19  # the reference's own 4c GPU step (fp16), bench.py
 HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than the
                          # host takes to enqueue one kernel wrapper
 
-# H100 SXM published peaks: HBM3 bytes/s and
-# float32 FLOP/s outside the tensor cores, at the full 700 W limit.
+# H100 SXM published peaks: HBM3 bytes/s, float32 FLOP/s outside the
+# tensor cores and dense bf16 FLOP/s on them, at the full 700 W limit.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
+# the environment variables that force the stacks' precision
+PRECISION_ENV = ("CASMTR_BACKBONE_BF16", "CASMTR_TRANSFORMER_BF16")
 
 RECIPES = ("outdoor_casmtr_4c", "outdoor_casmtr_2c")
 TPU_KERNELS = {
@@ -123,6 +162,12 @@ TPU_KERNELS = {
     "window_cross_attention_bwd":
         "casmtr_tpu/ops/pallas/window_kernels.py:356",
 }
+# the bf16-input instances of A, A′ and C (the bf16 eval path), counted and
+# listed apart: the same TPU kernels fed bf16 q/k/v
+BF16_KERNELS = ("quadtree_fine_attention", "quadtree_fine_topk",
+                "window_cross_attention")
+for _name in BF16_KERNELS:
+    TPU_KERNELS[_name + "_bf16"] = TPU_KERNELS[_name]
 SOURCES = {
     "quadtree_fine_attention": "casmtr_tpu_torch/csrc/quadtree_fine.cu",
     "quadtree_fine_topk": "casmtr_tpu_torch/csrc/quadtree_fine.cu",
@@ -134,31 +179,45 @@ SOURCES = {
     "window_cross_attention_bwd":
         "casmtr_tpu_torch/csrc/window_attention_bwd.cu",
 }
+for _name in BF16_KERNELS:
+    SOURCES[_name + "_bf16"] = SOURCES[_name]
 
 
-def per_pair(n_levels):
+def per_pair(n_levels, bf16):
     """Launches per image pair on the eval path (no backward): 6 quadtree
     layers x 2 images, each running A′ at the intermediate and A at the
     finest 1/8 level; per cascade level 2 window-score directions and 2
-    cross layers x 2 images."""
-    return {"quadtree_fine_attention": 12, "quadtree_fine_topk": 12,
-            "window_patch_score": 2 * n_levels,
-            "window_cross_attention": 4 * n_levels,
-            "quadtree_fine_attention_bwd": 0, "window_patch_score_bwd": 0,
-            "window_cross_attention_bwd": 0}
+    cross layers x 2 images.  With ``bf16`` (the card's eval default) A, A′
+    and C are their bf16 instances and their f32 instances launch 0 times;
+    B stays f32."""
+    a, c = {"quadtree_fine_attention": 12, "quadtree_fine_topk": 12}, {
+        "window_cross_attention": 4 * n_levels}
+    zero = {k: 0 for k in (*a, *c)}
+    out = {"window_patch_score": 2 * n_levels,
+           "quadtree_fine_attention_bwd": 0, "window_patch_score_bwd": 0,
+           "window_cross_attention_bwd": 0}
+    if bf16:
+        out.update(zero, **{k + "_bf16": v for k, v in {**a, **c}.items()})
+    else:
+        out.update(a, **c, **{k + "_bf16": 0 for k in zero})
+    return out
 
 
 def per_step(n_levels):
-    """Launches per training step (no rematerialization): the forward's,
-    and one backward for each forward whose inputs need a gradient -- all
-    but the detached 1->0 window scores; A and A′ share A-bwd."""
-    return dict(per_pair(n_levels), quadtree_fine_attention_bwd=24,
+    """Launches per training step (float32, no rematerialization): the
+    forward's, and one backward for each forward whose inputs need a
+    gradient -- all but the detached 1->0 window scores; A and A′ share
+    A-bwd.  No bf16 instance."""
+    return dict(per_pair(n_levels, False), quadtree_fine_attention_bwd=24,
                 window_patch_score_bwd=n_levels,
                 window_cross_attention_bwd=4 * n_levels)
 
 
-LAUNCHES_PER_PAIR = {"outdoor_casmtr_4c": per_pair(1),
-                     "outdoor_casmtr_2c": per_pair(2)}
+# per pair on the card's eval default (bf16), and with float32 forced
+LAUNCHES_PER_PAIR = {"outdoor_casmtr_4c": per_pair(1, True),
+                     "outdoor_casmtr_2c": per_pair(2, True)}
+LAUNCHES_PER_PAIR_F32 = {"outdoor_casmtr_4c": per_pair(1, False),
+                         "outdoor_casmtr_2c": per_pair(2, False)}
 LAUNCHES_PER_TRAIN_STEP = {"outdoor_casmtr_4c": per_step(1),
                            "outdoor_casmtr_2c": per_step(2)}
 TRAIN_SIZE = 704
@@ -189,6 +248,9 @@ LIBRARY_NOTES = {
 }
 LIBRARY_NOTES["window_cross_attention_bwd"] = \
     LIBRARY_NOTES["quadtree_fine_attention_bwd"]
+for _name in BF16_KERNELS:
+    LIBRARY_NOTES[_name + "_bf16"] = LIBRARY_NOTES[_name].replace(
+        "over the candidate", "on bf16, over the bf16 candidate")
 LSE_NOTE = "; the message only: the public call returns no log-sum-exp"
 
 
@@ -232,10 +294,12 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_moved, flops):
-    """Least time on the card (ms) and what bounds it."""
+def bound(bytes_moved, flops, bf16_flops=0):
+    """Least time on the card (ms) and what bounds it: ``flops`` at the
+    float32 rate, ``bf16_flops`` (multiply-adds on bf16 inputs) at the
+    dense bf16 tensor-core rate."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = (flops / PEAK_F32_FLOPS + bf16_flops / PEAK_BF16_FLOPS) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -287,12 +351,15 @@ def window_inputs(torch, gen, g2):
 
 
 def kernel_row(torch, rows, name, label, path, kernel, plain, inputs,
-               bytes_moved, flops, scattered=(), library=None, note=""):
+               bytes_moved, flops, scattered=(), library=None, note="",
+               bf16_flops=0):
     """Hold ``kernel()`` against ``plain()`` (a tensor or a tuple of them),
     time both and ``library()`` (the row's library yardstick, a callable
     returning its time in ms, or None), and append the row.  Outputs whose
     index is in ``scattered`` are sums of atomic adds: their tolerance
-    scales with max |plain|.  ``note`` is added to the library note."""
+    scales with max |plain|.  ``note`` is added to the library note; the
+    bound counts ``flops`` at the f32 rate and ``bf16_flops`` at the bf16
+    tensor-core rate."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     got = got if isinstance(got, tuple) else (got,)
@@ -309,14 +376,14 @@ def kernel_row(torch, rows, name, label, path, kernel, plain, inputs,
     t_kernel = time_ms(torch, kernel)
     t_plain = time_ms(torch, plain)
     t_library = library() if library is not None else None
-    t_bound, by = bound(bytes_moved, flops)
+    t_bound, by = bound(bytes_moved, flops, bf16_flops)
     err = max(e for e, _ in errs)
     log(f"kernel {name} [{label}] inputs {inputs}: max_abs_err "
         + ", ".join(f"{e:.3e} (tol {t:.3g})" for e, t in errs)
         + f", kernel {t_kernel:.4f} ms, plain {t_plain:.4f} ms, library "
         + ("null" if t_library is None else f"{t_library:.4f} ms")
         + f", bound {t_bound:.4f} ms ({by}: {bytes_moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP)")
+        f"{(flops + bf16_flops) / 1e9:.3f} GFLOP)")
     for i, (e, t) in enumerate(errs):
         check(e <= t, f"{name} [{label}] output {i}: max abs error {e:.3e} "
               f"> {t:.3g}")
@@ -343,7 +410,8 @@ def sdpa_library(torch, qb, k_g, v_g, want, g=None):
     queries qb [N, h, 4, D] and candidates k_g/v_g [N, h, C, D] -- with the
     cotangent ``g`` its backward alone, ``torch.autograd.grad`` of the same
     call.  Its forward output is first held against ``want`` (the plain
-    message laid out as qb)."""
+    message laid out as qb), within KERNEL_TOL, or LIBRARY_BF16_TOL on bf16
+    inputs (the call rounds to bf16)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     sdpa = torch.nn.functional.scaled_dot_product_attention
     backend = getattr(SDPBackend, SDPA_BACKEND)
@@ -358,9 +426,10 @@ def sdpa_library(torch, qb, k_g, v_g, want, g=None):
                 out, xs, g, retain_graph=True))
 
     with sdpa_kernel(backend):
-        err = float((sdpa(qb, k_g, v_g) - want).abs().max())
-    check(err <= KERNEL_TOL, f"library yardstick: {SDPA_BACKEND} differs "
-          f"from the plain message by {err:.3e}")
+        err = float((sdpa(qb, k_g, v_g).float() - want).abs().max())
+    tol = LIBRARY_BF16_TOL if qb.dtype == torch.bfloat16 else KERNEL_TOL
+    check(err <= tol, f"library yardstick: {SDPA_BACKEND} differs from the "
+          f"plain message by {err:.3e}")
     return run
 
 
@@ -426,9 +495,9 @@ def unfused_selection(torch, q, k, ids, hw, topk):
     h, w = hw
     B, _, H, D = q.shape
     K = ids.shape[2]
-    qb = block_children(q, h, w)
+    qb = block_children(q.float(), h, w)
     P = qb.shape[1]
-    table = to_block_major(k, h, w)
+    table = to_block_major(k.float(), h, w)
     blk_ids = kernels.clip_index(ids.long(), table.shape[1])
     bi = torch.arange(B, device=q.device)[:, None, None, None]
     hi = torch.arange(H, device=q.device)[None, None, None, :]
@@ -469,13 +538,16 @@ def topk_row(torch, rows, label, path, inter, finest, topk, with_lse):
     gradient to come, which writes the log-sum-exp (read back through the
     launcher).  The next level's message is read from the ``finest``
     level's q/k/v.  Times the call beside its plain version, its bound and
-    the unfused route (kernel A and ``unfused_selection``)."""
+    the unfused route (kernel A and ``unfused_selection``).  On bf16 q/k/v
+    the row is the bf16 instance's."""
     from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
     (q, k, v), ids, hw = inter
     (qn, kn, vn), _, hw_n = finest
     B, Lq, H, D = q.shape
     P, K = ids.shape[1:3]
     NC = 4 * K
+    bf16 = q.dtype == torch.bfloat16
+    name = "quadtree_fine_topk" + ("_bf16" if bf16 else "")
 
     def kernel():
         if with_lse:
@@ -494,7 +566,7 @@ def topk_row(torch, rows, label, path, inter, finest, topk, with_lse):
     torch.cuda.synchronize()
     for what, a, b in outs + [("score", score, p_score[:, :, :topk])]:
         check(a.shape == b.shape and bool(torch.isfinite(a).all()),
-              f"quadtree_fine_topk [{label}] {what}: shape "
+              f"{name} [{label}] {what}: shape "
               f"{tuple(a.shape)} or non-finite")
     errs = {what: float((a - b).abs().max()) for what, a, b in outs}
     everywhere = torch.ones((B, Lq, H), dtype=torch.bool, device="cuda")
@@ -512,11 +584,13 @@ def topk_row(torch, rows, label, path, inter, finest, topk, with_lse):
         unfused_selection(torch, q, k, ids, hw, topk)))
     bytes_moved = nbytes(q, k, v, ids, msg, score, idx) + (
         nbytes(lse) if with_lse else 0)
-    # the attention, and the selection at its least: one compare per
-    # candidate of each of the 4 child rows
-    flops = attention_flops(P * H, NC, D) + P * H * 4 * NC
-    t_bound, by = bound(bytes_moved, flops)
-    log(f"kernel quadtree_fine_topk [{label}] q/k/v {list(q.shape)} ids "
+    # the attention (on the tensor cores for bf16 inputs), and the
+    # selection at its least: one compare per candidate of each child row
+    attn, sel = attention_flops(P * H, NC, D), P * H * 4 * NC
+    t_bound, by = (bound(bytes_moved, sel, attn) if bf16
+                   else bound(bytes_moved, attn + sel))
+    flops = attn + sel
+    log(f"kernel {name} [{label}] q/k/v {list(q.shape)} {q.dtype} ids "
         f"{list(ids.shape)} top {topk}: max_abs_err "
         + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
         + f" (tol {KERNEL_TOL:g}, score {SCORE_TOL:g}); index sets differ "
@@ -528,12 +602,12 @@ def topk_row(torch, rows, label, path, inter, finest, topk, with_lse):
         f"{bytes_moved / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
     for what, e in errs.items():
         check(e <= (SCORE_TOL if what == "score" else KERNEL_TOL),
-              f"quadtree_fine_topk [{label}] {what}: max abs error {e:.3e}")
-    check(idx_bad == 0, f"quadtree_fine_topk [{label}]: {idx_bad} rows "
-          "select other indices")
-    check(nxt_err <= KERNEL_TOL, f"quadtree_fine_topk [{label}]: next "
-          f"level's message max abs error {nxt_err:.3e}")
-    row = add_row(rows, "quadtree_fine_topk", label, path,
+              f"{name} [{label}] {what}: max abs error {e:.3e}")
+    check(idx_bad == 0, f"{name} [{label}]: {idx_bad} rows select other "
+          "indices")
+    check(nxt_err <= KERNEL_TOL, f"{name} [{label}]: next level's message "
+          f"max abs error {nxt_err:.3e}")
+    row = add_row(rows, name, label, path,
                   max(errs.values()), t_kernel, t_plain, t_bound, by)
     row.update(near_tie_rows_excluded=excluded, unfused_ms=t_unfused)
 
@@ -652,12 +726,12 @@ def window_edge_check(torch, gen, q, k, v, corners, hw, w):
               f"abs error {e:.3e}")
 
 
-def offset_randn(torch, gen, offset, shape):
-    """A contiguous normal tensor on the card, 4 bytes off 16-byte alignment
-    when ``offset``."""
+def offset_randn(torch, gen, offset, shape, dtype=None):
+    """A contiguous normal tensor on the card (float32, or ``dtype``),
+    ``offset`` elements off 16-byte alignment (a bool counts as 1)."""
     n = int(np.prod(shape)) + int(offset)
-    return torch.randn(n, generator=gen, device="cuda")[int(offset):].view(
-        shape)
+    x = torch.randn(n, generator=gen, device="cuda")
+    return x.to(dtype or torch.float32)[int(offset):].view(shape)
 
 
 # (B, H, D, grid, w, corners past the edge, inputs 4 bytes off 16-byte
@@ -814,19 +888,7 @@ def quadtree_cases_check(torch):
             return offset_randn(torch, gen, offset, shape)
 
         q, k, v = (randn(B, L, H, D) for _ in range(3))
-        if kind == "distinct":
-            ids = torch.argsort(torch.rand((B, n_blk, n_blk, H), generator=gen,
-                                           device="cuda"), dim=2)[:, :, :K]
-        else:
-            lo, hi = (0, n_blk) if kind == "repeated" else (-n_blk - 3,
-                                                           n_blk + 3)
-            ids = torch.randint(lo, hi, (B, n_blk, K, H), generator=gen,
-                                device="cuda")
-            if kind == "repeated":
-                ids[0, 0, :, 0] = ids[0, 0, 0, 0]
-            else:
-                ids[0, 0, :3, 0] = torch.tensor([-1, -2 * n_blk, n_blk])[:K]
-        ids = ids.to(torch.int32).contiguous()
+        ids = block_ids(torch, gen, B, n_blk, K, H, kind)
         out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
             q, k, v, ids, hw, hw, with_lse=True))
         g = randn(*out.shape)
@@ -867,6 +929,220 @@ def quadtree_cases_check(torch):
                   f"{kind}: {n} max abs error {e:.3e} > {tol:.3g}")
         check(idx_bad == 0, f"quadtree B={B} H={H} D={D} grid={hw} K={K} "
               f"{kind}: A′ selects other indices on {idx_bad} rows")
+
+
+# The bf16 instances of A and A′: (B, H, D, grid, K, ids, n_topk, offset in
+# bf16 elements).  They are instantiated for 16- or 4-byte copies (16 only
+# when D % 8 == 0 and q/k/v are 16-byte aligned; 4-byte copies need D even
+# and 4-byte alignment), float4-style or float columns (D % 8) and one or
+# four columns per thread; these cases take all six instances of each, K =
+# 1, n_topk 1 and 4K, repeated and clipped ids and a batch of two.
+QUADTREE_BF16_CASES = (
+    (1, 2, 8, (8, 12), 3, "repeated", 1, 0),    # 16-byte, vec
+    (1, 4, 32, (8, 8), 4, "distinct", 16, 2),   # 4-byte (4 bytes off), vec
+    (1, 3, 6, (8, 12), 3, "clip", 12, 0),       # 4-byte, float; all 4K
+    (1, 8, 80, (4, 8), 2, "repeated", 3, 0),    # 16-byte, vec, four
+    (1, 8, 80, (4, 8), 2, "clip", 8, 2),        # 4-byte, vec, four
+    (1, 6, 30, (8, 8), 2, "distinct", 5, 0),    # 4-byte, float, four
+    (1, 2, 8, (8, 8), 1, "clip", 4, 0),         # K = 1: 4 candidates
+    (2, 8, 32, (8, 12), 5, "clip", 7, 0))       # a batch of two, main H, D
+
+# The bf16 instance of C: (B, H, D, grid, w, corners past the edge, offset
+# in bf16 elements).  16-byte copies when H*D % 8 == 0 and q/k/v are
+# aligned, else 4-byte (H*D even); float4-style columns when D % 8 == 0;
+# one or four columns per thread: all eight instances, w = 1, a batch of
+# two.
+WINDOW_BF16_CASES = (
+    (1, 4, 32, 24, 5, True, 0),      # 16-byte, vec: 4c's 1/4 level
+    (1, 2, 8, 12, 2, False, 2),      # 4-byte (4 bytes off), vec
+    (1, 2, 6, 12, 2, True, 0),       # 4-byte (H*D % 8), float columns
+    (1, 4, 6, 12, 2, False, 0),      # 16-byte, float columns
+    (1, 8, 256, 4, 1, True, 0),      # 16-byte, vec, four per thread
+    (1, 3, 46, 8, 2, True, 0),       # 4-byte, float, four per thread
+    (1, 40, 6, 8, 2, True, 0),       # 16-byte, float, four per thread
+    (1, 4, 160, 8, 2, True, 2),      # 4-byte, vec, four per thread
+    (1, 1, 64, 8, 1, False, 0),      # w = 1
+    (2, 2, 32, 12, 5, True, 0))      # a batch of two: 2c's 1/2 level H, D
+
+
+def block_ids(torch, gen, B, n_blk, K, H, kind):
+    """Quadtree block ids [B, n_blk, K, H] int32: distinct per (parent,
+    head), repeated (one row all equal), or "clip" (below 0 and past the
+    grid, the clipped-gather rule)."""
+    if kind == "distinct":
+        ids = torch.argsort(torch.rand((B, n_blk, n_blk, H), generator=gen,
+                                       device="cuda"), dim=2)[:, :, :K]
+    else:
+        lo, hi = (0, n_blk) if kind == "repeated" else (-n_blk - 3,
+                                                       n_blk + 3)
+        ids = torch.randint(lo, hi, (B, n_blk, K, H), generator=gen,
+                            device="cuda")
+        if kind == "repeated":
+            ids[0, 0, :, 0] = ids[0, 0, 0, 0]
+        else:
+            ids[0, 0, :3, 0] = torch.tensor([-1, -2 * n_blk, n_blk])[:K]
+    return ids.to(torch.int32).contiguous()
+
+
+def quadtree_bf16_cases_check(torch):
+    """The bf16 instances of A (public wrapper, and with its log-sum-exp
+    through the launcher) and A′ (public wrapper) on QUADTREE_BF16_CASES,
+    against the plain versions on the same bf16 inputs (f32 arithmetic on
+    the bf16 values); A′'s selection as in phase 2."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for B, H, D, hw, K, kind, topk, offset in QUADTREE_BF16_CASES:
+        L, n_blk = hw[0] * hw[1], (hw[0] // 2) * (hw[1] // 2)
+        q, k, v = (offset_randn(torch, gen, offset, (B, L, H, D),
+                                torch.bfloat16) for _ in range(3))
+        ids = block_ids(torch, gen, B, n_blk, K, H, kind)
+        out, lse = qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw,
+                                                     with_lse=True)
+        got = ((qk_.quadtree_fine_attention(q, k, v, ids, hw, hw),)
+               + qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2])
+        msg, score, idx = qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, topk)
+        p_msg, p_score, p_idx = qk_.quadtree_fine_topk_plain(
+            q, k, v, ids, hw, hw, min(topk + 1, 4 * K))
+        torch.cuda.synchronize()
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(
+            ("message", "message with LSE", "lse", "A′ message"),
+            got + (msg,), (out, out, lse, p_msg))}
+        if topk < 4 * K:
+            everywhere = torch.ones((B, L, H), dtype=torch.bool,
+                                    device="cuda")
+            s_err, idx_bad, _, _, _ = selection_errors(
+                torch, score, idx, p_score, p_idx, topk, everywhere)
+        else:
+            s_err = float((score - p_score).abs().max())
+            idx_bad = int((idx.sort(dim=2).values
+                           != p_idx.sort(dim=2).values).any(dim=2).sum())
+        log(f"kernel quadtree_fine_attention(_topk)_bf16 [B={B} H={H} D={D} "
+            f"{hw[0]}x{hw[1]} K={K} {kind} ids top {topk}"
+            + (f" {2 * offset} bytes off" if offset else "")
+            + "]: max_abs_err "
+            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f", A′ score {s_err:.3e}; A′ index sets differ on {idx_bad} "
+            "rows")
+        for n, e in errs.items():
+            check(e <= KERNEL_TOL, f"quadtree bf16 B={B} H={H} D={D} "
+                  f"grid={hw} K={K} {kind}: {n} max abs error {e:.3e}")
+        check(s_err <= SCORE_TOL and idx_bad == 0, f"quadtree bf16 B={B} "
+              f"H={H} D={D} grid={hw} K={K} {kind}: A′ selection")
+
+
+def window_bf16_cases_check(torch):
+    """The bf16 instance of C (public wrapper, and with its log-sum-exp
+    through the launcher) on WINDOW_BF16_CASES, against the plain version
+    on the same bf16 inputs."""
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    for B, H, D, grid, w, edge, offset in WINDOW_BF16_CASES:
+        L, half, hw = grid * grid, grid // 2, (grid, grid)
+        q, k, v = (offset_randn(torch, gen, offset, (B, L, H, D),
+                                torch.bfloat16) for _ in range(3))
+        lo, hi = (-2, half - w + 3) if edge else (0, half - w + 1)
+        corners = torch.randint(lo, hi, (B, L // 4, 2), generator=gen,
+                                device="cuda", dtype=torch.int32)
+        if edge:
+            corners[0, :4] = torch.tensor([[-1, -1], [half - 1, half - 1],
+                                           [0, half], [-L, 3]])
+        out, lse = wk.window_cross_attention_plain(q, k, v, corners, hw, hw,
+                                                   w, with_lse=True)
+        got = ((wk.window_cross_attention(q, k, v, corners, hw, hw, w),)
+               + wk._launch_wca_fwd(q, k, v, corners, hw, hw, w, True))
+        torch.cuda.synchronize()
+        errs = {n: float((a - b).abs().max()) for n, a, b in zip(
+            ("message", "message with LSE", "lse"), got, (out, out, lse))}
+        log(f"kernel window_cross_attention_bf16 [B={B} H={H} D={D} "
+            f"{grid}x{grid} w={w}" + (" edge corners" if edge else "")
+            + (f" {2 * offset} bytes off" if offset else "") + "]: "
+            "max_abs_err " + ", ".join(f"{n} {e:.3e}"
+                                       for n, e in errs.items()))
+        for n, e in errs.items():
+            check(e <= KERNEL_TOL, f"window_cross_attention bf16 B={B} H={H} "
+                  f"D={D} grid={grid} w={w}: {n} max abs error {e:.3e}")
+
+
+def bf16_refusals_check(torch):
+    """What the bf16 instances do not take raises ValueError on the card
+    before any launch: an odd head width (A, A′) or row width (C), q/k/v 2
+    bytes off 4-byte alignment, and a gradient through them (they have no
+    backward; no silent f32 route)."""
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    hw, L = (8, 8), 64
+    ids = block_ids(torch, gen, 1, 16, 2, 1, "distinct")
+    corners = torch.zeros((1, 16, 2), dtype=torch.int32, device="cuda")
+
+    def qkv(D, offset=0, grad=False):
+        return [offset_randn(torch, gen, offset, (1, L, 1, D),
+                             torch.bfloat16).requires_grad_(grad)
+                for _ in range(3)]
+
+    calls = {
+        "A": lambda q, k, v: qk_.quadtree_fine_attention(q, k, v, ids, hw,
+                                                         hw),
+        "A′": lambda q, k, v: qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, 2),
+        "C": lambda q, k, v: wk.window_cross_attention(q, k, v, corners, hw,
+                                                       hw, 2)}
+    before = dict(kernels.LAUNCHES)
+    refused = []
+    for kernel, fn in calls.items():
+        for what, args in (("odd width", qkv(5)),
+                           ("2 bytes off", qkv(8, offset=1)),
+                           ("gradient", qkv(8, grad=True))):
+            try:
+                fn(*args)
+            except ValueError as e:
+                refused.append(f"{kernel} {what}: {e}")
+                continue
+            raise AssertionError(f"bf16 {kernel} with {what} did not raise")
+    torch.cuda.synchronize()
+    check(kernels.LAUNCHES == before, "bf16 refusals: a kernel launched")
+    for line in refused:
+        log(f"kernel bf16 refusal: {line}")
+
+
+def bf16_kernel_rows(torch, rows, gen, path, levels):
+    """The bf16 instances of A (104^2), A′ (52^2, top 16) and C (208^2 H=4,
+    416^2 H=2) at the 832^2 eval's shapes, on inputs rounded to bf16 (the
+    bf16 eval path's gather tables), against their plain versions on the
+    same bf16 inputs; the library yardstick is SDPA on the bf16 windows."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    bf = torch.bfloat16
+    (l_inter, inter), (l_fine, fine) = [
+        (label, (tuple(t.to(bf) for t in qkv), ids, hw))
+        for label, (qkv, ids, hw) in levels.items()]
+    (q, k, v), ids, hw = fine
+    P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
+    kernel_row(
+        torch, rows, "quadtree_fine_attention_bf16", l_fine, path,
+        lambda: qk_.quadtree_fine_attention(q, k, v, ids, hw, hw),
+        lambda: qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw),
+        f"q/k/v {list(q.shape)} bf16 ids {list(ids.shape)}",
+        nbytes(q, k, v, ids) + P * 4 * H * D * 4, 0,
+        library=quadtree_library(torch, q, k, v, ids, hw, False),
+        bf16_flops=attention_flops(P * H, 4 * K, D))
+    topk_row(torch, rows, l_inter, path, inter, fine, 16, False)
+    for grid, H, suffix in ((208, 4, ""), (416, 2, " (2c)")):
+        corners = window_inputs(torch, gen, grid // 2)
+        w, D, P = 5, 32, corners.shape[1]
+        q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
+                               device="cuda").to(bf) for _ in range(3))
+        hw = (grid, grid)
+        kernel_row(
+            torch, rows, "window_cross_attention_bf16",
+            f"{grid}x{grid} H={H} D={D} w={w}", path + suffix,
+            lambda: wk.window_cross_attention(q, k, v, corners, hw, hw, w),
+            lambda: wk.window_cross_attention_plain(q, k, v, corners, hw, hw,
+                                                    w),
+            f"q/k/v {list(q.shape)} bf16 corners {list(corners.shape)}",
+            nbytes(q, k, v, corners) + P * 4 * H * D * 4, 0,
+            library=window_library(torch, q, k, v, corners, hw, w, False),
+            bf16_flops=attention_flops(P * H, 4 * w * w, D))
 
 
 def window_rows(torch, rows, gen, path, grid, C, H, train):
@@ -977,6 +1253,12 @@ def kernel_phase(torch):
     # kernels B and C at the 1/4 level, and at 2c's 1/2 level
     window_rows(torch, rows, gen, path, 208, 128, 4, False)
     window_rows(torch, rows, gen, path + " (2c)", 416, 64, 2, False)
+
+    # the bf16 instances of A, A′ and C (the card's eval default)
+    bf16_kernel_rows(torch, rows, gen, path, levels)
+    quadtree_bf16_cases_check(torch)
+    window_bf16_cases_check(torch)
+    bf16_refusals_check(torch)
     return rows
 
 
@@ -1131,17 +1413,33 @@ def requests(rng):
     return out
 
 
-def serving_phase(torch, recipe):
+@contextlib.contextmanager
+def precision(name):
+    """The card's eval default ("bf16": the variables of PRECISION_ENV
+    unset), float32 forced ("f32": both "0") or bf16 forced ("bf16 forced":
+    both "1", which on the CPU gives bf16 stacks and f32 kernel inputs)."""
+    saved = {k: os.environ.pop(k, None) for k in PRECISION_ENV}
+    value = {"bf16": None, "f32": "0", "bf16 forced": "1"}[name]
+    if value is not None:
+        os.environ.update({k: value for k in PRECISION_ENV})
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def serve(torch, matcher, recipe, reqs, prec):
+    """The requests through ``matcher`` in precision ``prec`` ("bf16", the
+    card's default, or "f32" forced), the launch counts zeroed just before
+    and each request's counts held to the recipe's per-pair count."""
     from casmtr_tpu_torch.ops import kernels
-    from casmtr_tpu_torch.serving import Matcher
-    t0 = time.perf_counter()
-    matcher = Matcher(recipe, bucket=832, seed=0)
-    n_params = sum(p.numel() for p in matcher.model.parameters())
-    expected = LAUNCHES_PER_PAIR[recipe]
-    log(f"serving: Matcher('{recipe}', bucket=832) on "
-        f"{matcher.device}, {n_params} parameters (seeded random), built in "
-        f"{time.perf_counter() - t0:.1f} s")
-    reqs = requests(np.random.default_rng(0))
+    expected = (LAUNCHES_PER_PAIR if prec == "bf16"
+                else LAUNCHES_PER_PAIR_F32)[recipe]
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     steady = []
@@ -1167,18 +1465,42 @@ def serving_phase(torch, recipe):
         tag = "warm-up" if i == 0 else "steady"
         if i:
             steady.append(ms)
-        log(f"serving: {recipe} request {i} ({tag}) {name}: {ms:.1f} ms, {n} "
-            f"matches at thr {matcher.thr}, kernel launches {counts}")
+        log(f"serving: {recipe} {prec} request {i} ({tag}) {name}: "
+            f"{ms:.1f} ms, {n} matches at thr {matcher.thr}, kernel "
+            f"launches {counts}")
         check(counts == expected,
-              f"serving: {recipe} launches {counts}, expected {expected}")
+              f"serving: {recipe} {prec} launches {counts}, expected "
+              f"{expected}")
     totals = dict(kernels.LAUNCHES)
-    log(f"serving: {recipe} launches over the {len(reqs)} requests {totals}; "
-        f"peak device memory "
+    log(f"serving: {recipe} {prec} steady latency "
+        + ", ".join(f"{t:.1f}" for t in steady) + " ms; launches over the "
+        f"{len(reqs)} requests {totals}; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     for k, v in totals.items():
         check(v > 0 or expected[k] == 0,
-              f"serving: {recipe}: kernel {k} never launched on the main path")
-    return totals, counts, matcher, reqs[1], steady
+              f"serving: {recipe} {prec}: kernel {k} never launched on the "
+              "path")
+    return totals, counts, steady
+
+
+def serving_phase(torch, recipe):
+    """Matcher(recipe, bucket=832) answers the requests in the card's eval
+    default (bf16), then with float32 forced, from the same weights in one
+    process.  Returns ({precision: (launch totals, last request's counts,
+    steady ms)}, the matcher, a request to profile)."""
+    from casmtr_tpu_torch.serving import Matcher
+    t0 = time.perf_counter()
+    matcher = Matcher(recipe, bucket=832, seed=0)
+    n_params = sum(p.numel() for p in matcher.model.parameters())
+    log(f"serving: Matcher('{recipe}', bucket=832) on "
+        f"{matcher.device}, {n_params} parameters (seeded random), built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reqs = requests(np.random.default_rng(0))
+    runs = {}
+    for prec in ("bf16", "f32"):
+        with precision(prec):
+            runs[prec] = serve(torch, matcher, recipe, reqs, prec)
+    return runs, matcher, reqs[1]
 
 
 def top(avgs, keep, n):
@@ -1191,17 +1513,19 @@ def top(avgs, keep, n):
     return rows[:n], sum(r[0] for r in rows)
 
 
-def profile_phase(torch, recipe, matcher, request, conv_ab=False):
-    """One more steady request under torch.profiler: device time summed over
-    the request's kernels against its wall time, and device time by
-    operator (the convolutions also by input shape) and by kernel; with
-    ``conv_ab`` also the FPN conv's cuDNN algorithm choices."""
+def profile_phase(torch, recipe, matcher, request, prec, conv_ab=False):
+    """One more steady request in precision ``prec`` under torch.profiler:
+    device time summed over the request's kernels against its wall time,
+    and device time by operator (the convolutions also by input shape) and
+    by kernel; with ``conv_ab`` also the FPN conv's cuDNN algorithm
+    choices."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     name, img0, img1 = request
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with precision(prec), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
         t0 = time.perf_counter()
         matcher.match(img0, img1)
         torch.cuda.synchronize()
@@ -1218,7 +1542,7 @@ def profile_phase(torch, recipe, matcher, request, conv_ab=False):
                    lambda e: e.key == "aten::cudnn_convolution", 6)
     ours, ours_ms = top(avgs, lambda e: e.device_type == DeviceType.CUDA
                         and "casmtr::" in e.key, 7)
-    log(f"profile: {recipe} request {name} under the profiler: wall "
+    log(f"profile: {recipe} {prec} request {name} under the profiler: wall "
         f"{wall:.1f} ms, device time summed over kernels {busy:.1f} ms, of "
         f"which the CUDA kernels of this port {ours_ms:.1f} ms")
     for ms, n, key, _ in ops:
@@ -1283,52 +1607,116 @@ def zero_threshold_overrides(recipe):
         "pre_thr": [[0.0] * (i + 1) for i in range(n)]}}}
 
 
-def reference_phase(torch, recipe):
+def reference_forward(torch, recipe, dev, img0, img1):
+    """The full-width recipe at bucket 256, thresholds 0, seeded random
+    weights, on ``dev``, in the precision the environment gives there."""
     from casmtr_tpu_torch.serving import Matcher
+    m = Matcher(recipe, bucket=256, thr=0.0,
+                overrides=zero_threshold_overrides(recipe), device=dev,
+                seed=0)
+    with torch.inference_mode():
+        return m.model(m._pack([(img0, img1)]))
+
+
+def compare_outputs(torch, a, b):
+    """Coarse and per-level window confidences' max abs differences, and
+    per stage (1/8, each cascade level, final) the valid (b, i, j) sets'
+    sizes and Jaccard and the common matches' largest confidence and
+    keypoint (mkpts1, px) differences, of outputs ``a`` against ``b``."""
+    def by_pair(m):
+        v = m.valid.cpu().numpy()
+        keys = zip(*(getattr(m, n).cpu().numpy()[v]
+                     for n in ("b_ids", "i_ids", "j_ids")))
+        return ({tuple(int(x) for x in k): i for i, k in enumerate(keys)},
+                m.mconf.cpu().numpy()[v], m.mkpts1.cpu().numpy()[v])
+
+    conf = float((a.coarse.conf_matrix.cpu()
+                  - b.coarse.conf_matrix.cpu()).abs().max())
+    window = {lvl: float((a.cascades[lvl].conf_matrix.cpu()
+                          - b.cascades[lvl].conf_matrix.cpu()).abs().max())
+              for lvl in b.cascades}
+    stages = {"1/8": (a.coarse.matches, b.coarse.matches)}
+    stages.update({lvl: (a.cascades[lvl].matches, b.cascades[lvl].matches)
+                   for lvl in b.cascades})
+    stages["final"] = (a.final_matches, b.final_matches)
+    out = {}
+    for name, (ma, mb) in stages.items():
+        (ka, ca, pa), (kb, cb, pb) = by_pair(ma), by_pair(mb)
+        common = ka.keys() & kb.keys()
+        out[name] = dict(
+            n=(len(ka), len(kb)),
+            jaccard=len(common) / max(1, len(ka.keys() | kb.keys())),
+            conf=max((abs(float(ca[ka[k]] - cb[kb[k]])) for k in common),
+                     default=0.0),
+            px=max((float(np.abs(pa[ka[k]] - pb[kb[k]]).max())
+                    for k in common), default=0.0))
+    return conf, window, out
+
+
+def describe(conf, window, stages):
+    return (f"coarse conf max_abs_err {conf:.3e}, window conf max_abs_err "
+            + ", ".join(f"{lvl} {e:.3e}" for lvl, e in window.items())
+            + "; " + "; ".join(
+                f"{n} matches {s['n'][0]} vs {s['n'][1]} Jaccard "
+                f"{s['jaccard']:.4f} common conf {s['conf']:.3e} px "
+                f"{s['px']:.3e}" for n, s in stages.items()))
+
+
+def reference_phase(torch, recipe):
+    """The card against the CPU on one 256^2 pair, in two precisions: the
+    card with float32 forced against the CPU's float32 default (confidences
+    within CONF_TOL, final match sets at Jaccard >= MIN_JACCARD, keypoints
+    within PX_TOL); the card's bf16 default against the CPU with both
+    variables at 1 (bf16 stacks, f32 kernel inputs, as the JAX package's
+    CPU graph), at every stage within the CPU's own bf16 against float32
+    difference (the scale of bf16 rounding; see BF16_CONF_TOL)."""
     rng = np.random.default_rng(1)
     big = texture(rng, 300, 300)
     img0, img1 = big[:256, :256], big[7:263, 5:261]
     outs = {}
-    for dev in ("cuda", "cpu"):
-        m = Matcher(recipe, bucket=256, thr=0.0,
-                    overrides=zero_threshold_overrides(recipe), device=dev,
-                    seed=0)
-        batch = m._pack([(img0, img1)])
-        with torch.inference_mode():
-            out = m.model(batch)
-        outs[dev] = out
-    gc, cc = outs["cuda"], outs["cpu"]
-    conf_err = float((gc.coarse.conf_matrix.cpu()
-                      - cc.coarse.conf_matrix).abs().max())
-    cas_err = {lvl: float((gc.cascades[lvl].conf_matrix.cpu()
-                           - cc.cascades[lvl].conf_matrix).abs().max())
-               for lvl in cc.cascades}
-
-    def by_pair(fm):
-        v = fm.valid.cpu().numpy()
-        keys = zip(*(getattr(fm, n).cpu().numpy()[v]
-                     for n in ("b_ids", "i_ids", "j_ids")))
-        return {tuple(int(x) for x in k): i for i, k in
-                enumerate(keys)}, fm.mkpts1.cpu().numpy()[v]
-
-    kg, pg = by_pair(gc.final_matches)
-    kc, pc = by_pair(cc.final_matches)
-    common = kg.keys() & kc.keys()
-    jac = len(common) / max(1, len(kg.keys() | kc.keys()))
-    px_err = max((float(np.abs(pg[kg[k]] - pc[kc[k]]).max()) for k in common),
-                 default=0.0)
-    log(f"reference: {recipe} bucket 256, thresholds 0, card vs CPU: coarse "
-        f"conf max_abs_err {conf_err:.3e}, window conf max_abs_err "
-        + ", ".join(f"{lvl} {e:.3e}" for lvl, e in cas_err.items())
-        + f" (tol {CONF_TOL:g}); final matches {len(kg)} vs {len(kc)}, "
-        f"Jaccard {jac:.4f} (min {MIN_JACCARD}); mkpts1 max err on common "
-        f"{px_err:.3e} px (tol {PX_TOL:g})")
-    check(len(kc) > 0, "reference: no final matches on the CPU")
-    check(conf_err <= CONF_TOL, "reference: coarse confidences disagree")
-    check(max(cas_err.values()) <= CONF_TOL,
+    for prec, dev in (("f32", "cuda"), ("f32", "cpu"), ("bf16", "cuda"),
+                      ("bf16 forced", "cpu")):
+        with precision(prec):
+            outs[prec, dev] = reference_forward(torch, recipe, dev, img0,
+                                                img1)
+    conf, window, st = compare_outputs(torch, outs["f32", "cuda"],
+                                       outs["f32", "cpu"])
+    log(f"reference: {recipe} bucket 256, thresholds 0, card f32 vs CPU "
+        f"f32: {describe(conf, window, st)} (tol conf {CONF_TOL:g}, final "
+        f"Jaccard >= {MIN_JACCARD}, px {PX_TOL:g})")
+    fin = st["final"]
+    check(fin["n"][1] > 0, "reference: no final matches on the CPU")
+    check(conf <= CONF_TOL, "reference: coarse confidences disagree")
+    check(max(window.values()) <= CONF_TOL,
           "reference: window confidences disagree")
-    check(jac >= MIN_JACCARD, "reference: final match sets disagree")
-    check(px_err <= PX_TOL, "reference: final keypoints disagree")
+    check(fin["jaccard"] >= MIN_JACCARD,
+          "reference: final match sets disagree")
+    check(fin["px"] <= PX_TOL, "reference: final keypoints disagree")
+
+    scale = compare_outputs(torch, outs["bf16 forced", "cpu"],
+                            outs["f32", "cpu"])
+    noise = scale[2]
+    log(f"reference: {recipe} CPU bf16 stacks vs CPU f32 (the scale of bf16 "
+        f"rounding): {describe(*scale)}")
+    conf, window, st = compare_outputs(torch, outs["bf16", "cuda"],
+                                       outs["bf16 forced", "cpu"])
+    log(f"reference: {recipe} card bf16 default vs CPU bf16 stacks: "
+        f"{describe(conf, window, st)}")
+    check(st["final"]["n"][1] > 0,
+          "reference: no final bf16 matches on the CPU")
+    for name, got in st.items():
+        ref = noise[name]
+        conf_tol = max(BF16_CONF_TOL, BF16_NOISE * ref["conf"])
+        jac_min = min(BF16_MIN_JACCARD, ref["jaccard"]) - BF16_JACCARD_SLACK
+        gated = got["n"][1] >= BF16_MIN_MATCHES
+        log(f"reference: {recipe} bf16 {name}: common conf {got['conf']:.3e}"
+            f" (tol {conf_tol:.3e}), Jaccard {got['jaccard']:.4f} ("
+            + (f"min {jac_min:.4f})" if gated else "not gated: fewer than "
+               f"{BF16_MIN_MATCHES} matches)"))
+        check(got["conf"] <= conf_tol,
+              f"reference: bf16 {name} confidences disagree")
+        check(not gated or got["jaccard"] >= jac_min,
+              f"reference: bf16 {name} match sets disagree")
 
 
 # --------------------------------------------------------------------------
@@ -1384,8 +1772,18 @@ def build_trainer(torch, recipe, size, device=None, model=None):
 
 
 def training_phase(torch, recipe):
+    from casmtr_tpu_torch.models.backbone.resnet_fpn import backbone_dtype
+    from casmtr_tpu_torch.models.transformer import (table_dtype,
+                                                     transformer_dtype)
     from casmtr_tpu_torch.ops import kernels
     model, state, step = build_trainer(torch, recipe, TRAIN_SIZE)
+    dev = torch.device("cuda")
+    dts = (backbone_dtype(dev, True), transformer_dtype(dev, True),
+           table_dtype(dev, True, transformer_dtype(dev, True)))
+    log(f"training: {recipe} step precision: backbone {dts[0]}, stacks "
+        f"{dts[1]}, kernel inputs {dts[2]}; no bf16 instance may launch")
+    check(all(d == torch.float32 for d in dts),
+          "training: the step is not float32")
     levels = [f"{lvl}c" for lvl in model.config.cascade_levels]
     expected = LAUNCHES_PER_TRAIN_STEP[recipe]
     n_params = sum(p.numel() for p in model.parameters())
@@ -1436,7 +1834,8 @@ def training_phase(torch, recipe):
     check(moved == len(watch), f"training: {len(watch) - moved} q/k/v "
           "projections did not move")
     for k, v in totals.items():
-        check(v > 0, f"training: kernel {k} never launched on the main path")
+        check(v > 0 or expected[k] == 0,
+              f"training: kernel {k} never launched on the main path")
     log(f"training: {recipe} median {statistics.median(times):.4f} s/step "
         f"over {len(times)} steps, peak device memory {peak:.2f} GiB, "
         f"launches over the {len(times)} steps {totals}"
@@ -1539,8 +1938,10 @@ def main():
     import casmtr_tpu_torch  # noqa: F401  (fails outside the repository)
     from casmtr_tpu_torch.ops import kernels
 
-    # full float32 everywhere the port compares numbers
+    # full float32 everywhere the port compares numbers, and bf16 products
+    # summed in float32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     smi = subprocess.run(
@@ -1563,13 +1964,14 @@ def main():
     rows = timed("kernels", kernel_phase, torch)
     train_rows = timed("training kernels", train_kernel_phase, torch)
     timed("finite difference", finite_difference_phase, torch)
-    serve_totals, per_pair = {}, {}
+    serve_runs = {}
     for recipe in RECIPES:
-        totals, per_pair[recipe], matcher, request, _ = timed(
+        serve_runs[recipe], matcher, request = timed(
             f"serving {recipe}", serving_phase, torch, recipe)
-        serve_totals[recipe] = totals
-        timed(f"profile {recipe}", profile_phase, torch, recipe, matcher,
-              request, recipe == RECIPES[0])
+        for prec in ("bf16", "f32"):
+            timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
+                  matcher, request, prec,
+                  recipe == RECIPES[0] and prec == "f32")
         del matcher
         torch.cuda.empty_cache()
     for recipe in RECIPES:
@@ -1587,13 +1989,19 @@ def main():
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)
 
-    # launches: the main paths' counts, summed over the recipes' runs, and
-    # each recipe's count in its last request and its last step
+    # launches: each path's counts, summed over the recipes' runs, and each
+    # recipe's count in its last request and its last step.  A serving row
+    # reads the run of its precision: the bf16 instances and B the card's
+    # bf16 default, the f32 A, A′ and C the run with float32 forced.
     for row in rows:
-        row["launches"] = sum(t[row["name"]] for t in serve_totals.values())
-        row["launches_per_pair"] = {r: per_pair[r][row["name"]]
+        prec = ("f32" if row["name"] in BF16_KERNELS else "bf16")
+        row["launches_from"] = f"serving, {prec}"
+        row["launches"] = sum(serve_runs[r][prec][0][row["name"]]
+                              for r in RECIPES)
+        row["launches_per_pair"] = {r: serve_runs[r][prec][1][row["name"]]
                                     for r in RECIPES}
     for row in train_rows:
+        row["launches_from"] = "training, f32"
         row["launches"] = sum(t[row["name"]] for t in train_totals.values())
         row["launches_per_step"] = {r: per_step[r][row["name"]]
                                     for r in RECIPES}

@@ -24,9 +24,13 @@ measuring code from this checkout's ``chip_smoke.py``:
   and sorted scores), timed on the card by ``chip_smoke.time_ms`` and on the
   host by ``host_us`` (one call's enqueue, the card held busy);
 - ``chip_smoke.serving_phase`` and ``chip_smoke.training_phase`` for both
-  recipes: three requests at bucket 832 (two steady), a warm-up and four
-  steps at 704^2; then one more step under torch.profiler (``host_step``):
-  its wall, host and device time and its CUDA API calls (cuda* and cu*).
+  recipes: three requests at bucket 832 (two steady) in the card's bf16
+  default and again with float32 forced, a warm-up and four steps at
+  704^2; then one more step under torch.profiler (``host_step``): its
+  wall, host and device time and its CUDA API calls (cuda* and cu*).  The
+  serving phase holds each request to chip_smoke's launch counts, so OTHER
+  must have the bf16 eval policy (its bf16 kernel instances) too; against
+  an older checkout use ``--kernels``.
 
 With ``--kernels`` the processes time only the kernels, for instance to
 split a kernel into its passes: OTHER is then a copy of this checkout whose
@@ -245,7 +249,9 @@ def child(tree, kernels_only=False):
         print(TAG + json.dumps(res), flush=True)
         return
     for recipe in cs.RECIPES:
-        res["serving_ms"][recipe] = cs.serving_phase(torch, recipe)[4]
+        precisions, _, _ = cs.serving_phase(torch, recipe)
+        for prec, (_, _, steady) in precisions.items():
+            res["serving_ms"][f"{recipe} {prec}"] = steady
         torch.cuda.empty_cache()
     for recipe in cs.RECIPES:
         _, _, step, state, batch, times = cs.training_phase(torch, recipe)
