@@ -8,8 +8,8 @@
 // candidate keys (or values) in shared memory: its H head slices come from
 // one key position (kernel C: one candidate set for all heads) or from one
 // position per head (kernel A: each head has its own).  The elements are
-// floats, or bf16 for the forward kernels' bf16-input instances (the T
-// template parameter): K and V rows are then staged as bf16, as they lie in
+// floats, or bf16 for the bf16-input instances (the T template
+// parameter): K and V rows are then staged as bf16, as they lie in
 // device memory, and turned into floats where they are read; all arithmetic
 // is f32.  The block copies them with cp.async, neighbouring threads on
 // neighbouring 16-byte words (4-byte words when a slice is not a whole

@@ -34,13 +34,16 @@
 // occurrence adds, as autograd of the gather oracles does, in an order that
 // varies from run to run.  dk and dv must be zeroed by the caller.
 //
-// The forward body also takes bf16 q/k/v (T = __nv_bfloat16, the bf16
-// eval path): the four query rows are widened to f32 in shared memory once,
-// K and V rows are staged as bf16 (half the bytes copied and held) and
-// widened where they are read, each shared word once per thread for all the
-// children it serves; scores, the softmax, P.V, the message, the LSE and
-// A′'s selection are f32 as in the float instances.  The backward takes
-// floats only.
+// Both bodies also take bf16 q/k/v (T = __nv_bfloat16, the bf16 eval path
+// and the bf16 training step): the four query rows are widened to f32 in
+// shared memory once, K and V rows are staged as bf16 (half the bytes
+// copied and held) and widened where they are read, each shared word once
+// per thread for all the children it serves; scores, the softmax, P.V, the
+// message, the LSE and A′'s selection are f32 as in the float instances.
+// The backward's saved output, LSE and cotangent stay f32 (the cotangent
+// rows are loaded, not copied asynchronously, beside the widened query
+// rows), and its dq and the atomically summed dK and dV are f32: the
+// caller rounds them to bf16.
 //
 // No tensor cores: a (parent, head) has 4 query rows, a quarter of an mma
 // tile, over keys of its own, and the 1e-4 f32 tolerance rules out TF32.
@@ -406,44 +409,50 @@ chunk_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // backward
 // ---------------------------------------------------------------------------
 
-// Bytes of the backward's shared memory: q and g rows [4][row_stride] each,
-// the ring of K and V chunks, the chunk's P and dS [H][prob_stride] each,
-// lse and delta [H][4] each, and the positions [NC][parts].
-inline size_t bwd_smem_bytes(int H, int D, int CH, int NC, int parts) {
+// Bytes of the backward's shared memory: q and g rows [4][row_stride] each
+// (f32), the ring of K and V chunks (rows of T; it takes the candidate
+// groups' partial dq after the last chunk), the chunk's P and dS
+// [H][prob_stride] each, lse and delta [H][4] each, and the positions
+// [NC][parts]; columns of W elements in the product pass.
+template <typename T>
+inline size_t bwd_smem_bytes(int H, int D, int CH, int NC, int parts,
+                             int W) {
   const size_t S = row_stride(H * D), R = 4 * H;
-  return (8 * S + (size_t)kStages * 2 * CH * kv_stride(H * D) +
-          2 * H * (size_t)prob_stride(CH) + 2 * R + (size_t)NC * parts) *
-         sizeof(float);
+  return (8 * S + 2 * H * (size_t)prob_stride(CH) + 2 * R +
+          (size_t)NC * parts) *
+             sizeof(float) +
+         ring_bytes<T>(H * D, CH, candidate_groups(CH, H * D / W));
 }
 
-template <typename Cand, bool kCopy16, bool kVecD, int kSlots>
+template <typename Cand, bool kCopy16, bool kVecD, int kSlots, typename T>
 __global__ void __launch_bounds__(kThreads)
-chunk_attention_bwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, Cand cand,
+chunk_attention_bwd_kernel(const T* __restrict__ q,
+                           const T* __restrict__ k,
+                           const T* __restrict__ v, Cand cand,
                            const float* __restrict__ o,
                            const float* __restrict__ lse,
                            const float* __restrict__ g,
                            float* __restrict__ dq, float* dk, float* dv,
                            int P, int H, int D, int h0, int w0, int h1,
                            int w1, int CH, float scale) {
-  constexpr int W = kVecD ? 4 : 1;       // floats per column
+  constexpr int W = kVecD ? 4 : 1;       // elements per column
   extern __shared__ __align__(16) float smem[];
   const int tid = threadIdx.x;
   const long long bp = blockIdx.x;
   const int p = (int)(bp % P), b = (int)(bp / P);
   cand.begin(bp);
-  const int HD = H * D, S = row_stride(HD), SK = kv_stride(HD), R = 4 * H;
+  const int HD = H * D, S = row_stride(HD), SK = kv_stride<T>(HD), R = 4 * H;
   const int PS = prob_stride(CH), NC = cand.count();
   const int parts = Cand::kPerHead ? H : 1;
   const int n_chunks = (NC + CH - 1) / CH, n_cg = candidate_groups(CH, HD / W);
-  const bool swz = swizzled(HD);
+  const bool swz = swizzled<T>(HD);
   // probabilities in base 2: scores and the LSE carry log2(e)
   const float scale2 = scale * kLog2e;
-  float* qs = smem;                                // [4][S]
-  float* gs = qs + 4 * S;                          // [4][S]
-  float* kv = gs + 4 * S;                          // [kStages][2][CH][SK]
-  float* pb = kv + (size_t)kStages * 2 * CH * SK;  // [H][PS]: P [c][f]
+  float* qs = smem;                                // [4][S] floats
+  float* gs = qs + 4 * S;                          // [4][S] floats
+  T* kv = reinterpret_cast<T*>(gs + 4 * S);        // [kStages][2][CH][SK]
+  float* pb = reinterpret_cast<float*>(            // [H][PS]: P [c][f]
+      reinterpret_cast<char*>(kv) + ring_bytes<T>(HD, CH, n_cg));
   float* db = pb + H * PS;                         // [H][PS]: dS [c][f]
   float* lse_s = db + H * PS;   // [H][4], row h * 4 + f, times log2(e)
   float* delta = lse_s + R;                        // [H][4]
@@ -452,9 +461,10 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
   const size_t k_off = (size_t)b * h1 * w1 * HD;
   const float* ob = o + (size_t)bp * 4 * HD;
   const float* gb = g + (size_t)bp * 4 * HD;
-  const float* qb = q + (size_t)b * h0 * w0 * HD;
-  const ChunkStream<kCopy16> stream{kv, pos, k + k_off, v + k_off, CH, NC,
-                                    SK, HD, Cand::kPerHead ? D : HD, swz};
+  const T* qb = q + (size_t)b * h0 * w0 * HD;
+  const ChunkStream<kCopy16, T> stream{kv, pos, k + k_off, v + k_off, CH,
+                                       NC, SK, HD, Cand::kPerHead ? D : HD,
+                                       swz};
 
   parent_positions(pos, cand, NC, parts);
   // delta = rowsum(g * o) and the LSE per (head, child) row: a warp per row
@@ -470,10 +480,19 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
     }
   }
   __syncthreads();
-  stream.stage_rows(8, [=](int r) {   // q rows 0-3, g rows 4-7
-    return r < 4 ? RowCopy{qs + r * S, qb + (size_t)query_row(p, w0, r) * HD}
+  if constexpr (std::is_same<T, float>::value) {
+    stream.stage_rows(8, [=](int r) {   // q rows 0-3, g rows 4-7
+      return r < 4
+                 ? RowCopy{qs + r * S, qb + (size_t)query_row(p, w0, r) * HD}
                  : RowCopy{gs + (r - 4) * S, gb + (size_t)(r - 4) * HD};
-  });
+    });
+  } else {   // q rows widened once, g rows (f32) loaded beside them
+    for (int i = tid; i < 4 * HD; i += kThreads) {
+      const int f = i / HD, j = i - f * HD;
+      qs[f * S + j] = to_float(qb[(size_t)query_row(p, w0, f) * HD + j]);
+      gs[f * S + j] = gb[i];
+    }
+  }
   for (int n = 0; n < kStages - 1; ++n) stream.issue(n);
 
   const Columns<W, kSlots> col(HD, D, n_cg);
@@ -482,8 +501,8 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
     const int cnt = min(CH, NC - n * CH);
     stream.issue(n + kStages - 1);
     stream.wait();
-    const float* ks = stream.stage(n);
-    const float* vs = ks + (size_t)CH * SK;
+    const T* ks = stream.stage(n);
+    const T* vs = ks + (size_t)CH * SK;
     if (n == 0) {   // this thread's columns of the q and g rows
 #pragma unroll
       for (int s = 0; s < kSlots; ++s)
@@ -529,7 +548,7 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
         for (int c = col.cg; c < cnt; c += n_cg) {
           const float4 pp = ld4(pr + c * 4), dd = ld4(dr + c * 4);
           float kx[W], dkx[W], dvx[W];
-          load_cols<W>(kx, ks + c * SK + kv_col(j, kv_key(c, swz)));
+          load_cols<W>(kx, ks + c * SK + kv_col<T>(j, kv_key(c, swz)));
 #pragma unroll
           for (int e = 0; e < W; ++e) {
             dqa[s][0][e] = fmaf(dd.x, kx[e], dqa[s][0][e]);
@@ -560,10 +579,10 @@ chunk_attention_bwd_kernel(const float* __restrict__ q,
     __syncthreads();
   }
 
-  // add the candidate groups' partial dq ([n_cg][4][H * D] over the K/V ring,
-  // free now: every chunk has landed), then write the four dq rows, one
-  // owner each: plain stores
-  float* red = kv;
+  // add the candidate groups' partial dq ([n_cg][4][H * D] floats over the
+  // K/V ring, free now: every chunk has landed), then write the four dq
+  // rows, one owner each: plain stores
+  float* red = reinterpret_cast<float*>(kv);
   if (col.cg < n_cg) {
 #pragma unroll
     for (int s = 0; s < kSlots; ++s) {
@@ -621,17 +640,20 @@ struct LaunchFwd {
   }
 };
 
-template <typename Cand>
+template <typename Cand, typename T = float>
 struct LaunchBwd {
   template <bool kCopy16, bool kVecD, int kSlots>
-  static cudaError_t run(const float* q, const float* k, const float* v,
-                         Cand cand, const float* o, const float* lse,
-                         const float* g, float* dq, float* dk, float* dv,
-                         int B, int P, int H, int D, int h0, int w0, int h1,
-                         int w1, float scale, cudaStream_t stream) {
-    auto kernel = chunk_attention_bwd_kernel<Cand, kCopy16, kVecD, kSlots>;
+  static cudaError_t run(const T* q, const T* k, const T* v, Cand cand,
+                         const float* o, const float* lse, const float* g,
+                         float* dq, float* dk, float* dv, int B, int P, int H,
+                         int D, int h0, int w0, int h1, int w1, float scale,
+                         cudaStream_t stream) {
+    auto kernel =
+        chunk_attention_bwd_kernel<Cand, kCopy16, kVecD, kSlots, T>;
     const int NC = cand.count(), parts = Cand::kPerHead ? H : 1;
-    auto bytes = [=](int ch) { return bwd_smem_bytes(H, D, ch, NC, parts); };
+    auto bytes = [=](int ch) {
+      return bwd_smem_bytes<T>(H, D, ch, NC, parts, kVecD ? 4 : 1);
+    };
     const int CH = fit_chunk(H, bytes);
     if (CH == 0) return cudaErrorInvalidValue;
     cudaError_t err = allow_smem(kernel, bytes(CH));

@@ -1,7 +1,7 @@
 // Quadtree fine-level attention for Hopper: kernel A, and kernel A′, the
 // same body with the next level's top-k selection fused in; each on f32
-// q/k/v and, for the bf16 eval path, on bf16 q/k/v (f32 arithmetic and
-// outputs in both).
+// q/k/v and, for the bf16 eval path and training step, on bf16 q/k/v (f32
+// arithmetic and outputs in both).
 //
 // Replaces: casmtr_tpu/ops/pallas/quadtree_kernels.py:_fwd_kernel, with
 // n_topk = 0 (kernel A, reached through masked_fine_level -> _message ->
@@ -65,7 +65,7 @@
 namespace casmtr {
 
 // Kernel A (kTopk false) or A′ on q/k/v of element type T (float, or bf16
-// for the bf16 eval path).  A slice of whole 16-byte words (D % 4 == 0 for
+// for the bf16 eval path and training step).  A slice of whole 16-byte words (D % 4 == 0 for
 // floats, % 8 for bf16) takes float4-style columns and, with aligned
 // inputs, 16-byte copies; otherwise 4-byte copies, which a bf16 slice
 // allows only when D is even and q/k/v are 4-byte aligned.

@@ -1,6 +1,6 @@
 // Cascade window cross-attention (kernel C) for Hopper, on f32 q/k/v and,
-// for the bf16 eval path, on bf16 q/k/v (f32 arithmetic and outputs in
-// both).
+// for the bf16 eval path and training step, on bf16 q/k/v (f32 arithmetic
+// and outputs in both).
 //
 // Replaces: casmtr_tpu/ops/pallas/window_kernels.py:_wca_fwd_kernel
 // (reached through window_cross_attention -> _wca_fwd_call).

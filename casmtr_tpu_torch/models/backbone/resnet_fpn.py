@@ -1,30 +1,37 @@
-"""Conv/BatchNorm building blocks that the Twins FPN shares with the ResNet
-FPN family, and the backbone's compute dtype (counterpart of the helpers
-and ``backbone_dtype`` in casmtr_tpu/models/backbone/resnet_fpn.py).
-``ResNetFPN_8_4_2`` itself is not ported yet (ROADMAP queue A:
-ResNetFPN_8_4_2)."""
+"""The ResNet-FPN backbones ``ResNetFPN_8_4_2`` and ``ResNetFPN_8_2``, the
+Conv/BatchNorm building blocks that the Twins FPN shares with them, and the
+backbone's compute dtype (counterpart of
+casmtr_tpu/models/backbone/resnet_fpn.py).  Layout NCHW in and out; module
+names follow the JAX package's flax names as ``weights.flax_path_to_torch_key``
+maps them (``layer1_0`` -> ``layer1.0``, ``downsample_0`` ->
+``downsample.0``, ``layer2_outconv2/0`` -> ``layer2_outconv2.0``)."""
 
 from __future__ import annotations
 
 import os
+from typing import List
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from casmtr_tpu_torch.models.precision import run
+from casmtr_tpu_torch.ops.image_ops import resize_bilinear_align_corners
+
 
 def backbone_dtype(device: torch.device, train: bool) -> torch.dtype:
-    """The backbone's compute dtype.  ``CASMTR_BACKBONE_BF16=0/1`` forces
-    float32 or bfloat16; otherwise bfloat16 on the card in eval, float32 on
-    the CPU and in training.  (The JAX package computes its backbone in bf16
-    on its TPU in training too; the port trains in float32 until its bf16
-    backward instances exist, ROADMAP queue A.)  Parameters and BatchNorm
-    statistics stay float32, and the backbone returns float32 maps."""
+    """The backbone's compute dtype: bfloat16 on the card and float32 on
+    the CPU, in eval and in training alike (``train`` does not change it),
+    as the JAX package computes its backbone in bf16 on its TPU in both
+    modes.  ``CASMTR_BACKBONE_BF16=0/1`` forces float32 or bfloat16.
+    Parameters and BatchNorm statistics stay float32 (in training the batch
+    statistics come from the bf16 activations widened to float32, as
+    flax's), and the backbone returns float32 maps."""
     forced = os.environ.get("CASMTR_BACKBONE_BF16")
     if forced is not None:
         return torch.bfloat16 if forced == "1" else torch.float32
     cuda = torch.device(device).type == "cuda"
-    return torch.bfloat16 if cuda and not train else torch.float32
+    return torch.bfloat16 if cuda else torch.float32
 
 
 def conv1x1(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
@@ -45,6 +52,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     torch's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x in float32: ``precision.run`` widens a bf16 input first, so the
+        statistics are taken in float32."""
         if not self.training:
             return super().forward(x)
         with torch.no_grad():
@@ -66,3 +75,100 @@ def out_conv2(mid: int, out: int) -> nn.Sequential:
     hold the parameters, as in the reference's FPN)."""
     return nn.Sequential(conv3x3(mid, mid), bn(mid), nn.LeakyReLU(0.01),
                          conv3x3(mid, out), bn(out))
+
+
+class BasicBlock(nn.Module):
+    """Two-conv residual unit; a strided one projects its shortcut with a
+    strided 1x1 conv and BatchNorm (``downsample``)."""
+
+    def __init__(self, in_planes: int, planes: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = conv3x3(in_planes, planes, stride)
+        self.bn1 = bn(planes)
+        self.conv2 = conv3x3(planes, planes)
+        self.bn2 = bn(planes)
+        self.downsample = (nn.Sequential(conv1x1(in_planes, planes, stride),
+                                         bn(planes))
+                           if stride != 1 else None)
+
+    def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
+        dt = dtype or x.dtype
+        x = x.to(dt)
+        y = F.relu(run(self.bn1, run(self.conv1, x, dt), dt))
+        y = run(self.bn2, run(self.conv2, y, dt), dt)
+        if self.downsample is not None:
+            x = run(self.downsample, x, dt)
+        return F.relu(x + y)
+
+
+def _out_conv2(mid: int, out: int) -> nn.Sequential:
+    """conv3x3 -> BN -> LeakyReLU(0.01) -> conv3x3 (indices 0, 1, 3 hold
+    the parameters; no BatchNorm after the second conv, unlike the Twins
+    FPN's ``out_conv2``)."""
+    return nn.Sequential(conv3x3(mid, mid), bn(mid), nn.LeakyReLU(0.01),
+                         conv3x3(mid, out))
+
+
+def _to_gray(x: torch.Tensor) -> torch.Tensor:
+    """RGB [B, 3, H, W] -> luma [B, 1, H, W]."""
+    return 0.299 * x[:, 0:1] + 0.587 * x[:, 1:2] + 0.114 * x[:, 2:3]
+
+
+class ResNetFPN_8_4_2(nn.Module):
+    """The stem (7x7 conv, stride 2, padding 3), three stages of two
+    BasicBlocks (1/2, 1/4, 1/8) and the FPN's top-down fusion.  Input
+    [B, 3, H, W] in [0, 1] (RGB, turned to gray unless ``is_rgb``) or
+    [B, 1, H, W].  Computes in ``backbone_dtype(device, self.training)``;
+    returns [1/8 (block_dims[2]), 1/4 (block_dims[1]), 1/2 (block_dims[0])]
+    NCHW float32 maps."""
+
+    def __init__(self, initial_dim: int = 128, block_dims=(128, 196, 256),
+                 is_rgb: bool = False):
+        super().__init__()
+        d = tuple(block_dims)
+        self.is_rgb = is_rgb
+        self.conv1 = nn.Conv2d(3 if is_rgb else 1, initial_dim, 7, stride=2,
+                               padding=3, bias=False)
+        self.bn1 = bn(initial_dim)
+        self.layer1 = nn.Sequential(BasicBlock(initial_dim, d[0]),
+                                    BasicBlock(d[0], d[0]))
+        self.layer2 = nn.Sequential(BasicBlock(d[0], d[1], 2),
+                                    BasicBlock(d[1], d[1]))
+        self.layer3 = nn.Sequential(BasicBlock(d[1], d[2], 2),
+                                    BasicBlock(d[2], d[2]))
+        self.layer3_outconv = conv1x1(d[2], d[2])
+        self.layer2_outconv = conv1x1(d[1], d[2])
+        self.layer2_outconv2 = _out_conv2(d[2], d[1])
+        self.layer1_outconv = conv1x1(d[0], d[1])
+        self.layer1_outconv2 = _out_conv2(d[1], d[0])
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if not self.is_rgb and x.shape[1] == 3:
+            x = _to_gray(x)
+        dt = backbone_dtype(x.device, self.training)
+        x1 = F.relu(run(self.bn1, run(self.conv1, x, dt), dt))
+        for blk in self.layer1:
+            x1 = blk(x1, dt)                                  # 1/2
+        x2 = x1
+        for blk in self.layer2:
+            x2 = blk(x2, dt)                                  # 1/4
+        x3 = x2
+        for blk in self.layer3:
+            x3 = blk(x3, dt)                                  # 1/8
+        x3_out = run(self.layer3_outconv, x3, dt)
+        x3_2x = resize_bilinear_align_corners(x3_out, *x2.shape[-2:])
+        x2_out = run(self.layer2_outconv2,
+                     run(self.layer2_outconv, x2, dt) + x3_2x, dt)
+        x2_2x = resize_bilinear_align_corners(x2_out, *x1.shape[-2:])
+        x1_out = run(self.layer1_outconv2,
+                     run(self.layer1_outconv, x1, dt) + x2_2x, dt)
+        return [x3_out.float(), x2_out.float(), x1_out.float()]
+
+
+class ResNetFPN_8_2(ResNetFPN_8_4_2):
+    """The same network and parameters, returning only the [1/8, 1/2]
+    maps."""
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        x3_out, _, x1_out = super().forward(x)
+        return [x3_out, x1_out]

@@ -135,7 +135,7 @@ class CascadeFeatureTransformer(nn.Module):
         H0, W0 = hw0
         H1, W1 = hw1
         dt = transformer_dtype(feat0.device, self.training)
-        tab = table_dtype(feat0.device, self.training, dt)
+        tab = table_dtype(feat0.device)
         win01 = window_warp_idx(idx_c01, self.window, H1 // 2, W1 // 2)
         win10 = window_warp_idx(idx_c10, self.window, H0 // 2, W0 // 2)
         up01 = up10 = None

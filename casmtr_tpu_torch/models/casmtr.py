@@ -8,14 +8,18 @@ statistics and each cascade level's matches are the ground-truth-filtered
 ones that the loss supervises.
 
 Precision follows the JAX package's policy, read from the tensors' device
-and the mode: on the card in eval the backbone and the coarse, cascade and
-fine stacks compute in bfloat16 (``backbone_dtype``,
-``transformer_dtype``) and kernels A, A′ and C take bf16 q/k/v
-(``table_dtype``); parameters and normalization statistics stay float32,
-every stack returns float32, and the UpBlocks, matching heads and fine
-preprocessing compute in float32.  In training and on the CPU everything is
-float32 unless ``CASMTR_BACKBONE_BF16`` / ``CASMTR_TRANSFORMER_BF16`` force
-a dtype."""
+and the mode: on the card the backbone computes in bfloat16 in eval and in
+training (``backbone_dtype``), the coarse, cascade and fine stacks in
+bfloat16 in eval and float32 in training (``transformer_dtype``), and
+kernels A, A′ and C (and in training A-bwd and C-bwd) take bf16 q/k/v in
+both modes (``table_dtype``); parameters and normalization statistics stay
+float32, every stack returns float32, and the UpBlocks, matching heads, fine
+preprocessing and kernel B compute in float32.
+``CASMTR_BACKBONE_BF16=0/1`` and ``CASMTR_TRANSFORMER_BF16=0/1`` force the
+backbone's and the stacks' dtype; the stacks' variable at 0 also keeps the
+kernels' q/k/v float32, so both at 0 make the card's graph all float32.  On
+the CPU everything is float32 unless a variable forces bf16 (the kernels'
+q/k/v stay float32 there, as in the JAX package's CPU graph)."""
 
 from __future__ import annotations
 

@@ -40,21 +40,20 @@ def transformer_dtype(device: torch.device, train: bool) -> torch.dtype:
     return torch.bfloat16 if cuda and not train else torch.float32
 
 
-def table_dtype(device: torch.device, train: bool,
-                compute: torch.dtype) -> torch.dtype:
+def table_dtype(device: torch.device) -> torch.dtype:
     """The dtype of the q/k/v "gather tables" that the attention kernels
-    A, A′ and C read (the JAX package's ``cdt``), chosen by device and
-    mode, never read from the environment: float32 on the CPU, as the JAX
-    package's CPU graph (bf16 stacks forced by the environment still feed
-    the kernels float32 there), and on the card bfloat16 in eval, which
-    takes the kernels' bf16 instances.  Two choices differ from the JAX
-    package, which uses bf16 tables on its TPU whatever the stack dtype and
-    mode: the card keeps float32 tables in training, where the bf16
-    instances have no backward yet (ROADMAP queue A), and with a stack
-    forced to float32 (``compute``), so that such a request is the all-f32
+    A, A′ and C (and their backward kernels A-bwd and C-bwd) read, the JAX
+    package's ``cdt``: float32 on the CPU, as the JAX package's CPU graph
+    (bf16 stacks forced by the environment still feed the kernels float32
+    there); on the card bfloat16, in eval and in training alike, which
+    takes the kernels' bf16 instances.  One choice differs from the JAX
+    package, which uses bf16 tables on its TPU whatever the stacks' dtype:
+    ``CASMTR_TRANSFORMER_BF16=0`` (the stacks forced to float32) keeps the
+    card's tables float32 too, so that with ``CASMTR_BACKBONE_BF16=0`` as
+    well a request or a training step on the card is the all-float32
     graph."""
     cuda = torch.device(device).type == "cuda"
-    if cuda and not train and compute == torch.bfloat16:
+    if cuda and os.environ.get("CASMTR_TRANSFORMER_BF16") != "0":
         return torch.bfloat16
     return torch.float32
 
@@ -230,7 +229,7 @@ class LocalFeatureTransformer(nn.Module):
     def forward(self, feat0, feat1, hw0, hw1, mask0=None, mask1=None):
         loftr = self.config.block_type == "loftr"
         dt = transformer_dtype(feat0.device, self.training)
-        tab = table_dtype(feat0.device, self.training, dt)
+        tab = table_dtype(feat0.device)
         for layer, name in zip(self.layers, self.config.layer_names):
             if loftr:
                 if name == "self":

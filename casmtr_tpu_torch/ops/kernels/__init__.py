@@ -9,8 +9,8 @@ unchanged one is reused.  Nothing is built at import time.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel, and nowhere else; ``reset_launch_counts`` zeroes them.  Kernels A,
-A′ and C also have bf16-input instances (the bf16 eval path), counted
-apart under ``<name>_bf16``.
+A′, C, A-bwd and C-bwd also have bf16-input instances (the bf16 eval path
+and the bf16 training step), counted apart under ``<name>_bf16``.
 """
 
 from __future__ import annotations
@@ -50,6 +50,8 @@ LAUNCHES: Dict[str, int] = {
     "quadtree_fine_attention_bf16": 0,
     "quadtree_fine_topk_bf16": 0,
     "window_cross_attention_bf16": 0,
+    "quadtree_fine_attention_bwd_bf16": 0,
+    "window_cross_attention_bwd_bf16": 0,
 }
 
 _P = ctypes.c_void_p
@@ -68,6 +70,10 @@ _SIGNATURES = {
     "casmtr_quadtree_fine_attention_bf16": [_P] * 6 + [_I] * 9 + [_F, _P],
     "casmtr_window_cross_attention_bf16": [_P] * 6 + [_I] * 9 + [_F, _P],
     "casmtr_quadtree_fine_topk_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
+    "casmtr_quadtree_fine_attention_bwd_bf16":
+        [_P] * 10 + [_I] * 9 + [_F, _P],
+    "casmtr_window_cross_attention_bwd_bf16":
+        [_P] * 10 + [_I] * 9 + [_F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -171,9 +177,10 @@ def clip_index(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
 
 
-# The element types of the attention kernels' q/k/v (kernels A, A′, C):
-# f32, and bf16 for the forward-only bf16 instances; the entry point's
-# suffix for each.
+# The element types of the attention kernels' q/k/v (kernels A, A′, C and
+# their backward kernels A-bwd and C-bwd): f32, and bf16 for the bf16
+# instances; the entry point's suffix for each.  Saved outputs, log-sum-exps,
+# cotangents and gradients are f32 in both.
 INPUT_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
@@ -216,16 +223,6 @@ def check_rows(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dtype
 
 
-def check_forward_only(name: str, dtype: torch.dtype, need_grad: bool
-                       ) -> None:
-    """The bf16 instances have no backward kernel: raise when a gradient
-    is requested through one (no silent f32 route)."""
-    if dtype == torch.bfloat16 and need_grad:
-        raise ValueError(f"{name}: a gradient was requested through the "
-                         "bf16 instance, which has no backward kernel; "
-                         "train with float32 q/k/v")
-
-
 def check_cuda(t: torch.Tensor, name: str, shape, dtype: torch.dtype,
                device: torch.device) -> None:
     """Raise ValueError unless ``t`` is a contiguous CUDA tensor of the given
@@ -256,3 +253,14 @@ def launch(fn_name: str, kernel: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t "
                            f"{err}")
     LAUNCHES[kernel] += 1
+
+
+def launch_instance(kernel: str, dtype: torch.dtype, device: torch.device,
+                    *args) -> None:
+    """``launch`` of the instance of ``kernel`` (A, A′, C, A-bwd or C-bwd)
+    for q/k/v of ``dtype``: the C launcher ``casmtr_<kernel>_<f32|bf16>``,
+    counted under ``kernel`` or ``<kernel>_bf16``."""
+    suffix = INPUT_DTYPES[dtype]
+    launch(f"casmtr_{kernel}_{suffix}",
+           kernel if dtype == torch.float32 else f"{kernel}_{suffix}",
+           device, *args)

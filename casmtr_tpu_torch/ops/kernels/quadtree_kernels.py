@@ -18,11 +18,12 @@ gradient is kernel A-bwd's, since the selection carries none).  Its plain
 version ``quadtree_fine_topk_plain`` is the whole gather path of
 ``_fine_level_b`` with ``need_topk``.
 
-q/k/v may be float32 or, on the bf16 eval path, bfloat16 (one dtype for
-all three).  bf16 CUDA tensors launch the bf16 instances of A and A′: f32
-arithmetic on the bf16 values, f32 message and scores, no backward (a
-gradient through them raises).  The plain versions widen bf16 inputs to
-f32 and compute as for f32 ones.
+q/k/v may be float32 or, on the bf16 eval path and in the bf16 training
+step, bfloat16 (one dtype for all three).  bf16 CUDA tensors launch the
+bf16 instances of A, A′ and A-bwd: f32 arithmetic on the bf16 values, f32
+message, scores, log-sum-exp and gradients; the autograd function rounds
+dq, dk and dv to the inputs' dtype, as the JAX package's backward does.
+The plain versions widen bf16 inputs to f32 and compute as for f32 ones.
 """
 
 from __future__ import annotations
@@ -130,12 +131,14 @@ def quadtree_fine_attention_bwd_plain(q, k, v, topk_idx_prev, out, lse, g,
     kernel computes them: probabilities recomputed from the forward's
     ``lse``, ``delta = rowsum(g * out)``, ``dS = P * (g.v - delta)``, dq from
     dS and the gathered keys, dk/dv summed over every occurrence of each key
-    row with ``index_add_``."""
+    row with ``index_add_``.  bf16 q/k/v are widened first; the gradients
+    are float32."""
     from casmtr_tpu_torch.ops.quadtree import block_children, unblock_children
     h0, w0 = hw_q
     B, Lk, H, D = k.shape
     K = topk_idx_prev.shape[2]
     scale = D ** -0.5
+    q, k, v = q.float(), k.float(), v.float()
     qb = block_children(q, h0, w0)                           # [B, P, 4, H, D]
     P = qb.shape[1]
     k_g, v_g, pos = _candidates(k, v, topk_idx_prev, hw_k)
@@ -194,8 +197,6 @@ def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool, topk: int = 0):
     q/k/v dtype.  Returns (out, lse, score, idx); lse is None without
     ``with_lse``, score and idx are None for kernel A."""
     dtype = _check(q, k, v, ids, hw_q, hw_k)
-    suffix = kernels.INPUT_DTYPES[dtype]
-    count = "" if dtype == torch.float32 else "_bf16"
     B, Lq, H, D = q.shape
     P, K = ids.shape[1:3]
     if not 0 <= topk <= 4 * K:
@@ -209,47 +210,45 @@ def _launch_fwd(q, k, v, ids, hw_q, hw_k, with_lse: bool, topk: int = 0):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), ids.data_ptr(),
             out.data_ptr(), lse_ptr)
     if not topk:
-        kernels.launch(f"casmtr_quadtree_fine_attention_{suffix}",
-                       "quadtree_fine_attention" + count, dev, *args, B, P,
-                       K, H, D, *hw_q, *hw_k, float(D ** -0.5))
+        kernels.launch_instance("quadtree_fine_attention", dtype, dev, *args,
+                                B, P, K, H, D, *hw_q, *hw_k,
+                                float(D ** -0.5))
         return out, lse, None, None
     score = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.float32)
     idx = torch.empty((B, Lq, topk, H), device=dev, dtype=torch.int32)
-    kernels.launch(f"casmtr_quadtree_fine_topk_{suffix}",
-                   "quadtree_fine_topk" + count, dev, *args, score.data_ptr(),
-                   idx.data_ptr(), B, P, K, H, D, *hw_q, *hw_k, topk,
-                   float(D ** -0.5))
+    kernels.launch_instance("quadtree_fine_topk", dtype, dev, *args,
+                            score.data_ptr(), idx.data_ptr(), B, P, K, H, D,
+                            *hw_q, *hw_k, topk, float(D ** -0.5))
     return out, lse, score, idx
 
 
 def _launch_bwd(q, k, v, ids, out, lse, g, hw_q, hw_k):
-    if _check(q, k, v, ids, hw_q, hw_k) != torch.float32:
-        raise ValueError("quadtree_fine_attention_bwd: kernel A-bwd takes "
-                         "float32 q/k/v only")
+    """Kernel A-bwd, the instance of the q/k/v dtype; float32 gradients."""
+    dtype = _check(q, k, v, ids, hw_q, hw_k)
     B, _, H, D = q.shape
     P, K = ids.shape[1:3]
     kernels.check_cuda(out, "out", (B, P, 4, H, D), torch.float32, q.device)
     kernels.check_cuda(lse, "lse", (B, P, 4, H), torch.float32, q.device)
     kernels.check_cuda(g, "grad_out", (B, P, 4, H, D), torch.float32,
                        q.device)
-    dq = torch.empty_like(q)
-    dk = torch.zeros_like(k)
-    dv = torch.zeros_like(v)
-    kernels.launch(
-        "casmtr_quadtree_fine_attention_bwd_f32",
-        "quadtree_fine_attention_bwd", q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), ids.data_ptr(), out.data_ptr(), lse.data_ptr(),
-        g.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, P, K, H,
-        D, *hw_q, *hw_k, float(D ** -0.5))
+    f32 = dict(dtype=torch.float32)
+    dq = torch.empty_like(q, **f32)
+    dk = torch.zeros_like(k, **f32)
+    dv = torch.zeros_like(v, **f32)
+    kernels.launch_instance(
+        "quadtree_fine_attention_bwd", dtype, q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), ids.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, P, K, H, D, *hw_q, *hw_k, float(D ** -0.5))
     return dq, dk, dv
 
 
 def quadtree_fine_attention_bwd(q, k, v, topk_idx_prev, out, lse, g,
                                 hw_q: Tuple[int, int], hw_k: Tuple[int, int]):
-    """Gradients (dq, dk, dv) of the fine-level message for its cotangent
-    ``g``, from the forward's output ``out`` and log-sum-exp ``lse`` (see
-    the plain version).  CPU tensors take the plain version; CUDA tensors
-    launch kernel A-bwd."""
+    """Gradients (dq, dk, dv; float32) of the fine-level message for its
+    cotangent ``g``, from the forward's output ``out`` and log-sum-exp
+    ``lse`` (see the plain version).  CPU tensors take the plain version;
+    CUDA tensors launch kernel A-bwd (its bf16 instance for bf16 q/k/v)."""
     if q.device.type == "cpu":
         return quadtree_fine_attention_bwd_plain(q, k, v, topk_idx_prev, out,
                                                  lse, g, hw_q, hw_k)
@@ -261,14 +260,12 @@ class QuadtreeFineAttention(torch.autograd.Function):
     also the top-k selection, whose score and index outputs are not
     differentiable); kernel A-bwd backward of the message in both cases.
     The forward writes the per-row log-sum-exp only when ``need_grad`` is
-    set.  CPU tensors take the plain versions instead (the tests use this to
-    check the function's plumbing without a card)."""
+    set; the backward returns dq, dk and dv in the inputs' dtype.  CPU
+    tensors take the plain versions instead (the tests use this to check
+    the function's plumbing without a card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, topk_idx_prev, hw_q, hw_k, need_grad, topk=0):
-        if q.device.type != "cpu":
-            kernels.check_forward_only("quadtree_fine_attention", q.dtype,
-                                       need_grad)
         if q.device.type == "cpu":
             if topk:
                 out, score, idx, lse = quadtree_fine_topk_plain(
@@ -292,7 +289,8 @@ class QuadtreeFineAttention(torch.autograd.Function):
         q, k, v, ids, out, lse = ctx.saved_tensors
         dq, dk, dv = quadtree_fine_attention_bwd(q, k, v, ids, out, lse,
                                                  g.contiguous(), *ctx.hw)
-        return dq, dk, dv, None, None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
 
 
 def quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
@@ -302,8 +300,7 @@ def quadtree_fine_attention(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
     CPU tensors take the plain version under ordinary autograd; CUDA
     tensors (f32 or bf16 q/k/v, int32 ids, all contiguous) go through
     ``QuadtreeFineAttention``: kernel A, and kernel A-bwd for the gradient
-    (f32 only: a gradient through bf16 q/k/v raises).  Anything else
-    raises."""
+    (the instances of the q/k/v dtype).  Anything else raises."""
     if q.device.type == "cpu":
         return quadtree_fine_attention_plain(q, k, v, topk_idx_prev, hw_q,
                                              hw_k)
@@ -324,7 +321,7 @@ def quadtree_fine_topk(q, k, v, topk_idx_prev, hw_q: Tuple[int, int],
     CPU tensors take the plain version (the message under autograd, the
     score detached); CUDA tensors go through ``QuadtreeFineAttention`` with
     ``topk``: kernel A′ (f32 or bf16 q/k/v), and kernel A-bwd for the
-    message's gradient (f32 only).  Anything else raises."""
+    message's gradient (the same dtype).  Anything else raises."""
     if q.device.type == "cpu":
         msg, score, idx = quadtree_fine_topk_plain(q, k, v, topk_idx_prev,
                                                    hw_q, hw_k, topk)

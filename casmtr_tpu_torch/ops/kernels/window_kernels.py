@@ -13,10 +13,12 @@ scatter rule instead (``scatter_index``).
 Each wrapper runs its plain version for CPU tensors (ordinary autograd
 differentiates it), goes through its autograd function for CUDA tensors
 (the forward kernel, and the backward kernel for the gradient), and raises
-for any other device.  Kernel C also takes bfloat16 q/k/v (the bf16 eval
-path): f32 arithmetic on the bf16 values, an f32 message, no backward (a
-gradient through it raises); its plain version widens them to f32.  B and
-B-bwd take float32 only, as the JAX package feeds kernel B.
+for any other device.  Kernels C and C-bwd also take bfloat16 q/k/v (the
+bf16 eval path and the bf16 training step): f32 arithmetic on the bf16
+values, an f32 message, log-sum-exp and gradients; the autograd function
+rounds dq, dk and dv to the inputs' dtype, as the JAX package's backward
+does.  The plain versions widen bf16 inputs to f32.  B and B-bwd take
+float32 only, as the JAX package feeds kernel B.
 """
 
 from __future__ import annotations
@@ -207,12 +209,14 @@ def window_cross_attention_bwd_plain(q, k, v, corners, out, lse, g,
     kernel C-bwd computes them: probabilities recomputed from the forward's
     ``lse``, ``delta = rowsum(g * out)``, ``dS = P * (g.v - delta)``, dq from
     dS and the gathered keys, dk/dv summed over every occurrence of each key
-    row with ``index_add_``."""
+    row with ``index_add_``.  bf16 q/k/v are widened first; the gradients
+    are float32."""
     from casmtr_tpu_torch.ops.quadtree import block_children, unblock_children
     h0, w0 = hw_q
     h1, w1 = hw_k
     B, Lk, H, D = k.shape
     scale = D ** -0.5
+    q, k, v = q.float(), k.float(), v.float()
     idx = kernels.clip_index(_expand_corner_indices(corners, w, w1), h1 * w1)
     bi = torch.arange(B, device=q.device)[:, None, None]
     k_g = k[bi, idx]                                     # [B, P, C, H, D]
@@ -261,44 +265,40 @@ def _launch_wca_fwd(q, k, v, corners, hw_q, hw_k, w: int, with_lse: bool):
     out = torch.empty((B, P, 4, H, D), device=q.device, dtype=torch.float32)
     lse = (torch.empty((B, P, 4, H), device=q.device, dtype=torch.float32)
            if with_lse else None)
-    kernels.launch(
-        f"casmtr_window_cross_attention_{kernels.INPUT_DTYPES[dtype]}",
-        "window_cross_attention"
-        + ("" if dtype == torch.float32 else "_bf16"), q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        corners.data_ptr(), out.data_ptr(),
+    kernels.launch_instance(
+        "window_cross_attention", dtype, q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), corners.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), B, P, H, D, *hw_q, *hw_k, w,
         float(D ** -0.5))
     return out, lse
 
 
 def _launch_wca_bwd(q, k, v, corners, out, lse, g, hw_q, hw_k, w: int):
+    """Kernel C-bwd, the instance of the q/k/v dtype; float32 gradients."""
     B, P, H, D, dtype = _check_wca(q, k, v, corners, hw_q, hw_k, w)
-    if dtype != torch.float32:
-        raise ValueError("window_cross_attention_bwd: kernel C-bwd takes "
-                         "float32 q/k/v only")
     kernels.check_cuda(out, "out", (B, P, 4, H, D), torch.float32, q.device)
     kernels.check_cuda(lse, "lse", (B, P, 4, H), torch.float32, q.device)
     kernels.check_cuda(g, "grad_out", (B, P, 4, H, D), torch.float32,
                        q.device)
-    dq = torch.empty_like(q)
-    dk = torch.zeros_like(k)
-    dv = torch.zeros_like(v)
-    kernels.launch(
-        "casmtr_window_cross_attention_bwd_f32", "window_cross_attention_bwd",
-        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        corners.data_ptr(), out.data_ptr(), lse.data_ptr(), g.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, P, H, D, *hw_q,
-        *hw_k, w, float(D ** -0.5))
+    f32 = dict(dtype=torch.float32)
+    dq = torch.empty_like(q, **f32)
+    dk = torch.zeros_like(k, **f32)
+    dv = torch.zeros_like(v, **f32)
+    kernels.launch_instance(
+        "window_cross_attention_bwd", dtype, q.device, q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), corners.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), g.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), B, P, H, D, *hw_q, *hw_k, w, float(D ** -0.5))
     return dq, dk, dv
 
 
 def window_cross_attention_bwd(q, k, v, corners, out, lse, g,
                                hw_q: Tuple[int, int], hw_k: Tuple[int, int],
                                w: int):
-    """Gradients (dq, dk, dv) of the window cross-attention for its
-    cotangent ``g``, from the forward's output ``out`` and log-sum-exp
+    """Gradients (dq, dk, dv; float32) of the window cross-attention for
+    its cotangent ``g``, from the forward's output ``out`` and log-sum-exp
     ``lse`` (see the plain version).  CPU tensors take the plain version;
-    CUDA tensors launch kernel C-bwd."""
+    CUDA tensors launch kernel C-bwd (its bf16 instance for bf16 q/k/v)."""
     if q.device.type == "cpu":
         return window_cross_attention_bwd_plain(q, k, v, corners, out, lse, g,
                                                 hw_q, hw_k, w)
@@ -307,15 +307,13 @@ def window_cross_attention_bwd(q, k, v, corners, out, lse, g,
 
 class WindowCrossAttention(torch.autograd.Function):
     """Kernel C forward, kernel C-bwd backward.  The forward writes the
-    per-row log-sum-exp only when ``need_grad`` is set.  CPU tensors take
-    the two plain versions instead (the tests use this to check the
-    function's plumbing without a card)."""
+    per-row log-sum-exp only when ``need_grad`` is set; the backward returns
+    dq, dk and dv in the inputs' dtype.  CPU tensors take the two plain
+    versions instead (the tests use this to check the function's plumbing
+    without a card)."""
 
     @staticmethod
     def forward(ctx, q, k, v, corners, hw_q, hw_k, w, need_grad):
-        if q.device.type != "cpu":
-            kernels.check_forward_only("window_cross_attention", q.dtype,
-                                       need_grad)
         if q.device.type == "cpu":
             out, lse = window_cross_attention_plain(q, k, v, corners, hw_q,
                                                     hw_k, w, True)
@@ -332,7 +330,8 @@ class WindowCrossAttention(torch.autograd.Function):
         q, k, v, corners, out, lse = ctx.saved_tensors
         dq, dk, dv = window_cross_attention_bwd(q, k, v, corners, out, lse,
                                                 g.contiguous(), *ctx.args)
-        return dq, dk, dv, None, None, None, None, None
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None, None)
 
 
 def window_cross_attention(q, k, v, corners, hw_q: Tuple[int, int],
@@ -341,8 +340,7 @@ def window_cross_attention(q, k, v, corners, hw_q: Tuple[int, int],
     CPU tensors take the plain version under ordinary autograd; CUDA tensors
     (f32 or bf16 q/k/v, int32 corners, all contiguous) go through
     ``WindowCrossAttention``: kernel C, and kernel C-bwd for the gradient
-    (f32 only: a gradient through bf16 q/k/v raises).  Anything else
-    raises."""
+    (the instances of the q/k/v dtype).  Anything else raises."""
     if q.device.type == "cpu":
         return window_cross_attention_plain(q, k, v, corners, hw_q, hw_k, w)
     need_grad = torch.is_grad_enabled() and any(

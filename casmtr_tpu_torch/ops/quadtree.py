@@ -16,10 +16,11 @@ package (its callers use only the selected indices).  The cascade window
 cross-attention goes through CUDA kernels C and C-bwd
 (ops/kernels/window_kernels.py).
 
-q/k/v may be bfloat16 (the bf16 eval path's gather tables): every
-contraction then runs in float32 on the bf16 values, as the JAX package's
-``preferred_element_type=float32`` does, so no score, probability or
-message is rounded to bf16, and every message is float32.
+q/k/v may be bfloat16 (the gather tables of the bf16 eval path and of the
+bf16 training step): every contraction then runs in float32 on the bf16
+values, as the JAX package's ``preferred_element_type=float32`` does, so
+no score, probability or message is rounded to bf16, and every message is
+float32; in training the gradients flow back through the cast to bf16.
 """
 
 from __future__ import annotations

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from casmtr_tpu_torch.config import Config
+from casmtr_tpu_torch.config import Config, LoftrConfig
 from casmtr_tpu_torch.models.loftr import level_mask
 from casmtr_tpu_torch.serving import resolve_device
 from casmtr_tpu_torch.train import supervision as spv
@@ -36,12 +36,17 @@ class TrainState:
 
 
 def _set_precision(dev: torch.device) -> None:
-    """The step computes in float32 (the precision policy's training
-    default), so on the card TF32 is turned off for matrix products and
-    cuDNN convolutions, and bf16 products forced by the environment keep
-    float32 sums.  cuDNN's autotuner is turned on: every step has the same
-    shapes, and its heuristic once chose a 300 ms FFT algorithm for an FPN
-    conv (see serving.Matcher).  All four are process-wide PyTorch flags."""
+    """The precision of the step follows the policy (models/casmtr.py): on
+    the card the backbone computes in bfloat16 and kernels A, A′, C and
+    their backward kernels take bf16 q/k/v, while the coarse, cascade and
+    fine stacks, the matching heads and the loss compute in float32; with
+    ``CASMTR_BACKBONE_BF16=0 CASMTR_TRANSFORMER_BF16=0`` the whole step is
+    float32; on the CPU it is float32 unless a variable forces bf16.  So on
+    the card TF32 is turned off for matrix products and cuDNN convolutions
+    (float32 work is full float32), and bf16 products keep float32 sums.
+    cuDNN's autotuner is turned on: every step has the same shapes, and its
+    heuristic once chose a 300 ms FFT algorithm for an FPN conv (see
+    serving.Matcher).  All four are process-wide PyTorch flags."""
     if dev.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cuda.matmul.\
@@ -72,6 +77,42 @@ def _to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
+def prepare_batch(batch: Dict, lcfg: LoftrConfig, dev: torch.device
+                  ) -> Tuple[Dict[str, torch.Tensor], Dict]:
+    """``batch`` on ``dev`` with each cascade level's ground truth
+    (gt_idx_{level}c, gt_mask_{level}c) added, and the supervision."""
+    batch = _to_device(batch, dev)
+    gt = spv.compute_supervision(batch, lcfg)
+    if lcfg.cascade:
+        for level in lcfg.cascade_levels:
+            batch[f"gt_idx_{level}c"] = gt[f"gt_idx_{level}c"]
+            batch[f"gt_mask_{level}c"] = gt[f"gt_mask_{level}c"]
+    return batch, gt
+
+
+def forward_loss(model: nn.Module, batch: Dict[str, torch.Tensor], gt: Dict,
+                 lcfg: LoftrConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The forward of ``model`` (in its current mode) on a batch from
+    ``prepare_batch`` and the loss: (total, its named terms with each
+    cascade level's valid_n_{level})."""
+    out = model(batch)
+    expec_gt = None
+    if out.fine is not None:
+        last = (list(out.cascades.values())[-1] if out.cascades
+                else out.coarse)
+        expec_gt = spv.fine_expec_gt(gt, last.matches, batch, lcfg)
+    c_weight = None
+    if "mask0" in batch:
+        m0, _ = level_mask(batch["mask0"], *out.coarse.hw0)
+        m1, _ = level_mask(batch["mask1"], *out.coarse.hw1)
+        c_weight = m0[:, :, None] * m1[:, None, :]
+    loss, scalars = casmtr_loss(out, gt, expec_gt, lcfg, c_weight=c_weight)
+    for lvl, stage in out.cascades.items():
+        scalars[f"valid_n_{lvl}"] = stage.matches.valid.sum()
+    return loss, scalars
+
+
 def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
                     ) -> Callable:
     """Returns step_fn(state, batch) -> (state, scalars), scalars being the
@@ -86,37 +127,14 @@ def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
     _set_precision(dev)
     lcfg = cfg.loftr
 
-    def loss_fn(batch, gt):
-        out = model(batch)
-        expec_gt = None
-        if out.fine is not None:
-            last = (list(out.cascades.values())[-1] if out.cascades
-                    else out.coarse)
-            expec_gt = spv.fine_expec_gt(gt, last.matches, batch, lcfg)
-        c_weight = None
-        if "mask0" in batch:
-            m0, _ = level_mask(batch["mask0"], *out.coarse.hw0)
-            m1, _ = level_mask(batch["mask1"], *out.coarse.hw1)
-            c_weight = m0[:, :, None] * m1[:, None, :]
-        loss, scalars = casmtr_loss(out, gt, expec_gt, lcfg,
-                                    c_weight=c_weight)
-        for lvl, stage in out.cascades.items():
-            scalars[f"valid_n_{lvl}"] = stage.matches.valid.sum()
-        return loss, scalars
-
     def step_fn(state: TrainState, batch: Dict):
-        batch = _to_device(batch, dev)
-        gt = spv.compute_supervision(batch, lcfg)
-        if lcfg.cascade:
-            for level in lcfg.cascade_levels:
-                batch[f"gt_idx_{level}c"] = gt[f"gt_idx_{level}c"]
-                batch[f"gt_mask_{level}c"] = gt[f"gt_mask_{level}c"]
+        batch, gt = prepare_batch(batch, lcfg, dev)
         params = dict(model.named_parameters())
         # the forward moves the BatchNorm statistics; a skipped step restores
         stats = [b.clone() for b in model.buffers()]
         model.train()
         model.zero_grad(set_to_none=True)
-        loss, scalars = loss_fn(batch, gt)
+        loss, scalars = forward_loss(model, batch, gt, lcfg)
         loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}

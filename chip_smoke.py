@@ -5,8 +5,10 @@ Run from the root of the repository with no arguments:
 
     python3 chip_smoke.py
 
-It drives both ported recipes, outdoor_casmtr_4c and outdoor_casmtr_2c, at
-full width.  Phases, each printing its own lines and its seconds:
+It drives both ported recipes, outdoor_casmtr_4c and outdoor_casmtr_2c, and
+the flagship's ResNetFPN variant of 4c (RESNET: the backbone of
+__graft_entry__._flagship_cfg(backbone="resnet")), at full width.  Phases,
+each printing its own lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
@@ -37,9 +39,10 @@ full width.  Phases, each printing its own lines and its seconds:
    above), the yardstick SDPA on the bf16 windows and the bound's
    multiply-adds at the bf16 tensor-core rate; every bf16 instance of A
    and A′ (QUADTREE_BF16_CASES) and of C (WINDOW_BF16_CASES: other H and D,
-   inputs 4 bytes off, edge corners, w = 1, a batch of two); and the
-   refusals: an odd width, inputs 2 bytes off and a gradient through a
-   bf16 instance raise before any launch.
+   inputs 4 bytes off, edge corners, w = 1, a batch of two), each case also
+   through the bf16 instances of A-bwd and C-bwd (below); and the
+   refusals: an odd width and inputs 2 bytes off raise before any launch
+   in A, A′, C, A-bwd and C-bwd.
 3. Training kernels: the same at the shapes of the 704^2 training step for
    the forward kernels with their log-sum-exp output and for the three
    backward kernels (A-bwd at 88^2 and 44^2; B, B-bwd, C and C-bwd at 176^2
@@ -55,10 +58,20 @@ full width.  Phases, each printing its own lines and its seconds:
    and the scatter rule, a batch of two) and A, A′ and A-bwd through their public wrappers and
    launchers (QUADTREE_CASES: other H and D, misaligned inputs, K = 1,
    n_topk 1 and 4K, repeated ids, ids outside the block grid, a batch of
-   two).  Then each autograd
-   function on the card at a tiny shape: its kernel gradient against a
-   central finite difference of its kernel forward along a random
-   direction (float32 forward, so within 1e-2 relative).
+   two).  Then the bf16 instances of A-bwd (88^2, 44^2) and C-bwd (176^2
+   H=4, 352^2 H=2) on inputs rounded to bf16, against their plain versions
+   on the same bf16 values (f32 outputs; dq within 1e-4, dk and dv within
+   1e-4 x max(1, max |plain|)), the bound's multiply-adds at the bf16
+   tensor-core rate, the yardstick the backward of SDPA on the bf16
+   windows; on every QUADTREE_BF16_CASES / WINDOW_BF16_CASES case the bf16
+   A-bwd / C-bwd against their plain versions as above, and the gradients
+   of the public wrappers through the bf16 instances (rounded to bf16)
+   against the f32 instances' on the widened values, within (2^-8 + 1e-4)
+   x max(1, max |f32 gradient|) (a finite difference in bf16 says
+   nothing).  Then each autograd function on the card at a tiny shape: its
+   kernel gradient against a central finite difference of its kernel
+   forward along a random direction (float32 forward, so within 1e-2
+   relative).
 4. Serving: Matcher(recipe, bucket=832) at full width on the card with
    seeded random weights answers three requests (textured images and
    shifted copies, one non-square), for 4c and then 2c, first in the
@@ -69,7 +82,8 @@ full width.  Phases, each printing its own lines and its seconds:
    the recipe's count per pair: in bf16 the bf16 instances A 12, A′ 12, C 4
    (4c) or 8 (2c) and no f32 A, A′ or C; in float32 the f32 ones and no
    bf16 instance; B (float32 in both) 2 or 4.  Steady latency and peak
-   memory per precision.
+   memory per precision.  The ResNetFPN variant answers the same requests
+   in the card's default, with 4c's counts.
 5. Profile: one more steady request of each recipe in each precision under
    torch.profiler (device busy share, device time by operator and by
    kernel).
@@ -81,18 +95,32 @@ full width.  Phases, each printing its own lines and its seconds:
    CPU graph): at every stage, common confidences within max(5e-2, 1.5x)
    and, at stages of 20 matches or more, Jaccard at least min(0.9, its) -
    0.1, of the CPU's own bf16-against-f32 difference.
-7. Training: train_step on each recipe at 704^2, batch 1, full width and
-   depth, seeded random weights, in float32 (the policy's training
-   default; no bf16 instance may launch), on a pair whose image1 is a
-   shifted crop of image0 with the matching camera translation.  One
-   warm-up step and 4 timed steps, each with the launch counts zeroed just before and read
-   just after; finite losses, matches to supervise at every cascade level,
-   parameters that moved, nonzero finite gradients on the q/k/v
+7. Training: train_step on each recipe and the ResNetFPN variant at
+   704^2, batch 1, full width and depth, seeded random weights, on a pair
+   whose image1 is a shifted crop of image0 with the matching camera
+   translation, first in the card's default (bf16 backbone and kernel
+   inputs, float32 stacks: per step the bf16 instances A 12, A′ 12, A-bwd
+   24, C 4 and C-bwd 4 per cascade level, no f32 A, A′, A-bwd, C or C-bwd)
+   and then with float32 forced (the f32 instances, no bf16 one); B and
+   B-bwd (float32 in both) 2 and 1 per cascade level.  One warm-up step
+   and 4 timed steps, each with the launch counts zeroed just before and
+   read just after; finite losses, matches to supervise at every cascade
+   level, parameters that moved, nonzero finite gradients on the q/k/v
    projections that go through kernels A, A′ and C.  Then one more step
-   under torch.profiler.
-8. Training reference: one step of each full-width recipe at 256^2 on the
-   card and on the CPU from the same weights and batch: loss within 1e-4
-   relative, cosine of the whole flattened gradients >= 0.999.
+   under torch.profiler, per precision.
+8. Training reference: one step at 256^2 on the card and on the CPU from
+   the same weights and batch.  With float32 forced on both (each recipe
+   and the ResNetFPN variant): loss within 1e-4 relative, cosine of the
+   whole flattened gradients >= 0.999; a loss term may differ by up to 10x
+   its largest response on the CPU to two nudges of the images by 1e-6
+   relative, where that is larger (a random model's discrete choices, the
+   quadtree's top-k and the supervised matches at the threshold 1/Kw, can
+   flip under float32 rounding).  For each
+   recipe also the card's bf16 default against the CPU with
+   CASMTR_BACKBONE_BF16=1 (bf16 backbone, f32 kernel inputs): each loss
+   term within max(2e-2, 4x the CPU's own bf16-backbone-against-f32
+   relative difference of that term), 1 - gradient cosine within
+   max(1e-3, 4x the CPU's own).
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -130,10 +158,48 @@ BF16_NOISE = 1.5
 BF16_MIN_MATCHES = 20
 LIBRARY_BF16_TOL = 2e-2  # SDPA on bf16 windows rounds P and its output to
                          # bf16: its check against the f32 plain message
+BF16_GRAD_TOL = 2.0 ** -8  # a bf16 autograd function's gradients (rounded
+                           # to bf16) against the f32 kernel's on the
+                           # widened values, of the largest gradient
 FD_EPS = 1e-3       # finite-difference step along a unit-variance direction
 FD_TOL = 1e-2       # relative: the kernels' float32 outputs round at 1e-7
-TRAIN_LOSS_RTOL = 1e-4   # one training step, card vs CPU
-MIN_GRAD_COS = 0.999     # whole flattened gradient, card vs CPU
+TRAIN_LOSS_RTOL = 1e-4   # one training step, card vs CPU: each loss term
+MIN_GRAD_COS = 0.999     # flattened gradients, card vs CPU
+# The gradient of loss_8c on the kernel-path q/k/v projections of the 1/8
+# stack (coarse_gradient): the gradients of kernel A-bwd (through A and
+# A′), reached by no later stage's discrete choices; in f32 its cosine >=
+# MIN_GRAD_COS.  Each cascade stack (kernels C and C-bwd) alone on the
+# inputs it took in the CPU's f32 step, with a seeded cotangent of its
+# outputs (cascade_stack_reference): no discrete choice inside.  In f32,
+# card vs CPU, outputs within BACKBONE_RTOL of their largest value and the
+# q/k/v gradients' cosine >= MIN_GRAD_COS; the card's bf16 q/k/v against
+# the CPU's f32 ones (the CPU has no bf16 tables), outputs within
+# BF16_STACK_RTOL by RMS (one bf16 rounding of every value) and the same
+# cosine bound.
+BF16_STACK_RTOL = 2.0 ** -8
+# The ResNetFPN variant's step at 256^2 with random weights is held at its
+# backbone: its quadtree's top-k picks in the 1/8 stack flip under a nudge
+# of NUDGE of its images (the CPU's response is printed), so its whole step
+# is printed, not gated.  The backbone in train mode in f32, card vs CPU:
+# maps (of their largest value), running statistics and the maps' product
+# with a seeded cotangent within BACKBONE_RTOL, gradient cosine >=
+# MIN_GRAD_COS (the worst per-leaf error is printed, not gated: a
+# BatchNorm bias's gradient under a random cotangent is a sum that largely
+# cancels, so its relative error follows the summation order).
+NUDGE = 1e-6
+BACKBONE_RTOL = 1e-4
+# the card's bf16 training default against the CPU with a bf16 backbone,
+# held to the CPU's own bf16-against-f32 difference: each loss term within
+# max(BF16_LOSS_RTOL, BF16_TRAIN_NOISE x its relative difference), and
+# 1 - gradient cosine (whole, and coarse_gradient's) within max(1 -
+# MIN_GRAD_COS, BF16_TRAIN_NOISE x its 1 - cosine); the variant's backbone
+# (maps by RMS, running statistics, the cotangent product, 1 - cosine)
+# within BF16_TRAIN_NOISE x the CPU's own.  Two roundings (the card's bf16
+# kernel inputs and backbone against the CPU's backbone) each of the CPU's
+# own scale, times 2 for a scale read from one sample; the floor is a
+# cascade loss's move when one of its ~50 supervised matches flips at 256^2
+BF16_TRAIN_NOISE = 4.0
+BF16_LOSS_RTOL = 2e-2
 REFERENCE_S_PER_STEP = 1.19  # the reference's own 4c GPU step (fp16), bench.py
 
 HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than the
@@ -148,6 +214,13 @@ PEAK_BF16_FLOPS = 989e12
 PRECISION_ENV = ("CASMTR_BACKBONE_BF16", "CASMTR_TRANSFORMER_BF16")
 
 RECIPES = ("outdoor_casmtr_4c", "outdoor_casmtr_2c")
+# the flagship's ResNetFPN variant: outdoor_casmtr_4c with the backbone of
+# __graft_entry__._flagship_cfg(backbone="resnet")
+RESNET = "outdoor_casmtr_4c ResNetFPN"
+MODELS = {r: (r, {}) for r in RECIPES}
+MODELS[RESNET] = ("outdoor_casmtr_4c", {"loftr": {"backbone": {
+    "backbone_type": "ResNetFPN", "initial_dim": 64,
+    "block_dims": [64, 128, 256]}}})
 TPU_KERNELS = {
     "quadtree_fine_attention":
         "casmtr_tpu/ops/pallas/quadtree_kernels.py:118",
@@ -162,10 +235,12 @@ TPU_KERNELS = {
     "window_cross_attention_bwd":
         "casmtr_tpu/ops/pallas/window_kernels.py:356",
 }
-# the bf16-input instances of A, A′ and C (the bf16 eval path), counted and
-# listed apart: the same TPU kernels fed bf16 q/k/v
+# the bf16-input instances of A, A′, C (the bf16 eval path and the bf16
+# training step) and of A-bwd and C-bwd (the bf16 training step), counted
+# and listed apart: the same TPU kernels fed bf16 q/k/v
 BF16_KERNELS = ("quadtree_fine_attention", "quadtree_fine_topk",
-                "window_cross_attention")
+                "window_cross_attention", "quadtree_fine_attention_bwd",
+                "window_cross_attention_bwd")
 for _name in BF16_KERNELS:
     TPU_KERNELS[_name + "_bf16"] = TPU_KERNELS[_name]
 SOURCES = {
@@ -183,6 +258,15 @@ for _name in BF16_KERNELS:
     SOURCES[_name + "_bf16"] = SOURCES[_name]
 
 
+def _typed(counts, bf16):
+    """``counts`` of the kernels with bf16 instances, on their bf16
+    instances (``bf16``) or on their f32 ones, the others at 0."""
+    out = {}
+    for k, v in counts.items():
+        out[k], out[k + "_bf16"] = (0, v) if bf16 else (v, 0)
+    return out
+
+
 def per_pair(n_levels, bf16):
     """Launches per image pair on the eval path (no backward): 6 quadtree
     layers x 2 images, each running A′ at the intermediate and A at the
@@ -190,36 +274,37 @@ def per_pair(n_levels, bf16):
     cross layers x 2 images.  With ``bf16`` (the card's eval default) A, A′
     and C are their bf16 instances and their f32 instances launch 0 times;
     B stays f32."""
-    a, c = {"quadtree_fine_attention": 12, "quadtree_fine_topk": 12}, {
-        "window_cross_attention": 4 * n_levels}
-    zero = {k: 0 for k in (*a, *c)}
-    out = {"window_patch_score": 2 * n_levels,
-           "quadtree_fine_attention_bwd": 0, "window_patch_score_bwd": 0,
-           "window_cross_attention_bwd": 0}
-    if bf16:
-        out.update(zero, **{k + "_bf16": v for k, v in {**a, **c}.items()})
-    else:
-        out.update(a, **c, **{k + "_bf16": 0 for k in zero})
-    return out
+    return dict(_typed({"quadtree_fine_attention": 12,
+                        "quadtree_fine_topk": 12,
+                        "window_cross_attention": 4 * n_levels,
+                        "quadtree_fine_attention_bwd": 0,
+                        "window_cross_attention_bwd": 0}, bf16),
+                window_patch_score=2 * n_levels, window_patch_score_bwd=0)
 
 
-def per_step(n_levels):
-    """Launches per training step (float32, no rematerialization): the
-    forward's, and one backward for each forward whose inputs need a
-    gradient -- all but the detached 1->0 window scores; A and A′ share
-    A-bwd.  No bf16 instance."""
-    return dict(per_pair(n_levels, False), quadtree_fine_attention_bwd=24,
-                window_patch_score_bwd=n_levels,
-                window_cross_attention_bwd=4 * n_levels)
+def per_step(n_levels, bf16):
+    """Launches per training step (no rematerialization): the forward's,
+    and one backward for each forward whose inputs need a gradient -- all
+    but the detached 1->0 window scores; A and A′ share A-bwd.  With
+    ``bf16`` (the card's training default) A, A′, A-bwd, C and C-bwd are
+    their bf16 instances and their f32 instances launch 0 times; B and B-bwd
+    stay f32."""
+    return dict(per_pair(n_levels, bf16), **_typed(
+        {"quadtree_fine_attention_bwd": 24,
+         "window_cross_attention_bwd": 4 * n_levels}, bf16),
+        window_patch_score_bwd=n_levels)
 
 
-# per pair on the card's eval default (bf16), and with float32 forced
-LAUNCHES_PER_PAIR = {"outdoor_casmtr_4c": per_pair(1, True),
-                     "outdoor_casmtr_2c": per_pair(2, True)}
-LAUNCHES_PER_PAIR_F32 = {"outdoor_casmtr_4c": per_pair(1, False),
-                         "outdoor_casmtr_2c": per_pair(2, False)}
-LAUNCHES_PER_TRAIN_STEP = {"outdoor_casmtr_4c": per_step(1),
-                           "outdoor_casmtr_2c": per_step(2)}
+def n_levels(model):
+    return 2 if MODELS[model][0].endswith("2c") else 1
+
+
+# per pair or step in the card's default (bf16), and with float32 forced
+LAUNCHES_PER_PAIR = {m: per_pair(n_levels(m), True) for m in MODELS}
+LAUNCHES_PER_PAIR_F32 = {m: per_pair(n_levels(m), False) for m in MODELS}
+LAUNCHES_PER_TRAIN_STEP = {m: per_step(n_levels(m), True) for m in MODELS}
+LAUNCHES_PER_TRAIN_STEP_F32 = {m: per_step(n_levels(m), False)
+                               for m in MODELS}
 TRAIN_SIZE = 704
 TRAIN_SHIFT = (16, 24)   # (dy, dx) pixels from image0 to image1
 # The library yardstick of each row: one PyTorch call on inputs gathered
@@ -249,8 +334,10 @@ LIBRARY_NOTES = {
 LIBRARY_NOTES["window_cross_attention_bwd"] = \
     LIBRARY_NOTES["quadtree_fine_attention_bwd"]
 for _name in BF16_KERNELS:
-    LIBRARY_NOTES[_name + "_bf16"] = LIBRARY_NOTES[_name].replace(
-        "over the candidate", "on bf16, over the bf16 candidate")
+    LIBRARY_NOTES[_name + "_bf16"] = (
+        LIBRARY_NOTES[_name] + "; on bf16 inputs and a bf16 cotangent"
+        if _name.endswith("_bwd") else LIBRARY_NOTES[_name].replace(
+            "over the candidate", "on bf16, over the bf16 candidate"))
 LSE_NOTE = "; the message only: the public call returns no log-sum-exp"
 
 
@@ -451,7 +538,8 @@ def window_library(torch, q, k, v, corners, hw, w, with_grad):
     qb = heads_first(block_children(q, *hw))
     want = heads_first(wk.window_cross_attention_plain(q, k, v, corners, hw,
                                                        hw, w))
-    g = (torch.randn(qb.shape, device=q.device) if with_grad else None)
+    g = (torch.randn(qb.shape, device=q.device, dtype=qb.dtype)
+         if with_grad else None)
     return sdpa_library(torch, qb, k_g, v_g, want, g)
 
 
@@ -472,7 +560,8 @@ def quadtree_library(torch, q, k, v, ids, hw, with_grad):
 
     qb = queries(block_children(q, *hw)).contiguous()
     want = queries(qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw))
-    g = (torch.randn(qb.shape, device=q.device) if with_grad else None)
+    g = (torch.randn(qb.shape, device=q.device, dtype=qb.dtype)
+         if with_grad else None)
     return sdpa_library(torch, qb, rows(k_g).contiguous(),
                         rows(v_g).contiguous(), want, g)
 
@@ -984,11 +1073,36 @@ def block_ids(torch, gen, B, n_blk, K, H, kind):
     return ids.to(torch.int32).contiguous()
 
 
+def bf16_grad_errors(torch, fn, qkv, g):
+    """A bf16 autograd function's gradients against the f32 kernel's: the
+    gradients of sum(fn(q, k, v) * g) through the bf16 instances (rounded
+    to bf16 on return) and through the f32 instances on the widened
+    values, and their errors {name: (err, tol)}, the tolerance
+    (BF16_GRAD_TOL + KERNEL_TOL) x max(1, max |f32 gradient|): one bf16
+    rounding of each gradient and the f32 kernels' atomics order."""
+    grads = {}
+    for dt in (torch.bfloat16, torch.float32):
+        xs = [t.detach().to(dt).requires_grad_(True) for t in qkv]
+        (fn(*xs) * g).sum().backward()
+        grads[dt] = [x.grad for x in xs]
+    errs = {}
+    for n, a, b in zip(("dq", "dk", "dv"), grads[torch.bfloat16],
+                       grads[torch.float32]):
+        check(a.dtype == torch.bfloat16 and b.dtype == torch.float32,
+              f"bf16 gradient {n}: dtypes {a.dtype}, {b.dtype}")
+        errs[f"autograd {n}"] = (
+            float((a.float() - b).abs().max()),
+            (BF16_GRAD_TOL + KERNEL_TOL) * max(1.0, float(b.abs().max())))
+    return errs
+
+
 def quadtree_bf16_cases_check(torch):
     """The bf16 instances of A (public wrapper, and with its log-sum-exp
-    through the launcher) and A′ (public wrapper) on QUADTREE_BF16_CASES,
-    against the plain versions on the same bf16 inputs (f32 arithmetic on
-    the bf16 values); A′'s selection as in phase 2."""
+    through the launcher), A′ (public wrapper) and A-bwd (wrapper) on
+    QUADTREE_BF16_CASES, against the plain versions on the same bf16
+    inputs (f32 arithmetic on the bf16 values); A′'s selection as in phase
+    2; then the gradients of A's and A′'s public wrappers through the bf16
+    instances against the f32 instances' on the widened values."""
     from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
     gen = torch.Generator(device="cuda").manual_seed(7)
     for B, H, D, hw, K, kind, topk, offset in QUADTREE_BF16_CASES:
@@ -996,17 +1110,31 @@ def quadtree_bf16_cases_check(torch):
         q, k, v = (offset_randn(torch, gen, offset, (B, L, H, D),
                                 torch.bfloat16) for _ in range(3))
         ids = block_ids(torch, gen, B, n_blk, K, H, kind)
-        out, lse = qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw,
-                                                     with_lse=True)
+        out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
+            q, k, v, ids, hw, hw, with_lse=True))
+        g = torch.randn(out.shape, generator=gen, device="cuda")
         got = ((qk_.quadtree_fine_attention(q, k, v, ids, hw, hw),)
                + qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2])
         msg, score, idx = qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, topk)
         p_msg, p_score, p_idx = qk_.quadtree_fine_topk_plain(
             q, k, v, ids, hw, hw, min(topk + 1, 4 * K))
+        d_got = qk_.quadtree_fine_attention_bwd(q, k, v, ids, out, lse, g,
+                                                hw, hw)
+        d_want = qk_.quadtree_fine_attention_bwd_plain(q, k, v, ids, out,
+                                                       lse, g, hw, hw)
         torch.cuda.synchronize()
-        errs = {n: float((a - b).abs().max()) for n, a, b in zip(
+        errs = {n: (float((a - b).abs().max()), KERNEL_TOL) for n, a, b in zip(
             ("message", "message with LSE", "lse", "A′ message"),
             got + (msg,), (out, out, lse, p_msg))}
+        for n, a, b in zip(("dq", "dk", "dv"), d_got, d_want):
+            errs[n] = (float((a - b).abs().max()), KERNEL_TOL * (
+                1.0 if n == "dq" else max(1.0, float(b.abs().max()))))
+        errs.update(bf16_grad_errors(
+            torch, lambda q, k, v: qk_.quadtree_fine_attention(
+                q, k, v, ids, hw, hw), (q, k, v), g))
+        errs.update({"A′ " + n: e for n, e in bf16_grad_errors(
+            torch, lambda q, k, v: qk_.quadtree_fine_topk(
+                q, k, v, ids, hw, hw, topk)[0], (q, k, v), g).items()})
         if topk < 4 * K:
             everywhere = torch.ones((B, L, H), dtype=torch.bool,
                                     device="cuda")
@@ -1016,24 +1144,26 @@ def quadtree_bf16_cases_check(torch):
             s_err = float((score - p_score).abs().max())
             idx_bad = int((idx.sort(dim=2).values
                            != p_idx.sort(dim=2).values).any(dim=2).sum())
-        log(f"kernel quadtree_fine_attention(_topk)_bf16 [B={B} H={H} D={D} "
-            f"{hw[0]}x{hw[1]} K={K} {kind} ids top {topk}"
+        log(f"kernel quadtree_fine_attention(_topk, _bwd)_bf16 [B={B} H={H} "
+            f"D={D} {hw[0]}x{hw[1]} K={K} {kind} ids top {topk}"
             + (f" {2 * offset} bytes off" if offset else "")
             + "]: max_abs_err "
-            + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + ", ".join(f"{n} {e:.3e}" for n, (e, _) in errs.items())
             + f", A′ score {s_err:.3e}; A′ index sets differ on {idx_bad} "
             "rows")
-        for n, e in errs.items():
-            check(e <= KERNEL_TOL, f"quadtree bf16 B={B} H={H} D={D} "
-                  f"grid={hw} K={K} {kind}: {n} max abs error {e:.3e}")
+        for n, (e, tol) in errs.items():
+            check(e <= tol, f"quadtree bf16 B={B} H={H} D={D} grid={hw} "
+                  f"K={K} {kind}: {n} max abs error {e:.3e} > {tol:.3g}")
         check(s_err <= SCORE_TOL and idx_bad == 0, f"quadtree bf16 B={B} "
               f"H={H} D={D} grid={hw} K={K} {kind}: A′ selection")
 
 
 def window_bf16_cases_check(torch):
-    """The bf16 instance of C (public wrapper, and with its log-sum-exp
-    through the launcher) on WINDOW_BF16_CASES, against the plain version
-    on the same bf16 inputs."""
+    """The bf16 instances of C (public wrapper, and with its log-sum-exp
+    through the launcher) and C-bwd (wrapper) on WINDOW_BF16_CASES, against
+    the plain versions on the same bf16 inputs; then the gradients of C's
+    public wrapper through the bf16 instances against the f32 instances'
+    on the widened values."""
     from casmtr_tpu_torch.ops.kernels import window_kernels as wk
     gen = torch.Generator(device="cuda").manual_seed(8)
     for B, H, D, grid, w, edge, offset in WINDOW_BF16_CASES:
@@ -1046,28 +1176,41 @@ def window_bf16_cases_check(torch):
         if edge:
             corners[0, :4] = torch.tensor([[-1, -1], [half - 1, half - 1],
                                            [0, half], [-L, 3]])
-        out, lse = wk.window_cross_attention_plain(q, k, v, corners, hw, hw,
-                                                   w, with_lse=True)
+        out, lse = (t.contiguous() for t in wk.window_cross_attention_plain(
+            q, k, v, corners, hw, hw, w, with_lse=True))
+        g = torch.randn(out.shape, generator=gen, device="cuda")
         got = ((wk.window_cross_attention(q, k, v, corners, hw, hw, w),)
                + wk._launch_wca_fwd(q, k, v, corners, hw, hw, w, True))
+        d_got = wk.window_cross_attention_bwd(q, k, v, corners, out, lse, g,
+                                              hw, hw, w)
+        d_want = wk.window_cross_attention_bwd_plain(q, k, v, corners, out,
+                                                     lse, g, hw, hw, w)
         torch.cuda.synchronize()
-        errs = {n: float((a - b).abs().max()) for n, a, b in zip(
+        errs = {n: (float((a - b).abs().max()), KERNEL_TOL) for n, a, b in zip(
             ("message", "message with LSE", "lse"), got, (out, out, lse))}
-        log(f"kernel window_cross_attention_bf16 [B={B} H={H} D={D} "
+        for n, a, b in zip(("dq", "dk", "dv"), d_got, d_want):
+            errs[n] = (float((a - b).abs().max()), KERNEL_TOL * (
+                1.0 if n == "dq" else max(1.0, float(b.abs().max()))))
+        errs.update(bf16_grad_errors(
+            torch, lambda q, k, v: wk.window_cross_attention(
+                q, k, v, corners, hw, hw, w), (q, k, v), g))
+        log(f"kernel window_cross_attention(_bwd)_bf16 [B={B} H={H} D={D} "
             f"{grid}x{grid} w={w}" + (" edge corners" if edge else "")
             + (f" {2 * offset} bytes off" if offset else "") + "]: "
             "max_abs_err " + ", ".join(f"{n} {e:.3e}"
-                                       for n, e in errs.items()))
-        for n, e in errs.items():
-            check(e <= KERNEL_TOL, f"window_cross_attention bf16 B={B} H={H} "
-                  f"D={D} grid={grid} w={w}: {n} max abs error {e:.3e}")
+                                       for n, (e, _) in errs.items()))
+        for n, (e, tol) in errs.items():
+            check(e <= tol, f"window_cross_attention bf16 B={B} H={H} D={D} "
+                  f"grid={grid} w={w}: {n} max abs error {e:.3e} > "
+                  f"{tol:.3g}")
 
 
 def bf16_refusals_check(torch):
     """What the bf16 instances do not take raises ValueError on the card
-    before any launch: an odd head width (A, A′) or row width (C), q/k/v 2
-    bytes off 4-byte alignment, and a gradient through them (they have no
-    backward; no silent f32 route)."""
+    before any launch: an odd head width (A, A′, A-bwd) or row width (C,
+    C-bwd), and q/k/v 2 bytes off 4-byte alignment.  The forward wrappers
+    are called with a gradient to come, so the backward's limits are the
+    forward's: the refusal comes before any launch."""
     from casmtr_tpu_torch.ops import kernels
     from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
     from casmtr_tpu_torch.ops.kernels import window_kernels as wk
@@ -1076,23 +1219,30 @@ def bf16_refusals_check(torch):
     ids = block_ids(torch, gen, 1, 16, 2, 1, "distinct")
     corners = torch.zeros((1, 16, 2), dtype=torch.int32, device="cuda")
 
-    def qkv(D, offset=0, grad=False):
+    def qkv(D, offset=0):
         return [offset_randn(torch, gen, offset, (1, L, 1, D),
-                             torch.bfloat16).requires_grad_(grad)
+                             torch.bfloat16).requires_grad_(True)
                 for _ in range(3)]
+
+    def saved(q):   # a forward's output, log-sum-exp and a cotangent
+        o = torch.zeros((1, 16, 4, 1, q.shape[-1]), device="cuda")
+        return o, o[..., 0].contiguous(), o
 
     calls = {
         "A": lambda q, k, v: qk_.quadtree_fine_attention(q, k, v, ids, hw,
                                                          hw),
         "A′": lambda q, k, v: qk_.quadtree_fine_topk(q, k, v, ids, hw, hw, 2),
         "C": lambda q, k, v: wk.window_cross_attention(q, k, v, corners, hw,
-                                                       hw, 2)}
+                                                       hw, 2),
+        "A-bwd": lambda q, k, v: qk_.quadtree_fine_attention_bwd(
+            q, k, v, ids, *saved(q), hw, hw),
+        "C-bwd": lambda q, k, v: wk.window_cross_attention_bwd(
+            q, k, v, corners, *saved(q), hw, hw, 2)}
     before = dict(kernels.LAUNCHES)
     refused = []
     for kernel, fn in calls.items():
         for what, args in (("odd width", qkv(5)),
-                           ("2 bytes off", qkv(8, offset=1)),
-                           ("gradient", qkv(8, grad=True))):
+                           ("2 bytes off", qkv(8, offset=1))):
             try:
                 fn(*args)
             except ValueError as e:
@@ -1143,6 +1293,58 @@ def bf16_kernel_rows(torch, rows, gen, path, levels):
             nbytes(q, k, v, corners) + P * 4 * H * D * 4, 0,
             library=window_library(torch, q, k, v, corners, hw, w, False),
             bf16_flops=attention_flops(P * H, 4 * w * w, D))
+
+
+def bf16_bwd_rows(torch, rows, gen, path, levels):
+    """The bf16 instances of A-bwd (88^2 and 44^2) and C-bwd (176^2 H=4,
+    352^2 H=2) at the 704^2 training step's shapes, on inputs rounded to
+    bf16 (the bf16 step's gather tables), against their plain versions on
+    the same bf16 values, from the plain forward's output and log-sum-exp
+    and a random f32 cotangent: dq within KERNEL_TOL, dk and dv within
+    KERNEL_TOL x max(1, max |plain|).  The outputs are f32; the yardstick is
+    the backward of SDPA on the bf16 windows."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    bf = torch.bfloat16
+    for label, (qkv, ids, hw) in levels.items():
+        q, k, v = (t.to(bf) for t in qkv)
+        P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
+        out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
+            q, k, v, ids, hw, hw, with_lse=True))
+        g = torch.randn(out.shape, generator=gen, device="cuda")
+        kernel_row(
+            torch, rows, "quadtree_fine_attention_bwd_bf16", label, path,
+            lambda: qk_.quadtree_fine_attention_bwd(q, k, v, ids, out, lse,
+                                                    g, hw, hw),
+            lambda: qk_.quadtree_fine_attention_bwd_plain(
+                q, k, v, ids, out, lse, g, hw, hw),
+            f"q/k/v {list(q.shape)} bf16 ids {list(ids.shape)}",
+            nbytes(q, k, v, ids, out, lse, g) + 3 * q.numel() * 4, 0,
+            scattered=(1, 2),
+            library=quadtree_library(torch, q, k, v, ids, hw, True),
+            bf16_flops=attention_flops(P * H, 4 * K, D, backward=True))
+    for grid, H, suffix in ((TRAIN_SIZE // 4, 4, ""),
+                            (TRAIN_SIZE // 2, 2, " (2c)")):
+        corners = window_inputs(torch, gen, grid // 2)
+        w, D, P = 5, 32, corners.shape[1]
+        q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
+                               device="cuda").to(bf) for _ in range(3))
+        hw = (grid, grid)
+        out, lse = (t.contiguous() for t in wk.window_cross_attention_plain(
+            q, k, v, corners, hw, hw, w, with_lse=True))
+        g = torch.randn(out.shape, generator=gen, device="cuda")
+        kernel_row(
+            torch, rows, "window_cross_attention_bwd_bf16",
+            f"{grid}x{grid} H={H} D={D} w={w}", path + suffix,
+            lambda: wk.window_cross_attention_bwd(q, k, v, corners, out, lse,
+                                                  g, hw, hw, w),
+            lambda: wk.window_cross_attention_bwd_plain(
+                q, k, v, corners, out, lse, g, hw, hw, w),
+            f"q/k/v {list(q.shape)} bf16 corners {list(corners.shape)}",
+            nbytes(q, k, v, corners, out, lse, g) + 3 * q.numel() * 4, 0,
+            scattered=(1, 2),
+            library=window_library(torch, q, k, v, corners, hw, w, True),
+            bf16_flops=attention_flops(P * H, 4 * w * w, D, backward=True))
 
 
 def window_rows(torch, rows, gen, path, grid, C, H, train):
@@ -1305,6 +1507,9 @@ def train_kernel_phase(torch):
     window_rows(torch, rows, gen, path, TRAIN_SIZE // 4, 128, 4, True)
     window_rows(torch, rows, gen, path + " (2c)", TRAIN_SIZE // 2, 64, 2,
                 True)
+
+    # the bf16 instances of A-bwd and C-bwd (the card's training default)
+    bf16_bwd_rows(torch, rows, gen, path, levels)
     window_cases_check(torch)
     score_cases_check(torch)
     quadtree_cases_check(torch)
@@ -1415,12 +1620,17 @@ def requests(rng):
 
 @contextlib.contextmanager
 def precision(name):
-    """The card's eval default ("bf16": the variables of PRECISION_ENV
-    unset), float32 forced ("f32": both "0") or bf16 forced ("bf16 forced":
-    both "1", which on the CPU gives bf16 stacks and f32 kernel inputs)."""
+    """The card's default ("bf16": the variables of PRECISION_ENV unset),
+    float32 forced ("f32": both "0"), bf16 forced ("bf16 forced": both "1",
+    which on the CPU gives bf16 stacks and f32 kernel inputs) or a bf16
+    backbone ("bf16 backbone": CASMTR_BACKBONE_BF16=1 alone, which on the
+    CPU gives the bf16 training step's backbone with float32 stacks and
+    kernel inputs)."""
     saved = {k: os.environ.pop(k, None) for k in PRECISION_ENV}
-    value = {"bf16": None, "f32": "0", "bf16 forced": "1"}[name]
-    if value is not None:
+    if name == "bf16 backbone":
+        os.environ["CASMTR_BACKBONE_BF16"] = "1"
+    elif name != "bf16":
+        value = {"f32": "0", "bf16 forced": "1"}[name]
         os.environ.update({k: value for k in PRECISION_ENV})
     try:
         yield
@@ -1433,9 +1643,10 @@ def precision(name):
 
 
 def serve(torch, matcher, recipe, reqs, prec):
-    """The requests through ``matcher`` in precision ``prec`` ("bf16", the
-    card's default, or "f32" forced), the launch counts zeroed just before
-    and each request's counts held to the recipe's per-pair count."""
+    """The requests through ``matcher`` (of MODELS[recipe]) in precision
+    ``prec`` ("bf16", the card's default, or "f32" forced), the launch
+    counts zeroed just before and each request's counts held to the
+    model's per-pair count."""
     from casmtr_tpu_torch.ops import kernels
     expected = (LAUNCHES_PER_PAIR if prec == "bf16"
                 else LAUNCHES_PER_PAIR_F32)[recipe]
@@ -1483,21 +1694,23 @@ def serve(torch, matcher, recipe, reqs, prec):
     return totals, counts, steady
 
 
-def serving_phase(torch, recipe):
-    """Matcher(recipe, bucket=832) answers the requests in the card's eval
-    default (bf16), then with float32 forced, from the same weights in one
-    process.  Returns ({precision: (launch totals, last request's counts,
-    steady ms)}, the matcher, a request to profile)."""
+def serving_phase(torch, recipe, precs=("bf16", "f32")):
+    """Matcher(MODELS[recipe], bucket=832) answers the requests in the
+    card's eval default (bf16), then with float32 forced (``precs``), from
+    the same weights in one process.  Returns ({precision: (launch totals,
+    last request's counts, steady ms)}, the matcher, a request to
+    profile)."""
     from casmtr_tpu_torch.serving import Matcher
     t0 = time.perf_counter()
-    matcher = Matcher(recipe, bucket=832, seed=0)
+    base, overrides = MODELS[recipe]
+    matcher = Matcher(base, bucket=832, seed=0, overrides=overrides or None)
     n_params = sum(p.numel() for p in matcher.model.parameters())
     log(f"serving: Matcher('{recipe}', bucket=832) on "
         f"{matcher.device}, {n_params} parameters (seeded random), built in "
         f"{time.perf_counter() - t0:.1f} s")
     reqs = requests(np.random.default_rng(0))
     runs = {}
-    for prec in ("bf16", "f32"):
+    for prec in precs:
         with precision(prec):
             runs[prec] = serve(torch, matcher, recipe, reqs, prec)
     return runs, matcher, reqs[1]
@@ -1754,15 +1967,24 @@ def kernel_grad_params(model):
             and n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")]
 
 
-def build_trainer(torch, recipe, size, device=None, model=None):
-    """``recipe`` at ``size`` with seeded random weights (or a copy of
-    ``model``), its optimizer state and its step."""
+def model_config(name, **loftr):
+    """The configuration of MODELS[name] with the ``loftr`` overrides on
+    top."""
     from casmtr_tpu_torch.configs import build_config
+    recipe, overrides = MODELS[name]
+    overrides = copy.deepcopy(overrides)
+    overrides.setdefault("loftr", {}).update(loftr)
+    return build_config(recipe, overrides=overrides)
+
+
+def build_trainer(torch, name, size, device=None, model=None):
+    """MODELS[name] at ``size`` with seeded random weights (or a copy of
+    ``model``), its optimizer state and its step."""
     from casmtr_tpu_torch.models import build_model
     from casmtr_tpu_torch.train.train_step import (init_train_state,
                                                    make_train_step)
     from casmtr_tpu_torch.weights import init_random_
-    cfg = build_config(recipe, overrides={"loftr": {"train_size": size}})
+    cfg = model_config(name, train_size=size)
     if model is None:
         model = build_model(cfg.loftr)
         init_random_(model, torch.Generator().manual_seed(0))
@@ -1771,21 +1993,29 @@ def build_trainer(torch, recipe, size, device=None, model=None):
     return model, state, make_train_step(model, cfg, tx, device=device)
 
 
-def training_phase(torch, recipe):
+def training_phase(torch, name, prec):
+    """MODELS[name] trained at TRAIN_SIZE in precision ``prec``, which the
+    caller sets ("bf16", the card's default: bf16 backbone and kernel
+    inputs, float32 stacks; or "f32" forced): the step's dtypes, a warm-up
+    step, then 4 timed steps with the launch counts zeroed just before and
+    read just after each, held to the precision's per-step count."""
     from casmtr_tpu_torch.models.backbone.resnet_fpn import backbone_dtype
     from casmtr_tpu_torch.models.transformer import (table_dtype,
                                                      transformer_dtype)
     from casmtr_tpu_torch.ops import kernels
-    model, state, step = build_trainer(torch, recipe, TRAIN_SIZE)
+    recipe = f"{name} {prec}"
+    model, state, step = build_trainer(torch, name, TRAIN_SIZE)
     dev = torch.device("cuda")
+    bf, f32 = torch.bfloat16, torch.float32
     dts = (backbone_dtype(dev, True), transformer_dtype(dev, True),
-           table_dtype(dev, True, transformer_dtype(dev, True)))
+           table_dtype(dev))
     log(f"training: {recipe} step precision: backbone {dts[0]}, stacks "
-        f"{dts[1]}, kernel inputs {dts[2]}; no bf16 instance may launch")
-    check(all(d == torch.float32 for d in dts),
-          "training: the step is not float32")
+        f"{dts[1]}, kernel inputs {dts[2]}")
+    check(dts == ((bf, f32, bf) if prec == "bf16" else (f32, f32, f32)),
+          f"training: {recipe}: step dtypes {dts}")
     levels = [f"{lvl}c" for lvl in model.config.cascade_levels]
-    expected = LAUNCHES_PER_TRAIN_STEP[recipe]
+    expected = (LAUNCHES_PER_TRAIN_STEP if prec == "bf16"
+                else LAUNCHES_PER_TRAIN_STEP_F32)[name]
     n_params = sum(p.numel() for p in model.parameters())
     watch = kernel_grad_params(model)
     n_watch = 18 + 6 * len(levels)
@@ -1837,7 +2067,8 @@ def training_phase(torch, recipe):
         check(v > 0 or expected[k] == 0,
               f"training: kernel {k} never launched on the main path")
     log(f"training: {recipe} median {statistics.median(times):.4f} s/step "
-        f"over {len(times)} steps, peak device memory {peak:.2f} GiB, "
+        f"(steps {', '.join(f'{t:.4f}' for t in times)}), peak device "
+        f"memory {peak:.2f} GiB, "
         f"launches over the {len(times)} steps {totals}"
         + ("; the reference's own 4c GPU step, for context only: "
            f"{REFERENCE_S_PER_STEP} s (fp16, bench.py)"
@@ -1883,43 +2114,301 @@ def train_profile_phase(torch, recipe, step, state, batch, median_s):
         f"{busy:.1f} ms of device time")
 
 
-def train_reference_phase(torch, recipe):
-    """One step of the full-width model at 256^2 on the card and on the CPU
-    (the kernels' plain versions) from the same weights and batch."""
-    size = 256
-    base, _, _ = build_trainer(torch, recipe, size, device="cpu")
-    res = {}
-    for dev in ("cuda", "cpu"):
-        model, state, step = build_trainer(torch, recipe, size, device=dev,
+def coarse_gradient(torch, model, batch, dev):
+    """The gradient of loss_8c on the kernel-path q/k/v projections of the
+    1/8 stack (kernel_grad_params), from one forward in train mode and no
+    update, flattened in float64 on the CPU.  The BatchNorm statistics are
+    restored afterwards."""
+    from casmtr_tpu_torch.train.train_step import (forward_loss,
+                                                   prepare_batch)
+    lcfg = model.config
+    batch, gt = prepare_batch(batch, lcfg, torch.device(dev))
+    stats = [b.clone() for b in model.buffers()]
+    model.train()
+    _, scalars = forward_loss(model, batch, gt, lcfg)
+    params = dict(model.named_parameters())
+    leaves = [params[n] for n in kernel_grad_params(model)
+              if n.startswith("loftr_coarse_8c.")]
+    grads = torch.autograd.grad(scalars["loss_8c"], leaves)
+    with torch.no_grad():
+        for b, s in zip(model.buffers(), stats):
+            b.copy_(s)
+    return torch.cat([g.flatten() for g in grads]).double().cpu()
+
+
+def reference_step(torch, name, size, dev, base, prec, nudge=None):
+    """One step of MODELS[name] at ``size`` on ``dev`` from a copy of the
+    CPU model ``base`` in precision ``prec``, with the images times (1 +
+    NUDGE x a normal draw of seed ``nudge``) when given: (scalars, gradients
+    by parameter in float64 on the CPU, seconds, coarse_gradient taken
+    before the step)."""
+    batch = train_batch(size, 1)
+    if nudge is not None:
+        rng = np.random.default_rng(nudge)
+        for k in ("image0", "image1"):
+            batch[k] = (batch[k] * (1 + NUDGE * rng.standard_normal(
+                batch[k].shape))).astype(np.float32)
+    with precision(prec):
+        model, state, step = build_trainer(torch, name, size, device=dev,
                                            model=copy.deepcopy(base))
+        coarse = coarse_gradient(torch, model, batch, dev)
         t0 = time.perf_counter()
-        _, scalars = step(state, train_batch(size, 1))
+        _, scalars = step(state, batch)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  .detach().double().cpu() for n, p in model.named_parameters()}
-        res[dev] = ({k: float(v) for k, v in scalars.items()}, grads,
-                    time.perf_counter() - t0)
-    (sg, gg, tg), (sc, gc, tc) = res["cuda"], res["cpu"]
-    rel_loss = abs(sg["loss"] - sc["loss"]) / abs(sc["loss"])
-    fg = torch.cat([gg[n].flatten() for n in gc])
-    fc = torch.cat([gc[n].flatten() for n in gc])
-    cos = float(fg @ fc / (fg.norm() * fc.norm()))
-    # a leaf whose gradient vanishes analytically (a bias in front of a
-    # training-mode BatchNorm) holds only rounding noise: floor its norm
-    floor = 1e-3 * float(fc.norm())
-    worst, worst_name = max(
-        (float((gg[n] - gc[n]).norm()) / max(float(gc[n].norm()), floor), n)
-        for n in gc)
-    valid = ", ".join(f"{k} {sg[k]:.0f} vs {sc[k]:.0f}" for k in sorted(sc)
-                      if k.startswith("valid_n_"))
-    log(f"training reference: {recipe} {size}^2, one step, card vs CPU: "
-        f"loss {sg['loss']:.6f} vs {sc['loss']:.6f} (relative "
-        f"{rel_loss:.2e}, tol {TRAIN_LOSS_RTOL:g}); {valid}; gradient "
-        f"cosine {cos:.6f} (min "
-        f"{MIN_GRAD_COS}); worst per-leaf relative error {worst:.2e} "
-        f"({worst_name}, not gated); step {tg:.2f} s on the card, {tc:.2f} s "
-        f"on the CPU")
-    check(rel_loss <= TRAIN_LOSS_RTOL, "training reference: losses disagree")
-    check(cos >= MIN_GRAD_COS, "training reference: gradients disagree")
+    return ({k: float(v) for k, v in scalars.items()}, grads,
+            time.perf_counter() - t0, coarse)
+
+
+def cosine(a, b):
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def leaf_errors(torch, ga, gb):
+    """Gradients ``ga`` against ``gb`` (by name): the cosine of the whole
+    flattened gradients and the worst per-leaf relative error (leaf norms
+    floored at 1e-3 of the whole gradient's: a leaf whose gradient vanishes
+    analytically, a bias in front of a training-mode BatchNorm, holds only
+    rounding noise) with its leaf."""
+    fa = torch.cat([ga[n].flatten() for n in gb])
+    fb = torch.cat([gb[n].flatten() for n in gb])
+    floor = 1e-3 * float(fb.norm())
+    worst = max((float((ga[n] - gb[n]).norm()) / max(float(gb[n].norm()),
+                                                      floor), n) for n in gb)
+    return cosine(fa, fb), worst
+
+
+def step_difference(torch, a, b):
+    """Step ``a`` against step ``b`` (reference_step's results): the
+    relative difference of each loss term, leaf_errors and the cosine of
+    the coarse_gradients."""
+    (sa, ga, _, ca), (sb, gb, _, cb) = a, b
+    rel = {k: abs(sa[k] - sb[k]) / abs(sb[k]) for k in sb
+           if k.startswith("loss")}
+    cos, worst = leaf_errors(torch, ga, gb)
+    return rel, cos, worst, cosine(ca, cb)
+
+
+def backbone_stage(torch, base, size, dev, prec):
+    """The backbone of a copy of ``base`` on ``dev`` in train mode in
+    precision ``prec``, on the reference batch's two images as
+    CasMTR.forward feeds them, and the gradients of its parameters for a
+    seeded cotangent of its maps: (maps, running statistics after the
+    forward, the maps' product with the cotangent, gradients by parameter),
+    in float64 on the CPU."""
+    batch = train_batch(size, 1)
+    x = torch.from_numpy(np.concatenate([batch["image0"], batch["image1"]])
+                         ).permute(0, 3, 1, 2).to(dev)
+    rng = np.random.default_rng(2)
+    with precision(prec):
+        bb = copy.deepcopy(base.backbone).to(dev).train()
+        maps = bb(x)
+        dot = sum((m * torch.from_numpy(rng.standard_normal(
+            tuple(m.shape)).astype(np.float32)).to(dev)).sum() for m in maps)
+        params = dict(bb.named_parameters())
+        grads = torch.autograd.grad(dot, list(params.values()))
+
+    def cpu(t):
+        return t.detach().double().cpu()
+
+    return ([cpu(m) for m in maps],
+            {n: cpu(b) for n, b in bb.named_buffers()
+             if not n.endswith("num_batches_tracked")},
+            float(dot.detach()), dict(zip(params, map(cpu, grads))))
+
+
+def backbone_difference(torch, a, b):
+    """backbone_stage ``a`` against ``b``: the maps' largest error of their
+    largest value and RMS error of their RMS (worst map), the running
+    statistics' largest error, the relative error of the cotangent product,
+    and leaf_errors."""
+    (ma, sa, da, ga), (mb, sb, db, gb) = a, b
+    peak = max(float((x - y).abs().max() / y.abs().max())
+               for x, y in zip(ma, mb))
+    rms = max(float((x - y).pow(2).mean().sqrt() / y.pow(2).mean().sqrt())
+              for x, y in zip(ma, mb))
+    stats = max(float((sa[n] - sb[n]).abs().max()) for n in sb)
+    return peak, rms, stats, abs(da - db) / abs(db), leaf_errors(torch, ga,
+                                                                   gb)
+
+
+def backbone_reference(torch, name, base, size):
+    """The variant's backbone stage, card against CPU: in f32 within
+    BACKBONE_RTOL and MIN_GRAD_COS; the card's bf16 default against the
+    CPU's bf16 backbone within BF16_TRAIN_NOISE x the CPU's own
+    bf16-against-f32 difference."""
+    res = {(dev, prec): backbone_stage(torch, base, size, dev, prec)
+           for dev, prec in (("cuda", "f32"), ("cpu", "f32"), ("cuda", "bf16"),
+                             ("cpu", "bf16 backbone"))}
+    peak, rms, stats, dot, (cos, (worst, worst_name)) = backbone_difference(
+        torch, res["cuda", "f32"], res["cpu", "f32"])
+    log(f"training reference: {name} backbone {size}^2 train mode, card f32 "
+        f"vs CPU f32: maps {peak:.2e} of their largest value, running "
+        f"statistics {stats:.2e}, cotangent product {dot:.2e} (tol "
+        f"{BACKBONE_RTOL:g} each); gradient cosine {cos:.8f} (min "
+        f"{MIN_GRAD_COS}), worst per-leaf relative error {worst:.2e} "
+        f"({worst_name}, not gated)")
+    check(max(peak, stats, dot) <= BACKBONE_RTOL,
+          "training reference: backbone maps or statistics disagree")
+    check(cos >= MIN_GRAD_COS,
+          "training reference: backbone gradients disagree")
+    own = backbone_difference(torch, res["cpu", "bf16 backbone"],
+                              res["cpu", "f32"])
+    got = backbone_difference(torch, res["cuda", "bf16"],
+                              res["cpu", "bf16 backbone"])
+    for label, i in (("maps RMS error", 1), ("running statistics", 2),
+                     ("cotangent product", 3)):
+        tol = BF16_TRAIN_NOISE * own[i]
+        log(f"training reference: {name} backbone bf16 {label}: {got[i]:.3e} "
+            f"(tol {tol:.3e}; the CPU's own {own[i]:.3e})")
+        check(got[i] <= tol, f"training reference: bf16 backbone {label} "
+              "disagrees")
+    tol = BF16_TRAIN_NOISE * (1 - own[4][0])
+    log(f"training reference: {name} backbone bf16 1 - gradient cosine "
+        f"{1 - got[4][0]:.3e} (tol {tol:.3e}; the CPU's own "
+        f"{1 - own[4][0]:.3e})")
+    check(1 - got[4][0] <= tol,
+          "training reference: bf16 backbone gradients disagree")
+
+
+def cascade_stack_reference(torch, name, base, size):
+    """Each cascade stack of MODELS[name] (kernels C and C-bwd) alone, in
+    train mode, on the inputs it took in the CPU's f32 step, with a seeded
+    cotangent of its two outputs: card f32 and the card's bf16 default
+    (bf16 q/k/v) against CPU f32, the outputs and the gradients of the
+    stack's kernel-path q/k/v projections (see BF16_STACK_RTOL)."""
+    from casmtr_tpu_torch.train.train_step import (forward_loss,
+                                                   prepare_batch)
+    levels = base.config.cascade_levels
+    grab = {}
+    model = copy.deepcopy(base).train()
+    hooks = [getattr(model, f"loftr_coarse_{lvl}c").register_forward_pre_hook(
+        lambda m, args, lvl=lvl: grab.update({lvl: args}))
+        for lvl in levels]
+    with precision("f32"), torch.no_grad():
+        batch, gt = prepare_batch(train_batch(size, 1), model.config,
+                                  torch.device("cpu"))
+        forward_loss(model, batch, gt, model.config)
+    for h in hooks:
+        h.remove()
+    for lvl in levels:
+        stack = f"loftr_coarse_{lvl}c"
+        watch = [n.split(".", 1)[1] for n in kernel_grad_params(base)
+                 if n.startswith(stack + ".")]
+        res = {}
+        for dev, prec in (("cpu", "f32"), ("cuda", "f32"), ("cuda", "bf16")):
+            rng = np.random.default_rng(3)
+            with precision(prec):
+                st = copy.deepcopy(getattr(base, stack)).to(dev).train()
+                args = [x.to(dev) if isinstance(x, torch.Tensor) else x
+                        for x in grab[lvl]]
+                outs = st(*args)[:2]
+                dot = sum((o * torch.from_numpy(rng.standard_normal(
+                    tuple(o.shape)).astype(np.float32)).to(dev)).sum()
+                    for o in outs)
+                params = dict(st.named_parameters())
+                grads = torch.autograd.grad(dot, [params[n] for n in watch])
+            res[prec if dev == "cuda" else "cpu"] = (
+                [o.detach().double().cpu() for o in outs],
+                torch.cat([g.flatten() for g in grads]).double().cpu())
+        want, want_g = res["cpu"]
+        for prec in ("f32", "bf16"):
+            outs, g = res[prec]
+            peak = max(float((x - y).abs().max() / y.abs().max())
+                       for x, y in zip(outs, want))
+            rms = max(float((x - y).pow(2).mean().sqrt()
+                            / y.pow(2).mean().sqrt())
+                      for x, y in zip(outs, want))
+            cos = cosine(g, want_g)
+            tol = (f"largest error {peak:.2e} of the largest value (tol "
+                   f"{BACKBONE_RTOL:g})" if prec == "f32" else
+                   f"RMS error {rms:.2e} of the RMS (tol "
+                   f"{BF16_STACK_RTOL:.2e})")
+            log(f"training reference: {name} {stack} alone, card {prec} vs "
+                f"CPU f32: outputs {tol}; q/k/v gradients ({len(watch)} "
+                f"leaves) 1 - cosine {1 - cos:.3e} (tol "
+                f"{1 - MIN_GRAD_COS:.0e})")
+            check((peak <= BACKBONE_RTOL) if prec == "f32"
+                  else (rms <= BF16_STACK_RTOL),
+                  f"training reference: {stack} {prec} outputs disagree")
+            check(cos >= MIN_GRAD_COS,
+                  f"training reference: {stack} {prec} gradients disagree")
+
+
+def train_reference_phase(torch, name):
+    """One step of MODELS[name] at 256^2 on the card and on the CPU (the
+    kernels' plain versions) from the same weights and batch.  For the two
+    recipes: with float32 forced on both, each loss term within
+    TRAIN_LOSS_RTOL relative, the whole gradient's and coarse_gradient's
+    cosine >= MIN_GRAD_COS; the card's bf16 default (bf16 backbone and
+    kernel inputs) against the CPU with CASMTR_BACKBONE_BF16=1 (bf16
+    backbone, f32 kernel inputs), each loss term and 1 - cosine (whole and
+    coarse_gradient's) within BF16_TRAIN_NOISE x the CPU's own
+    bf16-backbone-against-f32 difference (floors BF16_LOSS_RTOL and 1 -
+    MIN_GRAD_COS); then cascade_stack_reference.  For the ResNetFPN
+    variant: its f32 step printed beside the CPU's response to a nudge of
+    its images, and backbone_reference."""
+    size = 256
+    base, _, _ = build_trainer(torch, name, size, device="cpu")
+    runs = [("cuda", "f32"), ("cpu", "f32")]
+    if name in RECIPES:
+        runs += [("cuda", "bf16"), ("cpu", "bf16 backbone")]
+    res = {(dev, prec): reference_step(torch, name, size, dev, base, prec)
+           for dev, prec in runs}
+
+    def valid(key):
+        return ", ".join(f"{k} {res[key][0][k]:.0f}"
+                         for k in sorted(res[key][0]) if "valid_n" in k)
+
+    rel, cos, (worst, worst_name), coarse = step_difference(
+        torch, res["cuda", "f32"], res["cpu", "f32"])
+    (sg, _, tg, _), (sc, _, tc, _) = res["cuda", "f32"], res["cpu", "f32"]
+    log(f"training reference: {name} {size}^2, one step, card f32 vs CPU "
+        f"f32: loss {sg['loss']:.6f} vs {sc['loss']:.6f}; card "
+        f"{valid(('cuda', 'f32'))}, CPU {valid(('cpu', 'f32'))}; relative "
+        + ", ".join(f"{k} {r:.2e}" for k, r in rel.items())
+        + f"; gradient cosine {cos:.6f}, of loss_8c on the 1/8 q/k/v "
+        f"{coarse:.8f}; worst per-leaf relative error {worst:.2e} "
+        f"({worst_name}, not gated); step {tg:.2f} s on the card, "
+        f"{tc:.2f} s on the CPU")
+    if name not in RECIPES:
+        nudged = step_difference(torch, reference_step(
+            torch, name, size, "cpu", base, "f32", 0), res["cpu", "f32"])
+        log(f"training reference: {name} whole step not gated: the CPU's "
+            f"response to a nudge of {NUDGE:g} of its images: relative "
+            + ", ".join(f"{k} {r:.2e}" for k, r in nudged[0].items())
+            + f"; gradient cosine {nudged[1]:.6f}, of loss_8c on the 1/8 "
+            f"q/k/v {nudged[3]:.6f}")
+        backbone_reference(torch, name, base, size)
+        return
+    log(f"training reference: {name} f32 gates: each loss term within "
+        f"{TRAIN_LOSS_RTOL:g}, both cosines >= {MIN_GRAD_COS}")
+    for k, r in rel.items():
+        check(r <= TRAIN_LOSS_RTOL, f"training reference: {k} disagrees")
+    check(min(cos, coarse) >= MIN_GRAD_COS,
+          "training reference: gradients disagree")
+
+    own_rel, own_cos, _, own_coarse = step_difference(
+        torch, res["cpu", "bf16 backbone"], res["cpu", "f32"])
+    rel, cos, (worst, worst_name), coarse = step_difference(
+        torch, res["cuda", "bf16"], res["cpu", "bf16 backbone"])
+    log(f"training reference: {name} {size}^2, one step, card bf16 default "
+        f"vs CPU bf16 backbone: card {valid(('cuda', 'bf16'))}, CPU "
+        f"{valid(('cpu', 'bf16 backbone'))}; worst per-leaf relative error "
+        f"{worst:.2e} ({worst_name}, not gated)")
+    for k, r in rel.items():
+        tol = max(BF16_LOSS_RTOL, BF16_TRAIN_NOISE * own_rel[k])
+        log(f"training reference: {name} bf16 {k}: relative {r:.3e} (tol "
+            f"{tol:.3e}; the CPU's own {own_rel[k]:.3e})")
+        check(r <= tol, f"training reference: bf16 {k} disagrees")
+    for label, c, c_own in (("whole gradient", cos, own_cos),
+                            ("loss_8c on the 1/8 q/k/v", coarse,
+                             own_coarse)):
+        tol = max(1 - MIN_GRAD_COS, BF16_TRAIN_NOISE * (1 - c_own))
+        log(f"training reference: {name} bf16 {label}: 1 - cosine "
+            f"{1 - c:.3e} (tol {tol:.3e}; the CPU's own {1 - c_own:.3e})")
+        check(1 - c <= tol, f"training reference: bf16 {label} disagrees")
+    cascade_stack_reference(torch, name, base, size)
 
 
 def timed(name, fn, *args):
@@ -1965,10 +2454,12 @@ def main():
     train_rows = timed("training kernels", train_kernel_phase, torch)
     timed("finite difference", finite_difference_phase, torch)
     serve_runs = {}
-    for recipe in RECIPES:
+    for recipe in MODELS:
+        # the ResNetFPN variant in the card's default only
+        precs = ("bf16",) if recipe == RESNET else ("bf16", "f32")
         serve_runs[recipe], matcher, request = timed(
-            f"serving {recipe}", serving_phase, torch, recipe)
-        for prec in ("bf16", "f32"):
+            f"serving {recipe}", serving_phase, torch, recipe, precs)
+        for prec in precs if recipe in RECIPES else ():
             timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
                   matcher, request, prec,
                   recipe == RECIPES[0] and prec == "f32")
@@ -1976,35 +2467,40 @@ def main():
         torch.cuda.empty_cache()
     for recipe in RECIPES:
         timed(f"reference {recipe}", reference_phase, torch, recipe)
-    train_totals, per_step = {}, {}
-    for recipe in RECIPES:
-        totals, per_step[recipe], step, state, batch, times = timed(
-            f"training {recipe}", training_phase, torch, recipe)
-        train_totals[recipe] = totals
-        timed(f"training profile {recipe}", train_profile_phase, torch,
-              recipe, step, state, batch, statistics.median(times))
-        del step, state
-        torch.cuda.empty_cache()
-    for recipe in RECIPES:
+    train_runs = {}
+    for recipe in MODELS:
+        for prec in ("bf16", "f32"):
+            with precision(prec):
+                totals, counts, step, state, batch, times = timed(
+                    f"training {recipe} {prec}", training_phase, torch,
+                    recipe, prec)
+                train_runs[recipe, prec] = (totals, counts)
+                timed(f"training profile {recipe} {prec}",
+                      train_profile_phase, torch, f"{recipe} {prec}", step,
+                      state, batch, statistics.median(times))
+            del step, state
+            torch.cuda.empty_cache()
+    for recipe in MODELS:
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)
 
-    # launches: each path's counts, summed over the recipes' runs, and each
-    # recipe's count in its last request and its last step.  A serving row
-    # reads the run of its precision: the bf16 instances and B the card's
-    # bf16 default, the f32 A, A′ and C the run with float32 forced.
-    for row in rows:
-        prec = ("f32" if row["name"] in BF16_KERNELS else "bf16")
-        row["launches_from"] = f"serving, {prec}"
-        row["launches"] = sum(serve_runs[r][prec][0][row["name"]]
-                              for r in RECIPES)
-        row["launches_per_pair"] = {r: serve_runs[r][prec][1][row["name"]]
-                                    for r in RECIPES}
-    for row in train_rows:
-        row["launches_from"] = "training, f32"
-        row["launches"] = sum(t[row["name"]] for t in train_totals.values())
-        row["launches_per_step"] = {r: per_step[r][row["name"]]
-                                    for r in RECIPES}
+    # launches: each path's counts, summed over the models' runs, and each
+    # model's count in its last request and its last step.  A row reads the
+    # runs of its precision: the bf16 instances, B and B-bwd the card's
+    # bf16 default, the f32 A, A′, A-bwd, C and C-bwd the runs with float32
+    # forced.
+    for path, table, key in (("serving", rows, "launches_per_pair"),
+                             ("training", train_rows, "launches_per_step")):
+        for row in table:
+            prec = "f32" if row["name"] in BF16_KERNELS else "bf16"
+            if path == "serving":
+                runs = {r: serve_runs[r][prec][:2] for r in serve_runs
+                        if prec in serve_runs[r]}
+            else:
+                runs = {r: train_runs[r, prec] for r in MODELS}
+            row["launches_from"] = f"{path}, {prec}"
+            row["launches"] = sum(t[row["name"]] for t, _ in runs.values())
+            row[key] = {r: c[row["name"]] for r, (_, c) in runs.items()}
     log(json.dumps({"kernels": rows + train_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

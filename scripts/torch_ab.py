@@ -24,13 +24,14 @@ measuring code from this checkout's ``chip_smoke.py``:
   and sorted scores), timed on the card by ``chip_smoke.time_ms`` and on the
   host by ``host_us`` (one call's enqueue, the card held busy);
 - ``chip_smoke.serving_phase`` and ``chip_smoke.training_phase`` for both
-  recipes: three requests at bucket 832 (two steady) in the card's bf16
-  default and again with float32 forced, a warm-up and four steps at
-  704^2; then one more step under torch.profiler (``host_step``): its
-  wall, host and device time and its CUDA API calls (cuda* and cu*).  The
-  serving phase holds each request to chip_smoke's launch counts, so OTHER
-  must have the bf16 eval policy (its bf16 kernel instances) too; against
-  an older checkout use ``--kernels``.
+  recipes: three requests at bucket 832 (two steady), and a warm-up and
+  four steps at 704^2, each in the card's bf16 default and again with
+  float32 forced; after each training run one more step under
+  torch.profiler (``host_step``): its wall, host and device time and its
+  CUDA API calls (cuda* and cu*).  Both phases hold each request and step
+  to chip_smoke's launch counts, so OTHER must have the bf16 eval and
+  training policy (its bf16 kernel instances) too; against an older
+  checkout use ``--kernels``.
 
 With ``--kernels`` the processes time only the kernels, for instance to
 split a kernel into its passes: OTHER is then a copy of this checkout whose
@@ -254,15 +255,19 @@ def child(tree, kernels_only=False):
             res["serving_ms"][f"{recipe} {prec}"] = steady
         torch.cuda.empty_cache()
     for recipe in cs.RECIPES:
-        _, _, step, state, batch, times = cs.training_phase(torch, recipe)
-        res["step_s"][recipe] = times
-        prof = host_step(torch, step, state, batch)
-        res["step_profile"][recipe] = prof
-        print(f"{TAG}{recipe} profiled step: wall {prof['wall_ms']:.1f} ms, "
-              f"host {prof['host_ms']:.1f}, device {prof['device_ms']:.1f}",
-              flush=True)
-        del step, state, batch
-        torch.cuda.empty_cache()
+        for prec in ("bf16", "f32"):
+            key = f"{recipe} {prec}"
+            with cs.precision(prec):
+                _, _, step, state, batch, times = cs.training_phase(
+                    torch, recipe, prec)
+                res["step_s"][key] = times
+                prof = host_step(torch, step, state, batch)
+            res["step_profile"][key] = prof
+            print(f"{TAG}{key} profiled step: wall {prof['wall_ms']:.1f} ms, "
+                  f"host {prof['host_ms']:.1f}, device "
+                  f"{prof['device_ms']:.1f}", flush=True)
+            del step, state, batch
+            torch.cuda.empty_cache()
     print(TAG + json.dumps(res), flush=True)
 
 

@@ -1,11 +1,13 @@
 """The port's bf16 eval policy against the JAX package's, on the CPU.
 
-* The policy functions: ``backbone_dtype`` and ``transformer_dtype`` take
-  bf16 on the card in eval and float32 in training and on the CPU, and
+* The policy functions: ``backbone_dtype`` takes bf16 on the card in eval
+  and in training, ``transformer_dtype`` bf16 on the card in eval and
+  float32 in training, both float32 on the CPU, and
   ``CASMTR_BACKBONE_BF16`` / ``CASMTR_TRANSFORMER_BF16`` force either dtype;
-  ``table_dtype`` (the gather tables of kernels A, A′ and C) follows the
-  device and the mode and ignores the environment.  No card is needed:
-  ``torch.device("cuda")`` objects are enough.
+  ``table_dtype`` (the gather tables of kernels A, A′ and C) is bf16 on the
+  card in both modes and float32 on the CPU (tests/test_torch_bf16_train.py
+  covers its environment rule).  No card is needed: ``torch.device("cuda")``
+  objects are enough.
 * The plain versions of kernels A, A′ and C on bf16 q/k/v against the JAX
   package's Pallas kernels on the same bf16 inputs, in interpret mode.  C
   computes in float32 on the bf16 values in both, so they agree within
@@ -113,9 +115,12 @@ def _policies():
 @pytest.mark.parametrize("env", ENV)
 def test_policy_defaults_follow_device_and_mode(no_env, env):
     fn = _policies()[env]
+    # the backbone trains in bf16 on the card, the stacks in float32
+    train = (torch.bfloat16 if env == "CASMTR_BACKBONE_BF16"
+             else torch.float32)
     assert fn(torch.device("cuda"), False) == torch.bfloat16
     assert fn(torch.device("cuda", 0), False) == torch.bfloat16
-    assert fn("cuda", True) == torch.float32
+    assert fn("cuda", True) == train
     assert fn(torch.device("cpu"), False) == torch.float32
     assert fn(torch.device("cpu"), True) == torch.float32
 
@@ -139,10 +144,8 @@ def test_table_dtype_follows_device_and_mode_only(bf16_env):
     from casmtr_tpu_torch.models.transformer import table_dtype
     bf16, f32 = torch.bfloat16, torch.float32
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert table_dtype(cuda, False, bf16) == bf16
-    assert table_dtype(cpu, False, bf16) == f32   # the JAX CPU graph
-    assert table_dtype(cuda, True, bf16) == f32   # no bf16 backward yet
-    assert table_dtype(cuda, False, f32) == f32   # stack forced to f32
+    assert table_dtype(cuda) == bf16   # in eval and in training
+    assert table_dtype(cpu) == f32     # the JAX CPU graph
 
 
 # --------------------------------------------------------------------------

@@ -556,3 +556,92 @@ def test_train_step_runs_on_the_card_by_default():
     _, ttx = init_train_state(model, tcfg, 100, 1e-3, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         make_train_step(model, tcfg, ttx)
+
+
+# --------------------------------------------------------------------------
+# one step of each package, shared with the bf16 and ResNetFPN step tests
+# --------------------------------------------------------------------------
+
+def step_variables(jcfg, tcfg, batch, seed: int = 1):
+    """The JAX model, the zero-filled flax variable tree ``like`` and
+    jittered variables whose values come from the port's seeded
+    initialization (its tree from ``jax.eval_shape``), for one training
+    step of each package from the same weights."""
+    from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.weights import init_random_, jax_variables
+    jm = JaxCasMTR(jcfg.loftr)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in batch.items()},
+        train=False))
+    like = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                  dict(shapes))
+    model = build_model(tcfg.loftr)
+    init_random_(model, torch.Generator().manual_seed(seed))
+    return jm, like, jitter(jax_variables(model.state_dict(), like),
+                            seed=seed)
+
+
+def jax_step(jm, jcfg, variables, batch, exact: bool = False):
+    """The JAX package's training step on ``variables`` and ``batch``, and
+    ``jax.grad`` of the same composition: (scalars, gradients, batch
+    statistics after the step).  ``exact`` compiles with XLA's excess
+    precision off, so a bf16 graph rounds wherever flax's per-module dtype
+    says (as the port does)."""
+    from casmtr_tpu.train import supervision as jspv
+    from casmtr_tpu.train.loss import casmtr_loss as jax_loss
+    from casmtr_tpu.train.optim import build_optimizer as jax_build
+    from casmtr_tpu.train.train_step import TrainState as JaxState
+    from casmtr_tpu.train.train_step import make_train_step
+    names = [f"{lvl}c" for lvl in jcfg.loftr.cascade_levels]
+    tx = jax_build(jcfg.trainer, 1e-3, 100)
+    step_fn = make_train_step(jm, jcfg, tx)
+
+    def grads_fn(params, bs, b):
+        gt = jspv.compute_supervision(b, jcfg.loftr)
+        b = dict(b, **{f"gt_{k}_{n}": gt[f"gt_{k}_{n}"] for n in names
+                       for k in ("idx", "mask")})
+
+        def loss_fn(p):
+            out, _ = jm.apply({"params": p, "batch_stats": bs}, b,
+                              train=True, mutable=["batch_stats"])
+            eg = jspv.fine_expec_gt(gt, out.cascades[names[-1]].matches, b,
+                                    jcfg.loftr)
+            return jax_loss(out, gt, eg, jcfg.loftr)[0]
+
+        return jax.grad(loss_fn)(params)
+
+    def both(s, b):
+        return step_fn(s, b), grads_fn(s.params, s.batch_stats, b)
+
+    p0 = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state0 = JaxState(jnp.zeros((), jnp.int32), p0,
+                      jax.tree_util.tree_map(jnp.asarray,
+                                             variables["batch_stats"]),
+                      tx.init(p0))
+    args = (state0, {k: jnp.asarray(v) for k, v in batch.items()})
+    lowered = jax.jit(both).lower(*args)
+    compiled = (lowered.compile({"xla_allow_excess_precision": False})
+                if exact else lowered.compile())
+    (state1, scalars), grads = compiled(*args)
+    return scalars, grads, state1.batch_stats
+
+
+def torch_step(tcfg, variables, like, batch):
+    """The port's training step on the CPU from ``variables``: (scalars,
+    gradients, batch statistics after the step), laid out as flax trees."""
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.train.train_step import (init_train_state,
+                                                   make_train_step)
+    from casmtr_tpu_torch.weights import jax_variables, load_jax_variables
+    model = build_model(tcfg.loftr)
+    load_jax_variables(model, variables)
+    state, tx = init_train_state(model, tcfg, 100, 1e-3, device="cpu")
+    _, scalars = make_train_step(model, tcfg, tx, device="cpu")(state,
+                                                                batch)
+    grads = jax_variables(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in model.named_parameters()}, {"params": like["params"]})
+    stats = jax_variables(model.state_dict(),
+                          {"batch_stats": like["batch_stats"]})
+    return scalars, grads["params"], stats["batch_stats"]
