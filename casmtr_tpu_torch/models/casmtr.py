@@ -1,5 +1,6 @@
 """CasMTR-4c and CasMTR-2c forward in eval and train mode (counterpart of
-casmtr_tpu/models/casmtr.py for ``cascade_levels`` (4,) and (4, 2)):
+casmtr_tpu/models/casmtr.py for ``cascade_levels`` (4,) and (4, 2); the
+outdoor recipes and the indoor ``indoor_casmtr_4c_runnable``):
 backbone pyramid -> 1/8 quadtree transformer + dual-softmax -> per cascade
 level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
 matching -> fine sub-pixel refinement.
@@ -85,7 +86,7 @@ def _check_ported(cfg: LoftrConfig) -> None:
     if any(s.detector_mode is not None for s in stages):
         raise NotImplementedError(
             "the keypoint detector branch is not ported yet (ROADMAP queue "
-            "A: the indoor recipe)")
+            "A: the detector head)")
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -203,7 +204,9 @@ class CasMTR(nn.Module):
             mask_1, m_1 = level_mask(mask1_full, *hw1)
             t0, t1, idx01, idx10, corners01, corners10 = getattr(
                 self, f"loftr_coarse_{name}")(t0, t1, prev_idx01, prev_idx10,
-                                              hw0, hw1)
+                                              hw0, hw1, hw0_8c, hw1_8c,
+                                              ds.next_idx_c01,
+                                              ds.next_idx_c10)
             ws = cm.window_softmax_matching(
                 t0, t1, idx01, idx10, mc.dsmax_temperature[i], mask_0,
                 mask_1, corners0=corners01, corners1=corners10, hw0=hw0,

@@ -1,14 +1,24 @@
-"""Level padding masks (counterpart of ``level_mask`` in
-casmtr_tpu/models/loftr.py; the QuadtreeLoFTR assembly is not ported yet,
-ROADMAP queue A)."""
+"""The plain QuadtreeLoFTR assembly and the level padding masks
+(counterpart of casmtr_tpu/models/loftr.py): backbone -> sine PE -> 1/8
+transformer -> dual-softmax matching -> fine window refinement, in eval and
+train mode (``module.training``), in the precision policy of
+models/casmtr.py."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
+import torch.nn as nn
 
+from casmtr_tpu_torch.models.backbone import build_backbone
+from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
+from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
+from casmtr_tpu_torch.ops import fine_matching as fm
+from casmtr_tpu_torch.ops import matching
 from casmtr_tpu_torch.ops.image_ops import resize_nearest
+from casmtr_tpu_torch.ops.position_encoding import add_sine_pe_norm
+from casmtr_tpu_torch.structs import CoarseStage, FineStage, MatchOutput
 
 
 def level_mask(mask_full: Optional[torch.Tensor], h: int, w: int):
@@ -18,3 +28,75 @@ def level_mask(mask_full: Optional[torch.Tensor], h: int, w: int):
         return None, None
     m = resize_nearest(mask_full.float(), h, w)
     return m.reshape(m.shape[0], -1), m
+
+
+class QuadtreeLoFTR(nn.Module):
+    """LoFTR with quadtree attention at 1/8 (``loftr_coarse``) and linear
+    attention in the fine windows at ``resolution[1]``; no cascade."""
+
+    def __init__(self, config):
+        super().__init__()
+        if config.fine.block_type != "loftr":
+            raise NotImplementedError(
+                f"fine block {config.fine.block_type!r} is not ported yet")
+        self.config = config
+        self.backbone = build_backbone(config)
+        self.loftr_coarse = LocalFeatureTransformer(config.coarse)
+        self.fine_preprocess = FinePreprocess(
+            config.fine.d_model, config.coarse.d_model,
+            config.backbone.block_dims[0], config.fine_window_size,
+            cat_c_feat=config.fine_concat_coarse_feat)
+        self.loftr_fine = LocalFeatureTransformer(config.fine)
+
+    def forward(self, batch: Dict[str, torch.Tensor],
+                capacity_scale: int = 1) -> MatchOutput:
+        """batch as CasMTR.forward's (image0/image1 [B, H, W, 3], optional
+        mask0/mask1 and scale0/scale1); ``capacity_scale`` multiplies the
+        match capacity in eval (a batch of B pairs shares one selection)."""
+        cfg = self.config
+        ts = cfg.train_size
+        img0 = batch["image0"].permute(0, 3, 1, 2)
+        img1 = batch["image1"].permute(0, 3, 1, 2)
+        B, _, H0, W0 = img0.shape
+        H1, W1 = img1.shape[-2:]
+        scale0, scale1 = batch.get("scale0"), batch.get("scale1")
+
+        if (H0, W0) == (H1, W1):   # both images in one BatchNorm batch
+            fc, ff = self.backbone(torch.cat([img0, img1], dim=0))
+            feat_c0, feat_c1 = fc.chunk(2)
+            feat_f0, feat_f1 = ff.chunk(2)
+        else:
+            feat_c0, feat_f0 = self.backbone(img0)
+            feat_c1, feat_f1 = self.backbone(img1)
+        hc0, hc1 = tuple(feat_c0.shape[-2:]), tuple(feat_c1.shape[-2:])
+
+        t0, t1 = (add_sine_pe_norm(f, (ts // 8, ts // 8)).flatten(2)
+                  .transpose(1, 2) for f in (feat_c0, feat_c1))
+        mask_c0, m0 = level_mask(batch.get("mask0"), *hc0)
+        mask_c1, m1 = level_mask(batch.get("mask1"), *hc1)
+        t0, t1 = self.loftr_coarse(t0, t1, hc0, hc1, mask_c0, mask_c1)
+        mc = cfg.match_coarse
+        ds = matching.dual_softmax(t0, t1, mc.dsmax_temperature, mask_c0,
+                                   mask_c1)
+        matches = matching.extract_coarse_matches(
+            ds.conf_matrix, mc.thr, mc.border_rm, hc0, hc1,
+            mc.max_matches * capacity_scale,
+            scale=H0 / hc0[0], mask0=m0, mask1=m1, scale0=scale0,
+            scale1=scale1)
+        coarse = CoarseStage(ds.conf_matrix, ds.next_idx_c01, ds.next_idx_c10,
+                             ds.next_conf_c01, ds.next_conf_c10, matches,
+                             hc0, hc1)
+
+        Wf = cfg.fine_window_size
+        ff0, ff1 = self.fine_preprocess(
+            feat_f0.permute(0, 2, 3, 1), feat_f1.permute(0, 2, 3, 1), t0, t1,
+            matches, hc0, hc1)
+        ff0, ff1 = self.loftr_fine(ff0, ff1, (Wf, Wf), (Wf, Wf))
+        fr = fm.fine_match(ff0, ff1)
+        s1 = scale1[matches.b_ids] if scale1 is not None else None
+        mk0, mk1 = fm.fine_keypoints(matches, fr.coords_norm, Wf,
+                                     scale_f=H0 / feat_f0.shape[-2],
+                                     scale1=s1)
+        return MatchOutput(coarse, {}, FineStage(fr.expec_f, mk0, mk1),
+                           matches._replace(mkpts0=mk0, mkpts1=mk1),
+                           (H0, W0), (H1, W1))

@@ -1,6 +1,6 @@
 """Coarse-level transformer stacks and their precision policy (counterpart
 of casmtr_tpu/models/transformer.py: transformer_dtype, Mlp,
-LoFTREncoderLayer, QuadtreeAttention, QuadtreeBlock,
+LoFTREncoderLayer, QuadtreeAttention with attention A or B, QuadtreeBlock,
 LocalFeatureTransformer).  Tokens are [B, L, C]; module and parameter names
 follow the reference torch modules, so ``state_dict`` keys are the JAX
 package's flax paths as utils/convert.py maps them.
@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.ops.attention import full_attention, linear_attention
 from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
-from casmtr_tpu_torch.ops.quadtree import qtatt_b
+from casmtr_tpu_torch.ops.quadtree import qtatt_a, qtatt_b
 
 
 def transformer_dtype(device: torch.device, train: bool) -> torch.dtype:
@@ -136,18 +136,25 @@ class QTAttB(nn.Module):
 
 class QuadtreeAttention(nn.Module):
     """1x1-conv q/k/v projections, a 2x2 average-pool pyramid of ``scale``
-    levels, quadtree attention B, and the output projection."""
+    levels, quadtree attention ``attn_type`` ("B", with its merge logits
+    ``py_att``, or "A", which has none), and the output projection."""
 
     def __init__(self, dim: int, num_heads: int, topks: Sequence[int],
-                 scale: int = 3):
+                 scale: int = 3, attn_type: str = "B"):
         super().__init__()
+        if attn_type not in ("A", "B"):
+            raise NotImplementedError(
+                f"quadtree attention {attn_type!r} is not ported yet "
+                "(ROADMAP queue A: Guided)")
         self.num_heads = num_heads
         self.topks = tuple(topks)
         self.scale = scale
+        self.attn_type = attn_type
         self.q_proj = nn.Conv2d(dim, dim, 1, bias=False)
         self.k_proj = nn.Conv2d(dim, dim, 1, bias=False)
         self.v_proj = nn.Conv2d(dim, dim, 1, bias=False)
-        self.py_att = QTAttB(scale)
+        if attn_type == "B":
+            self.py_att = QTAttB(scale)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, target, hw_x: Tuple[int, int],
@@ -176,7 +183,10 @@ class QuadtreeAttention(nn.Module):
             sizes.append(tuple(q.shape[-2:]))
             if i != self.scale - 1:
                 q, k, v = avg_pool_2x2(q), avg_pool_2x2(k), avg_pool_2x2(v)
-        msg = self.py_att(qs, ks, vs, sizes, self.topks)      # float32
+        if self.attn_type == "B":
+            msg = self.py_att(qs, ks, vs, sizes, self.topks)  # float32
+        else:
+            msg = qtatt_a(qs, ks, vs, sizes, self.topks)
         return run(self.proj, msg.reshape(B, L, C), dt)
 
 
@@ -185,10 +195,12 @@ class QuadtreeBlock(nn.Module):
     and target."""
 
     def __init__(self, dim: int, num_heads: int, topks: Sequence[int],
-                 scale: int = 3, mlp_ratio: float = 4.0):
+                 scale: int = 3, mlp_ratio: float = 4.0,
+                 attn_type: str = "B"):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = QuadtreeAttention(dim, num_heads, topks, scale)
+        self.attn = QuadtreeAttention(dim, num_heads, topks, scale,
+                                      attn_type)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
@@ -210,13 +222,13 @@ class LocalFeatureTransformer(nn.Module):
         super().__init__()
         self.config = config
         if config.block_type == "quadtree":
-            if config.attn_type != "B" or config.relative_pe:
+            if config.relative_pe:
                 raise NotImplementedError(
-                    f"quadtree attention {config.attn_type!r} with "
-                    f"relative_pe={config.relative_pe} is not ported yet "
-                    "(ROADMAP queue A: QuadtreeLoFTR, the indoor recipe)")
+                    "the 1/8 quadtree stack's relative PE is not ported yet "
+                    "(ROADMAP queue A: coarse relative PE)")
             self.layers = nn.ModuleList(
-                QuadtreeBlock(config.d_model, config.nhead, config.topks, 3)
+                QuadtreeBlock(config.d_model, config.nhead, config.topks, 3,
+                              attn_type=config.attn_type)
                 for _ in config.layer_names)
         elif config.block_type == "loftr":
             self.layers = nn.ModuleList(

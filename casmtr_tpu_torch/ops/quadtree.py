@@ -1,6 +1,7 @@
-"""Quadtree attention B and its cascade form (counterpart of
-casmtr_tpu/ops/quadtree.py; only what ``qtatt_b`` and ``cascade_qtatt_b``
-use on the 4c and 2c paths).
+"""Quadtree attention A and B and the cascade form of B (counterpart of
+casmtr_tpu/ops/quadtree.py and of the gathers of
+casmtr_tpu/ops/gather_ops.py: ``qtatt_a``, ``qtatt_b`` and
+``cascade_qtatt_b``).
 
 Semantics are the JAX package's: the pyramid runs coarsest to finest, full
 attention plus top-k at the coarsest level, and at each finer level every
@@ -14,7 +15,10 @@ kernel A′ (ops/kernels/quadtree_kernels.py); both messages' gradients go
 through kernel A-bwd.  The selection carries no gradient, as in the JAX
 package (its callers use only the selected indices).  The cascade window
 cross-attention goes through CUDA kernels C and C-bwd
-(ops/kernels/window_kernels.py).
+(ops/kernels/window_kernels.py); with a relative position bias it takes
+the JAX package's gather path instead, in plain PyTorch.  Quadtree
+attention A has no Pallas kernel in the JAX package and none here: it is
+plain PyTorch on every device (``gather_scores``, ``gather_aggregate``).
 
 q/k/v may be bfloat16 (the gather tables of the bf16 eval path and of the
 bf16 training step): every contraction then runs in float32 on the bf16
@@ -29,6 +33,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
+from casmtr_tpu_torch.ops import kernels
 from casmtr_tpu_torch.ops.kernels.quadtree_kernels import (
     quadtree_fine_attention, quadtree_fine_topk)
 from casmtr_tpu_torch.ops.kernels.window_kernels import window_cross_attention
@@ -141,34 +146,156 @@ def qtatt_b(queries: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
     return _merge_messages(messages, parent_hw, merge_weight)
 
 
+def topk_lowest_first(x: torch.Tensor, k: int, dim: int):
+    """The ``k`` largest entries along ``dim``, in descending order, with
+    ties to the lower index (the rule of the JAX package's CPU top-k,
+    ``lax.top_k``).  Returns (values, indices)."""
+    v, i = torch.sort(x, dim=dim, descending=True, stable=True)
+    return v.narrow(dim, 0, k), i.narrow(dim, 0, k)
+
+
+def gather_keys(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-head row gather: table [B, Lk, H, D], idx [B, P, C, H] ->
+    [B, P, C, H, D], out[b, p, c, h] = table[b, idx[b, p, c, h], h], under
+    the clipped-gather rule."""
+    B, Lk, H, _ = table.shape
+    idx = kernels.clip_index(idx.long(), Lk)
+    bi = torch.arange(B, device=table.device)[:, None, None, None]
+    hi = torch.arange(H, device=table.device)[None, None, None, :]
+    return table[bi, idx, hi]
+
+
+def gather_scores(query: torch.Tensor, key: torch.Tensor,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """Scores [B, P, 4, C, H] of the 2x2-blocked queries [B, P, 4, H, D]
+    against the candidate keys ``idx`` [B, P, C, H] (shared by the 4
+    children) of key [B, Lk, H, D]."""
+    return torch.einsum("bpfhd,bpchd->bpfch", query, gather_keys(key, idx))
+
+
+def gather_aggregate(attn: torch.Tensor, value: torch.Tensor,
+                     idx: torch.Tensor) -> torch.Tensor:
+    """Message [B, P, 4, H, D] of the weights attn [B, P, 4, C, H] over the
+    candidate values ``idx`` [B, P, C, H] of value [B, Lk, H, D]."""
+    return torch.einsum("bpfch,bpchd->bpfhd", attn, gather_keys(value, idx))
+
+
+def _drop(A: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
+    """``A`` with the entries at ``idx`` along ``dim`` set to 0."""
+    return A * torch.ones_like(A).scatter(dim, idx, 0.0)
+
+
+def qtatt_a(queries: Sequence[torch.Tensor], keys: Sequence[torch.Tensor],
+            values: Sequence[torch.Tensor], sizes: Sequence[Tuple[int, int]],
+            topks: Sequence[int]) -> torch.Tensor:
+    """QTAttA forward, in plain PyTorch on every device (the JAX package
+    has no kernel for it).  Pyramid lists as ``qtatt_b``'s, finest first.
+
+    Against B: a level's message leaves out the keys it selects, which the
+    next level refines instead (but the finest level keeps them); a fine
+    level's scores are a softmax over each selected key's 4 children,
+    times that key's score at the level above; and the messages are summed
+    while un-blocking, with no merge weight.  q/k/v are widened to float32;
+    returns [B, L_finest, H, D] float32."""
+    n_levels = len(queries)
+    messages, parent_hw = [], []
+    topk_idx = topk_score = None
+    for i in range(n_levels):
+        li = n_levels - 1 - i
+        q, k, v = (t[li].float() for t in (queries, keys, values))
+        h, w = sizes[li]
+        D = q.shape[-1]
+        if i == 0:
+            qk = torch.einsum("blhd,bshd->blsh", q, k) * (D ** -0.5)
+            A = torch.softmax(qk, dim=2)
+            topk_score, ti = topk_lowest_first(A, topks[0], 2)
+            topk_idx = ti.to(torch.int32)                    # [B, L, K, H]
+            msg = torch.einsum("blsh,bshd->blhd", _drop(A, ti, 2), v)
+            parent_hw.append((h, w))
+        else:
+            K = topk_idx.shape[2]
+            qb = block_children(q, h, w)                     # [B, P, 4, H, D]
+            idx = expand_child_indices(topk_idx, sizes[li + 1][1], w)
+            qk = gather_scores(qb, k, idx) * (D ** -0.5)     # [B, P, 4, 4K, H]
+            B, P, _, _, H = qk.shape
+            A = torch.softmax(qk.reshape(B, P, 4, K, 4, H), dim=4)
+            A = (A * topk_score[:, :, None, :, None, :]).reshape(
+                B, P, 4, 4 * K, H)
+            if i < n_levels - 1:
+                topk_score, local = topk_lowest_first(A, topks[i], 3)
+                topk_idx = torch.gather(
+                    idx[:, :, None].expand(A.shape), 3, local)
+                msg = gather_aggregate(_drop(A, local, 3), v, idx)
+                topk_score = unblock_children(topk_score, h // 2, w // 2)
+                topk_idx = unblock_children(topk_idx, h // 2, w // 2)
+            else:
+                msg = gather_aggregate(A, v, idx)
+            parent_hw.append(sizes[li + 1])
+        messages.append(msg)
+    final = messages[0]
+    for i in range(1, n_levels):
+        final = unblock_children(final[:, :, None] + messages[i],
+                                 *parent_hw[i])
+    return final
+
+
+def _cascade_gather(q, k, v, idx_sh, hw_q: Tuple[int, int],
+                    rel_pos: torch.Tensor) -> torch.Tensor:
+    """The JAX package's gather path of ``cascade_qtatt_b``: the K||V rows
+    of each parent's candidates ``idx_sh`` [B, P, 4Kw] gathered in one
+    take, the windowed relative bias ``rel_pos`` [B, H, Lq, 4Kw] added to
+    the scores before the softmax.  q/k/v widened to float32; returns the
+    message [B, Lq, H, D] float32."""
+    h0, w0 = hw_q
+    B, Lq, H, D = q.shape
+    q, k, v = q.float(), k.float(), v.float()
+    qb = block_children(q, h0, w0)                       # [B, P, 4, H, D]
+    kv = torch.cat([k.reshape(B, -1, H * D), v.reshape(B, -1, H * D)], -1)
+    bi = torch.arange(B, device=q.device)[:, None, None]
+    kv_g = kv[bi, kernels.clip_index(idx_sh.long(), kv.shape[1])]
+    kv_g = kv_g.reshape(B, Lq // 4, idx_sh.shape[-1], 2, H, D)
+    qk = torch.einsum("bpfhd,bpchd->bpfhc", qb, kv_g[:, :, :, 0]) * (
+        D ** -0.5)
+    rp = block_children(rel_pos.movedim(1, -1), h0, w0)  # [B, P, 4, 4Kw, H]
+    A = torch.softmax(qk + rp.transpose(3, 4), dim=-1)
+    msg = torch.einsum("bpfhc,bpchd->bpfhd", A, kv_g[:, :, :, 1])
+    return unblock_children(msg, h0 // 2, w0 // 2)
+
+
 def cascade_qtatt_b(q, k, v, topk_pos: torch.Tensor, hw_q: Tuple[int, int],
                     hw_k: Tuple[int, int], dilated: int = 1,
-                    window_structured: bool = False):
+                    rel_pos=None, window_structured: bool = False):
     """CascadeQTAttB: window cross-attention over 2x-upsampled positions.
 
     q: [B, Lq, H, D]; k/v: [B, Lk, H, D]; topk_pos: [B, P, Kw, 2] (row, col)
     window positions on the previous (2x coarser) grid of the keys, P ==
-    Lq // 4.  Only the structured form runs here (a contiguous boundary-
-    shifted window, dilation 1: its candidates are the (2w x 2w) patch at
-    the window's top-left corner * 2), which kernel C computes.
+    Lq // 4; rel_pos: None, or the windowed relative position bias
+    [B, H, Lq, 4Kw] of the indoor recipe.  Without ``rel_pos`` only the
+    structured form runs (a contiguous boundary-shifted window, dilation 1:
+    its candidates are the (2w x 2w) patch at the window's top-left corner
+    * 2), which kernel C computes.  With ``rel_pos`` the JAX package takes
+    its gather path, here in plain PyTorch on every device.
     Returns (message [B, Lq, H, D], upsampled_idx [B, Lq, 4Kw])."""
-    if not window_structured or dilated != 1:
+    structured = window_structured and dilated == 1
+    if not structured and rel_pos is None:
         raise NotImplementedError(
             "cascade_qtatt_b: only the structured window propagation with "
-            "dilation 1 is ported (ROADMAP queue A: the other "
-            "propagations and relative PE)")
+            "dilation 1, or relative PE, is ported (ROADMAP queue A: the "
+            "other propagations)")
     h0, w0 = hw_q
     h1, w1 = hw_k
     B, Lq, H, D = q.shape
     Kw = topk_pos.shape[2]
-    w_prop = int(round(Kw ** 0.5))
-    corners = topk_pos[:, :, 0, :].to(torch.int32).contiguous()
-    msg = window_cross_attention(q, k, v, corners, hw_q, hw_k, w_prop)
-    msg = unblock_children(msg, h0 // 2, w0 // 2)        # [B, Lq, H, D]
-
     flat_prev = topk_pos[..., 0] * (w1 // 2) + topk_pos[..., 1]  # [B, P, Kw]
     idx_sh = expand_child_indices(flat_prev[..., None], w1 // 2, w1,
                                   dilated=dilated,
                                   clamp_max=h1 * w1 - 1)[..., 0]  # [B, P, 4Kw]
+    if rel_pos is not None:
+        msg = _cascade_gather(q, k, v, idx_sh, hw_q, rel_pos)
+    else:
+        corners = topk_pos[:, :, 0, :].to(torch.int32).contiguous()
+        msg = window_cross_attention(q, k, v, corners, hw_q, hw_k,
+                                     int(round(Kw ** 0.5)))
+        msg = unblock_children(msg, h0 // 2, w0 // 2)    # [B, Lq, H, D]
     up_idx = idx_sh[:, :, None].expand(B, Lq // 4, 4, 4 * Kw)
     return msg, unblock_children(up_idx, h0 // 2, w0 // 2)

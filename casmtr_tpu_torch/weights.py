@@ -12,7 +12,9 @@ key:
 * Conv kernel HWIO -> OIHW (depthwise [kh, kw, 1, C] -> [C, 1, kh, kw]);
 * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var; LayerNorm scale -> weight;
-* QTAttB merge logits ``py_att_weight`` -> ``py_att.weight``.
+* QTAttB merge logits ``py_att_weight`` -> ``py_att.weight`` (quadtree
+  attention A has none); Embed ``embedding`` -> Embedding ``weight``; POLA's
+  ``relative_position_bias_table`` keeps its name.
 
 ``jax_variables`` is the inverse: it lays torch tensors (parameters,
 running statistics, or gradients by parameter name) out as the nested
@@ -160,7 +162,10 @@ def jax_variables(tensors: Mapping[str, torch.Tensor], like: Mapping
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: Linear/Conv weights N(0, 1/fan_in), biases 0,
     norm scales 1, BatchNorm running statistics (0, 1), quadtree merge
-    logits N(0, 1).  Raises if a parameter is of a kind not listed."""
+    logits and relative-PE embeddings N(0, 1), POLA bias tables N(0,
+    0.02^2) (the JAX package's initial scale).  Raises if a parameter is of
+    a kind not listed."""
+    from casmtr_tpu_torch.models.pola import NeighborWindowAttention
     from casmtr_tpu_torch.models.transformer import QTAttB
 
     def randn(t: torch.Tensor, std: float) -> torch.Tensor:
@@ -178,8 +183,11 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
                 m.bias.zero_()
                 if isinstance(m, nn.BatchNorm2d):
                     m.reset_running_stats()
-            elif isinstance(m, QTAttB):
+            elif isinstance(m, (QTAttB, nn.Embedding)):
                 m.weight.copy_(randn(m.weight, 1.0))
+            elif isinstance(m, NeighborWindowAttention):
+                t = m.relative_position_bias_table
+                t.copy_(randn(t, 0.02))
             else:
                 continue
             done.update(id(p) for p in m.parameters(recurse=False))

@@ -5,10 +5,14 @@ Run from the root of the repository with no arguments:
 
     python3 chip_smoke.py
 
-It drives both ported recipes, outdoor_casmtr_4c and outdoor_casmtr_2c, and
-the flagship's ResNetFPN variant of 4c (RESNET: the backbone of
-__graft_entry__._flagship_cfg(backbone="resnet")), at full width.  Phases,
-each printing its own lines and its seconds:
+It drives the ported recipes outdoor_casmtr_4c and outdoor_casmtr_2c, the
+flagship's ResNetFPN variant of 4c (RESNET: the backbone of
+__graft_entry__._flagship_cfg(backbone="resnet")), the plain QuadtreeLoFTR
+recipe quadtree_baseline (BASELINE: ResNetFPN_8_2, gray, eight quadtree
+layers, no cascade) and the indoor recipe indoor_casmtr_4c_runnable
+(INDOOR: ResNetFPN_8_4_2, eight quadtree layers, POLA self layers and
+relative-PE cross layers at 1/4, served at bucket 640 and trained at 640^2),
+at full width.  Phases, each printing its own lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
@@ -42,7 +46,10 @@ each printing its own lines and its seconds:
    inputs 4 bytes off, edge corners, w = 1, a batch of two), each case also
    through the bf16 instances of A-bwd and C-bwd (below); and the
    refusals: an odd width and inputs 2 bytes off raise before any launch
-   in A, A′, C, A-bwd and C-bwd.
+   in A, A′, C, A-bwd and C-bwd.  Then A (104^2, K = 8) and A′ (52^2,
+   K = 16, top 8) at quadtree_baseline's 832^2 shapes and A (80^2, K = 16),
+   A′ (40^2, K = 32, top 16) and B (160^2) at the indoor recipe's 640^2
+   shapes, A and A′ also through their bf16 instances.
 3. Training kernels: the same at the shapes of the 704^2 training step for
    the forward kernels with their log-sum-exp output and for the three
    backward kernels (A-bwd at 88^2 and 44^2; B, B-bwd, C and C-bwd at 176^2
@@ -71,7 +78,10 @@ each printing its own lines and its seconds:
    nothing).  Then each autograd function on the card at a tiny shape: its
    kernel gradient against a central finite difference of its kernel
    forward along a random direction (float32 forward, so within 1e-2
-   relative).
+   relative).  Then A with its log-sum-exp, A′ through its autograd
+   function and A-bwd at both fine levels (f32 and bf16) of
+   quadtree_baseline's 704^2 step (88^2 K = 8, 44^2 K = 16) and of the
+   indoor recipe's 640^2 step (80^2, 40^2), and B and B-bwd at 160^2.
 4. Serving: Matcher(recipe, bucket=832) at full width on the card with
    seeded random weights answers three requests (textured images and
    shifted copies, one non-square), for 4c and then 2c, first in the
@@ -83,10 +93,13 @@ each printing its own lines and its seconds:
    (4c) or 8 (2c) and no f32 A, A′ or C; in float32 the f32 ones and no
    bf16 instance; B (float32 in both) 2 or 4.  Steady latency and peak
    memory per precision.  The ResNetFPN variant answers the same requests
-   in the card's default, with 4c's counts.
+   in the card's default, with 4c's counts.  quadtree_baseline (A 16,
+   A′ 16 per pair) and the indoor recipe at bucket 640 on 640x480 frames
+   (A 16, A′ 16, B 2; its cross layers take the relative-PE gather path,
+   so C 0) answer in both precisions.
 5. Profile: one more steady request of each recipe in each precision under
    torch.profiler (device busy share, device time by operator and by
-   kernel).
+   kernel); of quadtree_baseline and the indoor recipe in bf16 only.
 6. Reference: each full-width recipe at bucket 256 with its match
    thresholds at 0, on one pair: the card with float32 forced against the
    CPU (plain versions) -- coarse and window confidences and final matches
@@ -94,7 +107,8 @@ each printing its own lines and its seconds:
    both variables at 1 (bf16 stacks, f32 kernel inputs, the JAX package's
    CPU graph): at every stage, common confidences within max(5e-2, 1.5x)
    and, at stages of 20 matches or more, Jaccard at least min(0.9, its) -
-   0.1, of the CPU's own bf16-against-f32 difference.
+   0.1, of the CPU's own bf16-against-f32 difference.  Likewise
+   quadtree_baseline (no window confidences) and the indoor recipe.
 7. Training: train_step on each recipe and the ResNetFPN variant at
    704^2, batch 1, full width and depth, seeded random weights, on a pair
    whose image1 is a shifted crop of image0 with the matching camera
@@ -107,7 +121,9 @@ each printing its own lines and its seconds:
    read just after; finite losses, matches to supervise at every cascade
    level, parameters that moved, nonzero finite gradients on the q/k/v
    projections that go through kernels A, A′ and C.  Then one more step
-   under torch.profiler, per precision.
+   under torch.profiler, per precision.  quadtree_baseline at 704^2 (per
+   step A 16, A′ 16, A-bwd 32) and the indoor recipe at 640^2 (also B 2,
+   B-bwd 1, no C) likewise; their profiled step in bf16 only.
 8. Training reference: one step at 256^2 on the card and on the CPU from
    the same weights and batch.  With float32 forced on both (each recipe
    and the ResNetFPN variant): loss within 1e-4 relative, cosine of the
@@ -120,7 +136,11 @@ each printing its own lines and its seconds:
    CASMTR_BACKBONE_BF16=1 (bf16 backbone, f32 kernel inputs): each loss
    term within max(2e-2, 4x the CPU's own bf16-backbone-against-f32
    relative difference of that term), 1 - gradient cosine within
-   max(1e-3, 4x the CPU's own).
+   max(1e-3, 4x the CPU's own).  quadtree_baseline and the indoor
+   recipe are ResNetFPN-based as the variant: their whole f32 step is
+   printed with the CPU's response to a nudge, their backbone gated as the
+   variant's, and the indoor 1/4 stack alone (POLA and the relative-PE
+   gather path) as the recipes' cascade stacks.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -200,7 +220,9 @@ BACKBONE_RTOL = 1e-4
 # cascade loss's move when one of its ~50 supervised matches flips at 256^2
 BF16_TRAIN_NOISE = 4.0
 BF16_LOSS_RTOL = 2e-2
-REFERENCE_S_PER_STEP = 1.19  # the reference's own 4c GPU step (fp16), bench.py
+# the reference's own GPU training step, 704^2, fp16: its cascade-free
+# quadtree step (bench.py, BASELINE.md), quadtree_baseline's architecture
+REFERENCE_S_PER_STEP = 1.19
 
 HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than the
                          # host takes to enqueue one kernel wrapper
@@ -217,10 +239,25 @@ RECIPES = ("outdoor_casmtr_4c", "outdoor_casmtr_2c")
 # the flagship's ResNetFPN variant: outdoor_casmtr_4c with the backbone of
 # __graft_entry__._flagship_cfg(backbone="resnet")
 RESNET = "outdoor_casmtr_4c ResNetFPN"
+# the plain QuadtreeLoFTR (ResNetFPN_8_2, gray, no cascade) and the indoor
+# CasMTR-4c (ResNetFPN_8_4_2, POLA self layers, relative-PE cross layers)
+BASELINE = "quadtree_baseline"
+INDOOR = "indoor_casmtr_4c_runnable"
 MODELS = {r: (r, {}) for r in RECIPES}
 MODELS[RESNET] = ("outdoor_casmtr_4c", {"loftr": {"backbone": {
     "backbone_type": "ResNetFPN", "initial_dim": 64,
     "block_dims": [64, 128, 256]}}})
+MODELS[BASELINE] = (BASELINE, {})
+MODELS[INDOOR] = (INDOOR, {})
+# per model: quadtree layers at 1/8, cascade levels, and of those the levels
+# whose two cross layers run kernel C (the indoor recipe's relative-PE cross
+# layers take the gather path instead)
+LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
+          RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0)}
+# serving canvas and training size per model: the indoor recipe serves a
+# ScanNet 640x480 frame padded to 640^2 and trains at its train_size
+BUCKET = {m: 832 for m in MODELS}
+BUCKET[INDOOR] = 640
 TPU_KERNELS = {
     "quadtree_fine_attention":
         "casmtr_tpu/ops/pallas/quadtree_kernels.py:118",
@@ -267,45 +304,44 @@ def _typed(counts, bf16):
     return out
 
 
-def per_pair(n_levels, bf16):
-    """Launches per image pair on the eval path (no backward): 6 quadtree
-    layers x 2 images, each running A′ at the intermediate and A at the
-    finest 1/8 level; per cascade level 2 window-score directions and 2
-    cross layers x 2 images.  With ``bf16`` (the card's eval default) A, A′
-    and C are their bf16 instances and their f32 instances launch 0 times;
-    B stays f32."""
-    return dict(_typed({"quadtree_fine_attention": 12,
-                        "quadtree_fine_topk": 12,
-                        "window_cross_attention": 4 * n_levels,
+def per_pair(model, bf16):
+    """Launches per image pair on the eval path (no backward): each 1/8
+    quadtree layer runs A′ at the intermediate and A at the finest level
+    once per image; per cascade level 2 window-score directions, and on
+    the levels that use kernel C 2 cross layers x 2 images.  With ``bf16``
+    (the card's eval default) A, A′ and C are their bf16 instances and
+    their f32 instances launch 0 times; B stays f32."""
+    qt, levels, c_levels = LAYOUT[model]
+    return dict(_typed({"quadtree_fine_attention": 2 * qt,
+                        "quadtree_fine_topk": 2 * qt,
+                        "window_cross_attention": 4 * c_levels,
                         "quadtree_fine_attention_bwd": 0,
                         "window_cross_attention_bwd": 0}, bf16),
-                window_patch_score=2 * n_levels, window_patch_score_bwd=0)
+                window_patch_score=2 * levels, window_patch_score_bwd=0)
 
 
-def per_step(n_levels, bf16):
+def per_step(model, bf16):
     """Launches per training step (no rematerialization): the forward's,
     and one backward for each forward whose inputs need a gradient -- all
     but the detached 1->0 window scores; A and A′ share A-bwd.  With
     ``bf16`` (the card's training default) A, A′, A-bwd, C and C-bwd are
     their bf16 instances and their f32 instances launch 0 times; B and B-bwd
     stay f32."""
-    return dict(per_pair(n_levels, bf16), **_typed(
-        {"quadtree_fine_attention_bwd": 24,
-         "window_cross_attention_bwd": 4 * n_levels}, bf16),
-        window_patch_score_bwd=n_levels)
-
-
-def n_levels(model):
-    return 2 if MODELS[model][0].endswith("2c") else 1
+    qt, levels, c_levels = LAYOUT[model]
+    return dict(per_pair(model, bf16), **_typed(
+        {"quadtree_fine_attention_bwd": 4 * qt,
+         "window_cross_attention_bwd": 4 * c_levels}, bf16),
+        window_patch_score_bwd=levels)
 
 
 # per pair or step in the card's default (bf16), and with float32 forced
-LAUNCHES_PER_PAIR = {m: per_pair(n_levels(m), True) for m in MODELS}
-LAUNCHES_PER_PAIR_F32 = {m: per_pair(n_levels(m), False) for m in MODELS}
-LAUNCHES_PER_TRAIN_STEP = {m: per_step(n_levels(m), True) for m in MODELS}
-LAUNCHES_PER_TRAIN_STEP_F32 = {m: per_step(n_levels(m), False)
-                               for m in MODELS}
+LAUNCHES_PER_PAIR = {m: per_pair(m, True) for m in MODELS}
+LAUNCHES_PER_PAIR_F32 = {m: per_pair(m, False) for m in MODELS}
+LAUNCHES_PER_TRAIN_STEP = {m: per_step(m, True) for m in MODELS}
+LAUNCHES_PER_TRAIN_STEP_F32 = {m: per_step(m, False) for m in MODELS}
 TRAIN_SIZE = 704
+TRAIN_SIZES = {m: TRAIN_SIZE for m in MODELS}
+TRAIN_SIZES[INDOOR] = 640
 TRAIN_SHIFT = (16, 24)   # (dy, dx) pixels from image0 to image1
 # The library yardstick of each row: one PyTorch call on inputs gathered
 # beforehand (the gather is not timed).  scaled_dot_product_attention takes
@@ -394,12 +430,13 @@ def bound(bytes_moved, flops, bf16_flops=0):
 # phases 2 and 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def quadtree_inputs(torch, gen, g):
+def quadtree_inputs(torch, gen, g, topks=(32, 16)):
     """The 1/8 quadtree pyramid on a g x g finest grid (g^2, (g/2)^2, (g/4)^2
-    grids, H=8, D=32, topks 32/16) from seeded features; the block ids of
-    the two fine levels come from the real coarse-level top-k and the real
-    intermediate-level selection.  Returns {label: ((q, k, v), ids, hw)}
-    for the intermediate and the finest level."""
+    grids, H=8, D=32, the coarse and intermediate levels' ``topks``) from
+    seeded features; the block ids of the two fine levels come from the
+    real coarse-level top-k and the real intermediate-level selection.
+    Returns {label: ((q, k, v), ids, hw)} for the intermediate and the
+    finest level."""
     from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
     from casmtr_tpu_torch.ops.kernels.quadtree_kernels import \
         quadtree_fine_topk_plain
@@ -414,8 +451,9 @@ def quadtree_inputs(torch, gen, g):
         levels.append((tuple(q.shape[-2:]), toks))
         q, k, v = avg_pool_2x2(q), avg_pool_2x2(k), avg_pool_2x2(v)
     (hw2, l2), (hw1, l1), (hw0, l0) = levels
-    _, ids1 = _coarse_level(*l0, 32)
-    ids2 = quadtree_fine_topk_plain(*l1, ids1, hw1, hw1, 16)[2].contiguous()
+    _, ids1 = _coarse_level(*l0, topks[0])
+    ids2 = quadtree_fine_topk_plain(*l1, ids1, hw1, hw1,
+                                    topks[1])[2].contiguous()
     return {f"intermediate {g // 2}x{g // 2}": (l1, ids1, hw1),
             f"finest {g}x{g}": (l2, ids2, hw2)}
 
@@ -1347,10 +1385,11 @@ def bf16_bwd_rows(torch, rows, gen, path, levels):
             bf16_flops=attention_flops(P * H, 4 * w * w, D, backward=True))
 
 
-def window_rows(torch, rows, gen, path, grid, C, H, train):
-    """Kernels B and C on a grid x grid cascade level (w = 5; window scores
-    over C channels, cross-attention with H heads of 32); for training with
-    C's log-sum-exp output, and B-bwd and C-bwd."""
+def window_rows(torch, rows, gen, path, grid, C, H, train, with_c=True):
+    """Kernels B and C (B alone without ``with_c``) on a grid x grid cascade
+    level (w = 5; window scores over C channels, cross-attention with H
+    heads of 32); for training with C's log-sum-exp output, and B-bwd and
+    C-bwd."""
     from casmtr_tpu_torch.ops.kernels import window_kernels as wk
     corners = window_inputs(torch, gen, grid // 2)
     w, D = 5, 32
@@ -1385,6 +1424,8 @@ def window_rows(torch, rows, gen, path, grid, C, H, train):
                        q_blk, feat1, corners, g, w),
                    desc, nbytes(q_blk, feat1, corners, g, q_blk, feat1),
                    P * 2 * (2 * 4 * NC * C), scattered=(1,))
+    if not with_c:
+        return
 
     q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
                            device="cuda") for _ in range(3))
@@ -1427,6 +1468,117 @@ def window_rows(torch, rows, gen, path, grid, C, H, train):
         window_edge_check(torch, gen, q, k, v, corners, hw, w)
 
 
+def recipe_rows(torch, rows, gen, path, g, topks, train):
+    """Kernels A (finest g x g level) and A′ (intermediate, top
+    ``topks[1]``) of another recipe's 1/8 pyramid (coarse and intermediate
+    top-k ``topks``), in f32 and through their bf16 instances on the inputs
+    rounded to bf16; with ``train`` A with its log-sum-exp, A′ through its
+    autograd function, and A-bwd (f32 and bf16) at both levels."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    levels = quadtree_inputs(torch, gen, g, topks)
+    for bf16 in (False, True):
+        lv = {label: ((tuple(t.to(torch.bfloat16) for t in qkv) if bf16
+                       else qkv), ids, hw)
+              for label, (qkv, ids, hw) in levels.items()}
+        sfx = "_bf16" if bf16 else ""
+        (l_inter, inter), (l_fine, fine) = lv.items()
+        for label, ((q, k, v), ids, hw) in lv.items():
+            if label == l_inter and not train:
+                continue
+            P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
+            desc = (f"q/k/v {list(q.shape)} {str(q.dtype)[6:]} ids "
+                    f"{list(ids.shape)}")
+            if label == l_fine:
+                fwd = attention_flops(P * H, 4 * K, D)
+                kernel_row(
+                    torch, rows, "quadtree_fine_attention" + sfx,
+                    label + (" with LSE" if train else ""), path,
+                    (lambda: qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2])
+                    if train else
+                    (lambda: qk_.quadtree_fine_attention(q, k, v, ids, hw,
+                                                         hw)),
+                    lambda: qk_.quadtree_fine_attention_plain(
+                        q, k, v, ids, hw, hw, with_lse=train),
+                    desc, nbytes(q, k, v, ids) + P * 4 * H * (D + train) * 4,
+                    0 if bf16 else fwd, bf16_flops=fwd if bf16 else 0,
+                    library=quadtree_library(torch, q, k, v, ids, hw, False),
+                    note=LSE_NOTE if train else "")
+            if train:
+                out, lse = (t.contiguous() for t in
+                            qk_.quadtree_fine_attention_plain(
+                                q, k, v, ids, hw, hw, with_lse=True))
+                g_ = torch.randn(out.shape, generator=gen, device="cuda")
+                bwd = attention_flops(P * H, 4 * K, D, backward=True)
+                kernel_row(
+                    torch, rows, "quadtree_fine_attention_bwd" + sfx, label,
+                    path,
+                    lambda: qk_.quadtree_fine_attention_bwd(
+                        q, k, v, ids, out, lse, g_, hw, hw),
+                    lambda: qk_.quadtree_fine_attention_bwd_plain(
+                        q, k, v, ids, out, lse, g_, hw, hw),
+                    desc, nbytes(q, k, v, ids, out, lse, g_)
+                    + 3 * q.numel() * 4,
+                    0 if bf16 else bwd, bf16_flops=bwd if bf16 else 0,
+                    scattered=(1, 2),
+                    library=quadtree_library(torch, q, k, v, ids, hw, True))
+        topk_row(torch, rows, l_inter + (" with LSE" if train else ""), path,
+                 inter, fine, topks[1], train)
+
+
+def indoor_plain_paths(torch, gen, grid=160, ws=7):
+    """The indoor recipe's 1/4-level paths that run in plain PyTorch (no
+    kernel, as in the JAX package), timed on the card at bucket 640's
+    shapes beside kernel C on the same windows: the relative-PE cascade
+    attention (gather path, bias [1, 4, grid^2, 100]) forward and forward
+    plus backward, and a POLA block (C = 128, 4 heads, window ``ws``)
+    forward and forward plus backward; each forward's output checked
+    finite.  Returns {path: ms}."""
+    from casmtr_tpu_torch.models.pola import POLATransBlock
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    from casmtr_tpu_torch.ops.quadtree import cascade_qtatt_b
+    corners = window_inputs(torch, gen, grid // 2)
+    w, H, D = 5, 4, 32
+    hw = (grid, grid)
+    pos = (corners[:, :, None, :].long() + torch.stack(torch.meshgrid(
+        torch.arange(w, device="cuda"), torch.arange(w, device="cuda"),
+        indexing="ij"), -1).reshape(1, 1, w * w, 2))
+    q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
+                           device="cuda", requires_grad=True)
+               for _ in range(3))
+    rel = torch.randn((1, H, grid * grid, 4 * w * w), generator=gen,
+                      device="cuda")
+    block = POLATransBlock(H * D, H, ws).cuda()
+    x = torch.randn((1, grid * grid, H * D), generator=gen, device="cuda",
+                    requires_grad=True)
+
+    def gather():
+        return cascade_qtatt_b(q, k, v, pos, hw, hw, rel_pos=rel,
+                               window_structured=True)[0]
+
+    def kernel_c():
+        return wk.window_cross_attention(q, k, v, corners, hw, hw, w)
+
+    def pola():
+        return block(x, grid, grid)
+
+    out = {}
+    for name, fn in (("relative-PE gather path", gather),
+                     ("kernel C, same windows", kernel_c),
+                     ("POLA block", pola)):
+        with torch.no_grad():
+            check(bool(torch.isfinite(fn()).all()), f"{name}: non-finite")
+            out[name] = time_ms(torch, fn, reps=10)
+        y = fn()
+        g = torch.randn(y.shape, device="cuda")
+        out[name + " fwd+bwd"] = time_ms(
+            torch, lambda: torch.autograd.grad(fn(), [x] if fn is pola
+                                               else [q, k, v], g), reps=10)
+    log(f"plain paths of {INDOOR} at {grid}x{grid} (H={H}, D={D}, w={w}; "
+        f"POLA ws={ws}): " + ", ".join(f"{k} {v:.4f} ms"
+                                      for k, v in out.items()))
+    return out
+
+
 def kernel_phase(torch):
     from casmtr_tpu_torch.ops.kernels.quadtree_kernels import (
         quadtree_fine_attention, quadtree_fine_attention_plain)
@@ -1461,6 +1613,17 @@ def kernel_phase(torch):
     quadtree_bf16_cases_check(torch)
     window_bf16_cases_check(torch)
     bf16_refusals_check(torch)
+
+    # the shapes of quadtree_baseline at bucket 832 (topks 16 / 8: K = 16
+    # at 52^2, K = 8 at 104^2) and of the indoor recipe at bucket 640
+    # (topks 32 / 16 at 40^2 and 80^2; kernel B at the 1/4 level)
+    recipe_rows(torch, rows, gen, f"serving 832^2 ({BASELINE})", 104,
+                (16, 8), False)
+    recipe_rows(torch, rows, gen, f"serving 640^2 ({INDOOR})", 80, (32, 16),
+                False)
+    window_rows(torch, rows, gen, f"serving 640^2 ({INDOOR})", 160, 128, 4,
+                False, with_c=False)
+    indoor_plain_paths(torch, gen)
     return rows
 
 
@@ -1513,6 +1676,15 @@ def train_kernel_phase(torch):
     window_cases_check(torch)
     score_cases_check(torch)
     quadtree_cases_check(torch)
+
+    # quadtree_baseline's step at 704^2 and the indoor recipe's at 640^2
+    recipe_rows(torch, rows, gen, f"train 704^2 ({BASELINE})", g8, (16, 8),
+                True)
+    g8 = TRAIN_SIZES[INDOOR] // 8
+    recipe_rows(torch, rows, gen, f"train {g8 * 8}^2 ({INDOOR})", g8,
+                (32, 16), True)
+    window_rows(torch, rows, gen, f"train {g8 * 8}^2 ({INDOOR})", g8 * 2, 128,
+                4, True, with_c=False)
     return rows
 
 
@@ -1603,9 +1775,16 @@ def texture(rng, h, w):
     return (img * 255).astype(np.uint8)
 
 
-def requests(rng):
-    """(name, image0, image1): a scene and a shifted or cropped copy."""
+def requests(rng, bucket=832):
+    """(name, image0, image1): a scene and a shifted or cropped copy; at
+    bucket 640 (the indoor recipe) three ScanNet-sized 640x480 frames."""
     out = []
+    if bucket == 640:
+        for dy, dx in ((13, 7), (9, 21), (17, 4)):
+            big = texture(rng, 540, 700)
+            out.append((f"480x640 shifted by ({dy}, {dx}) px", big[:480, :640],
+                        big[dy:dy + 480, dx:dx + 640]))
+        return out
     big = texture(rng, 900, 900)
     out.append(("832x832 shifted by (17, 9) px", big[:832, :832],
                 big[17:849, 9:841]))
@@ -1695,20 +1874,23 @@ def serve(torch, matcher, recipe, reqs, prec):
 
 
 def serving_phase(torch, recipe, precs=("bf16", "f32")):
-    """Matcher(MODELS[recipe], bucket=832) answers the requests in the
-    card's eval default (bf16), then with float32 forced (``precs``), from
-    the same weights in one process.  Returns ({precision: (launch totals,
-    last request's counts, steady ms)}, the matcher, a request to
-    profile)."""
+    """Matcher(MODELS[recipe], bucket=BUCKET[recipe]) answers the requests
+    in the card's eval default (bf16), then with float32 forced
+    (``precs``), from the same weights in one process.  Returns
+    ({precision: (launch totals, last request's counts, steady ms)}, the
+    matcher, a request to profile)."""
     from casmtr_tpu_torch.serving import Matcher
     t0 = time.perf_counter()
     base, overrides = MODELS[recipe]
-    matcher = Matcher(base, bucket=832, seed=0, overrides=overrides or None)
+    bucket = BUCKET[recipe]
+    matcher = Matcher(base, bucket=bucket, seed=0,
+                      overrides=overrides or None)
     n_params = sum(p.numel() for p in matcher.model.parameters())
-    log(f"serving: Matcher('{recipe}', bucket=832) on "
-        f"{matcher.device}, {n_params} parameters (seeded random), built in "
+    log(f"serving: Matcher('{recipe}', bucket={bucket}) on "
+        f"{matcher.device}, {type(matcher.model).__name__}, {n_params} "
+        f"parameters (seeded random), built in "
         f"{time.perf_counter() - t0:.1f} s")
-    reqs = requests(np.random.default_rng(0))
+    reqs = requests(np.random.default_rng(0), bucket)
     runs = {}
     for prec in precs:
         with precision(prec):
@@ -1812,19 +1994,26 @@ def conv_algorithm_ab():
 # phase 6: the card against the CPU on a small input
 # --------------------------------------------------------------------------
 
-def zero_threshold_overrides(recipe):
-    """Every match threshold of the recipe at 0, so every stage matches."""
-    n = 2 if recipe.endswith("2c") else 1
-    return {"loftr": {"match_coarse": {"thr": 0.0}, "match_cascade": {
-        "test_thr": [0.0] * n,
-        "pre_thr": [[0.0] * (i + 1) for i in range(n)]}}}
+def zero_threshold_overrides(name):
+    """MODELS[name]'s overrides with every match threshold at 0, so every
+    stage matches."""
+    n = LAYOUT[name][1]
+    overrides = copy.deepcopy(MODELS[name][1])
+    loftr = overrides.setdefault("loftr", {})
+    loftr["match_coarse"] = {"thr": 0.0}
+    if n:
+        loftr["match_cascade"] = {
+            "test_thr": [0.0] * n,
+            "pre_thr": [[0.0] * (i + 1) for i in range(n)]}
+    return overrides
 
 
 def reference_forward(torch, recipe, dev, img0, img1):
-    """The full-width recipe at bucket 256, thresholds 0, seeded random
-    weights, on ``dev``, in the precision the environment gives there."""
+    """MODELS[recipe] at full width at bucket 256, thresholds 0, seeded
+    random weights, on ``dev``, in the precision the environment gives
+    there."""
     from casmtr_tpu_torch.serving import Matcher
-    m = Matcher(recipe, bucket=256, thr=0.0,
+    m = Matcher(MODELS[recipe][0], bucket=256, thr=0.0,
                 overrides=zero_threshold_overrides(recipe), device=dev,
                 seed=0)
     with torch.inference_mode():
@@ -1900,7 +2089,7 @@ def reference_phase(torch, recipe):
     fin = st["final"]
     check(fin["n"][1] > 0, "reference: no final matches on the CPU")
     check(conf <= CONF_TOL, "reference: coarse confidences disagree")
-    check(max(window.values()) <= CONF_TOL,
+    check(max(window.values(), default=0.0) <= CONF_TOL,
           "reference: window confidences disagree")
     check(fin["jaccard"] >= MIN_JACCARD,
           "reference: final match sets disagree")
@@ -1959,11 +2148,12 @@ def train_batch(size, seed):
 
 def kernel_grad_params(model):
     """The q/k/v projections whose gradients go through kernel A-bwd (the
-    six 1/8 quadtree layers, kernels A and A′) and C-bwd (the two cross
-    layers of each cascade level)."""
+    1/8 quadtree layers, kernels A and A′) and C-bwd (the two cross layers
+    of each cascade level; the indoor recipe's take the relative-PE gather
+    path instead)."""
     return [n for n, _ in model.named_parameters()
-            if n.split(".")[0] in ("loftr_coarse_8c", "loftr_coarse_4c",
-                                   "loftr_coarse_2c")
+            if n.split(".")[0] in ("loftr_coarse", "loftr_coarse_8c",
+                                   "loftr_coarse_4c", "loftr_coarse_2c")
             and n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")]
 
 
@@ -1994,7 +2184,8 @@ def build_trainer(torch, name, size, device=None, model=None):
 
 
 def training_phase(torch, name, prec):
-    """MODELS[name] trained at TRAIN_SIZE in precision ``prec``, which the
+    """MODELS[name] trained at TRAIN_SIZES[name] in precision ``prec``, which
+    the
     caller sets ("bf16", the card's default: bf16 backbone and kernel
     inputs, float32 stacks; or "f32" forced): the step's dtypes, a warm-up
     step, then 4 timed steps with the launch counts zeroed just before and
@@ -2004,7 +2195,8 @@ def training_phase(torch, name, prec):
                                                      transformer_dtype)
     from casmtr_tpu_torch.ops import kernels
     recipe = f"{name} {prec}"
-    model, state, step = build_trainer(torch, name, TRAIN_SIZE)
+    size = TRAIN_SIZES[name]
+    model, state, step = build_trainer(torch, name, size)
     dev = torch.device("cuda")
     bf, f32 = torch.bfloat16, torch.float32
     dts = (backbone_dtype(dev, True), transformer_dtype(dev, True),
@@ -2013,22 +2205,23 @@ def training_phase(torch, name, prec):
         f"{dts[1]}, kernel inputs {dts[2]}")
     check(dts == ((bf, f32, bf) if prec == "bf16" else (f32, f32, f32)),
           f"training: {recipe}: step dtypes {dts}")
-    levels = [f"{lvl}c" for lvl in model.config.cascade_levels]
+    levels = ([f"{lvl}c" for lvl in model.config.cascade_levels]
+              if model.config.cascade else [])
     expected = (LAUNCHES_PER_TRAIN_STEP if prec == "bf16"
                 else LAUNCHES_PER_TRAIN_STEP_F32)[name]
     n_params = sum(p.numel() for p in model.parameters())
     watch = kernel_grad_params(model)
-    n_watch = 18 + 6 * len(levels)
+    n_watch = 3 * LAYOUT[name][0] + 6 * len(levels)
     check(len(watch) == n_watch, f"training: {len(watch)} kernel-path q/k/v "
           f"projections, expected {n_watch}")
     params = dict(model.named_parameters())
     start = {n: params[n].detach().clone() for n in watch}
-    batch = train_batch(TRAIN_SIZE, 0)
+    batch = train_batch(size, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, scalars = step(state, batch)
     torch.cuda.synchronize()
-    log(f"training: {recipe} {TRAIN_SIZE}^2 batch 1, {n_params} "
+    log(f"training: {recipe} {size}^2 batch 1, {n_params} "
         f"parameters (seeded random), warm-up step "
         f"{time.perf_counter() - t0:.2f} s, loss {float(scalars['loss']):.4f}")
     torch.cuda.reset_peak_memory_stats()
@@ -2070,9 +2263,9 @@ def training_phase(torch, name, prec):
         f"(steps {', '.join(f'{t:.4f}' for t in times)}), peak device "
         f"memory {peak:.2f} GiB, "
         f"launches over the {len(times)} steps {totals}"
-        + ("; the reference's own 4c GPU step, for context only: "
-           f"{REFERENCE_S_PER_STEP} s (fp16, bench.py)"
-           if len(levels) == 1 else ""))
+        + ("; the reference's own quadtree GPU step (the architecture of "
+           f"{BASELINE}), for context only: {REFERENCE_S_PER_STEP} s (fp16, "
+           "704^2, bench.py)" if name == BASELINE else ""))
     return totals, counts, step, state, batch, times
 
 
@@ -2128,7 +2321,7 @@ def coarse_gradient(torch, model, batch, dev):
     _, scalars = forward_loss(model, batch, gt, lcfg)
     params = dict(model.named_parameters())
     leaves = [params[n] for n in kernel_grad_params(model)
-              if n.startswith("loftr_coarse_8c.")]
+              if n.startswith(("loftr_coarse.", "loftr_coarse_8c."))]
     grads = torch.autograd.grad(scalars["loss_8c"], leaves)
     with torch.no_grad():
         for b, s in zip(model.buffers(), stats):
@@ -2183,7 +2376,7 @@ def step_difference(torch, a, b):
     relative difference of each loss term, leaf_errors and the cosine of
     the coarse_gradients."""
     (sa, ga, _, ca), (sb, gb, _, cb) = a, b
-    rel = {k: abs(sa[k] - sb[k]) / abs(sb[k]) for k in sb
+    rel = {k: abs(sa[k] - sb[k]) / (abs(sb[k]) or 1.0) for k in sb
            if k.startswith("loss")}
     cos, worst = leaf_errors(torch, ga, gb)
     return rel, cos, worst, cosine(ca, cb)
@@ -2345,9 +2538,12 @@ def train_reference_phase(torch, name):
     backbone, f32 kernel inputs), each loss term and 1 - cosine (whole and
     coarse_gradient's) within BF16_TRAIN_NOISE x the CPU's own
     bf16-backbone-against-f32 difference (floors BF16_LOSS_RTOL and 1 -
-    MIN_GRAD_COS); then cascade_stack_reference.  For the ResNetFPN
-    variant: its f32 step printed beside the CPU's response to a nudge of
-    its images, and backbone_reference."""
+    MIN_GRAD_COS); then cascade_stack_reference.  For the ResNetFPN-based
+    models (the 4c variant, quadtree_baseline and the indoor recipe, whose
+    1/8 top-k picks may flip under rounding): the f32 step printed beside
+    the CPU's response to a nudge of its images, and backbone_reference;
+    for the indoor recipe also cascade_stack_reference (its 1/4 stack:
+    POLA and the relative-PE gather path, no discrete choice inside)."""
     size = 256
     base, _, _ = build_trainer(torch, name, size, device="cpu")
     runs = [("cuda", "f32"), ("cpu", "f32")]
@@ -2380,6 +2576,8 @@ def train_reference_phase(torch, name):
             + f"; gradient cosine {nudged[1]:.6f}, of loss_8c on the 1/8 "
             f"q/k/v {nudged[3]:.6f}")
         backbone_reference(torch, name, base, size)
+        if name == INDOOR:
+            cascade_stack_reference(torch, name, base, size)
         return
     log(f"training reference: {name} f32 gates: each loss term within "
         f"{TRAIN_LOSS_RTOL:g}, both cosines >= {MIN_GRAD_COS}")
@@ -2459,14 +2657,19 @@ def main():
         precs = ("bf16",) if recipe == RESNET else ("bf16", "f32")
         serve_runs[recipe], matcher, request = timed(
             f"serving {recipe}", serving_phase, torch, recipe, precs)
-        for prec in precs if recipe in RECIPES else ():
+        # one request per precision of the two recipes, one in bf16 of the
+        # baseline and the indoor recipe
+        profiled = (precs if recipe in RECIPES else
+                    ("bf16",) if recipe in (BASELINE, INDOOR) else ())
+        for prec in profiled:
             timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
                   matcher, request, prec,
                   recipe == RECIPES[0] and prec == "f32")
         del matcher
         torch.cuda.empty_cache()
-    for recipe in RECIPES:
-        timed(f"reference {recipe}", reference_phase, torch, recipe)
+    for recipe in MODELS:
+        if recipe != RESNET:
+            timed(f"reference {recipe}", reference_phase, torch, recipe)
     train_runs = {}
     for recipe in MODELS:
         for prec in ("bf16", "f32"):
@@ -2475,9 +2678,10 @@ def main():
                     f"training {recipe} {prec}", training_phase, torch,
                     recipe, prec)
                 train_runs[recipe, prec] = (totals, counts)
-                timed(f"training profile {recipe} {prec}",
-                      train_profile_phase, torch, f"{recipe} {prec}", step,
-                      state, batch, statistics.median(times))
+                if prec == "bf16" or recipe not in (BASELINE, INDOOR):
+                    timed(f"training profile {recipe} {prec}",
+                          train_profile_phase, torch, f"{recipe} {prec}",
+                          step, state, batch, statistics.median(times))
             del step, state
             torch.cuda.empty_cache()
     for recipe in MODELS:

@@ -22,6 +22,7 @@ moves a parameter by about lr times the sign of its gradient, so a
 gradient of 1e-12 whose sign differs between the packages would move it by
 2 lr."""
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -33,7 +34,8 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tests.torch_parity import configs, jitter, tiny_4c_overrides  # noqa: E402
+from tests.torch_parity import (configs, jitter,  # noqa: E402
+                                tiny_4c_overrides, two_pass_batch_norm)
 
 SIZE = 64
 SHIFT = 8          # image1 is image0 shifted by this many pixels
@@ -567,10 +569,10 @@ def step_variables(jcfg, tcfg, batch, seed: int = 1):
     jittered variables whose values come from the port's seeded
     initialization (its tree from ``jax.eval_shape``), for one training
     step of each package from the same weights."""
-    from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
+    from casmtr_tpu.models import build_model as jax_build_model
     from casmtr_tpu_torch.models import build_model
     from casmtr_tpu_torch.weights import init_random_, jax_variables
-    jm = JaxCasMTR(jcfg.loftr)
+    jm = jax_build_model(jcfg.loftr)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in batch.items()},
         train=False))
@@ -582,18 +584,22 @@ def step_variables(jcfg, tcfg, batch, seed: int = 1):
                             seed=seed)
 
 
-def jax_step(jm, jcfg, variables, batch, exact: bool = False):
+def jax_step(jm, jcfg, variables, batch, exact: bool = False,
+             two_pass_bn: bool = False):
     """The JAX package's training step on ``variables`` and ``batch``, and
     ``jax.grad`` of the same composition: (scalars, gradients, batch
     statistics after the step).  ``exact`` compiles with XLA's excess
     precision off, so a bf16 graph rounds wherever flax's per-module dtype
-    says (as the port does)."""
+    says (as the port does); ``two_pass_bn`` traces it with flax's
+    BatchNorm in the port's two-pass variance
+    (``torch_parity.two_pass_batch_norm``)."""
     from casmtr_tpu.train import supervision as jspv
     from casmtr_tpu.train.loss import casmtr_loss as jax_loss
     from casmtr_tpu.train.optim import build_optimizer as jax_build
     from casmtr_tpu.train.train_step import TrainState as JaxState
     from casmtr_tpu.train.train_step import make_train_step
-    names = [f"{lvl}c" for lvl in jcfg.loftr.cascade_levels]
+    names = ([f"{lvl}c" for lvl in jcfg.loftr.cascade_levels]
+             if jcfg.loftr.cascade else [])
     tx = jax_build(jcfg.trainer, 1e-3, 100)
     step_fn = make_train_step(jm, jcfg, tx)
 
@@ -605,8 +611,8 @@ def jax_step(jm, jcfg, variables, batch, exact: bool = False):
         def loss_fn(p):
             out, _ = jm.apply({"params": p, "batch_stats": bs}, b,
                               train=True, mutable=["batch_stats"])
-            eg = jspv.fine_expec_gt(gt, out.cascades[names[-1]].matches, b,
-                                    jcfg.loftr)
+            last = out.cascades[names[-1]] if names else out.coarse
+            eg = jspv.fine_expec_gt(gt, last.matches, b, jcfg.loftr)
             return jax_loss(out, gt, eg, jcfg.loftr)[0]
 
         return jax.grad(loss_fn)(params)
@@ -620,7 +626,9 @@ def jax_step(jm, jcfg, variables, batch, exact: bool = False):
                                              variables["batch_stats"]),
                       tx.init(p0))
     args = (state0, {k: jnp.asarray(v) for k, v in batch.items()})
-    lowered = jax.jit(both).lower(*args)
+    with (two_pass_batch_norm() if two_pass_bn
+          else contextlib.nullcontext()):
+        lowered = jax.jit(both).lower(*args)
     compiled = (lowered.compile({"xla_allow_excess_precision": False})
                 if exact else lowered.compile())
     (state1, scalars), grads = compiled(*args)

@@ -1,9 +1,11 @@
 """Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
-tiny CasMTR-4c and CasMTR-2c configurations built in both packages, flax
+tiny CasMTR-4c, CasMTR-2c, quadtree_baseline and indoor configurations
+built in both packages, flax
 variables made non-trivial and handed to the port as nested dicts of numpy
 arrays, and the chunk rule and child rows of the CPU models of the chunked
 CUDA kernels."""
 
+import contextlib
 import re
 from pathlib import Path
 
@@ -79,6 +81,50 @@ def tiny_2c_overrides(train_size: int = 128, zero_thresholds: bool = False):
     return ov
 
 
+def tiny_baseline_overrides(train_size: int = 128,
+                            zero_thresholds: bool = False,
+                            attn_type: str = "B"):
+    """``quadtree_baseline`` at tiny widths: ResNetFPN_8_2 (gray) 8 / [8,
+    12, 16], a self and a cross quadtree layer of d 16, 2 heads, topks 4
+    (quadtree attention ``attn_type``), fine d 8, 2 heads; the recipe's
+    wiring otherwise.  ``zero_thresholds`` lets every match through."""
+    loftr = {
+        "train_size": train_size,
+        "backbone": {"initial_dim": 8, "block_dims": [8, 12, 16]},
+        "coarse": {"d_model": 16, "nhead": 2, "topks": [4, 4, 4],
+                   "layer_names": ["self", "cross"], "attn_type": attn_type},
+        "fine": {"d_model": 8, "nhead": 2},
+        "match_coarse": {"max_matches": 16},
+    }
+    if zero_thresholds:
+        loftr["match_coarse"]["thr"] = 0.0
+    return {"loftr": loftr}
+
+
+def tiny_indoor_overrides(train_size: int = 128,
+                          zero_thresholds: bool = False):
+    """``indoor_casmtr_4c_runnable`` at tiny widths: ResNetFPN_8_4_2 (RGB)
+    8 / [8, 12, 16], a self and a cross quadtree layer of d 16, 2 heads,
+    topks 4; the 1/4 stack of the recipe (POLA self, relative-PE cross,
+    sr_ratio 2) at d 12, 2 heads, windows of 3; fine d 8, 2 heads.
+    ``zero_thresholds`` lets every match through."""
+    loftr = {
+        "train_size": train_size,
+        "backbone": {"initial_dim": 8, "block_dims": [8, 12, 16]},
+        "coarse": {"d_model": 16, "nhead": 2, "topks": [4, 4, 4],
+                   "layer_names": ["self", "cross"]},
+        "coarse2": {"d_model": 12, "nhead": 2, "window_size": 3,
+                    "attn_window_size": 3},
+        "fine": {"d_model": 8, "nhead": 2},
+        "match_coarse": {"max_matches": 16},
+        "match_cascade": {"train_pad_num_gt_min": [16], "max_matches": [32]},
+    }
+    if zero_thresholds:
+        loftr["match_coarse"]["thr"] = 0.0
+        loftr["match_cascade"].update(test_thr=[0.0], pre_thr=[[0.0, 0.0]])
+    return {"loftr": loftr}
+
+
 def configs(overrides, recipe: str = "outdoor_casmtr_4c"):
     """The same recipe built by both packages: (jax_cfg, torch_cfg)."""
     from casmtr_tpu.configs import build_config as jax_build
@@ -105,3 +151,27 @@ def jitter(variables, seed: int = 0):
 
     return jax.tree_util.tree_map_with_path(
         leaf, jax.tree_util.tree_map(np.asarray, dict(variables)))
+
+
+@contextlib.contextmanager
+def two_pass_batch_norm():
+    """Flax's BatchNorm with the two-pass batch variance E[(x - E[x])^2],
+    the port's, inside the block (flax's default is the one-pass
+    E[x^2] - E[x]^2, ``use_fast_variance``).  In float32 the one-pass form
+    cancels where a channel's mean dwarfs its spread: in the tiny gray
+    quadtree_baseline step it puts the JAX package's backbone gradients
+    2.6e-3 (relative) off their float64 value, against 2e-5 with two
+    passes.  The JAX package's files stay as they are; the class is
+    swapped in ``flax.linen`` for the block, so trace inside it."""
+    import flax.linen as fnn
+
+    base = fnn.BatchNorm
+
+    class TwoPassBatchNorm(base):
+        use_fast_variance: bool = False
+
+    fnn.BatchNorm = TwoPassBatchNorm
+    try:
+        yield
+    finally:
+        fnn.BatchNorm = base
