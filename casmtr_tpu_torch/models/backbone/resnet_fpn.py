@@ -1,10 +1,11 @@
 """The ResNet-FPN backbones ``ResNetFPN_8_4_2`` and ``ResNetFPN_8_2``, the
-Conv/BatchNorm building blocks that the Twins FPN shares with them, and the
-backbone's compute dtype (counterpart of
-casmtr_tpu/models/backbone/resnet_fpn.py).  Layout NCHW in and out; module
-names follow the JAX package's flax names as ``weights.flax_path_to_torch_key``
-maps them (``layer1_0`` -> ``layer1.0``, ``downsample_0`` ->
-``downsample.0``, ``layer2_outconv2/0`` -> ``layer2_outconv2.0``)."""
+PMT-refine side network ``Ladder_4_2``, the Conv/BatchNorm building blocks
+that the Twins FPN shares with them, and the backbone's compute dtype
+(counterpart of casmtr_tpu/models/backbone/resnet_fpn.py). Layout NCHW in
+and out; module names follow the JAX package's flax names as
+``weights.flax_path_to_torch_key`` maps them (``layer1_0`` -> ``layer1.0``,
+``downsample_0`` -> ``downsample.0``, ``layer2_outconv2/0`` ->
+``layer2_outconv2.0``)."""
 
 from __future__ import annotations
 
@@ -172,3 +173,53 @@ class ResNetFPN_8_2(ResNetFPN_8_4_2):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x3_out, _, x1_out = super().forward(x)
         return [x3_out, x1_out]
+
+
+class Ladder_4_2(nn.Module):
+    """The trainable side network of the PMT-refine model: a stem and two
+    stages of two BasicBlocks (1/2, 1/4) at ``refine_dims``, fused with the
+    frozen trunk's 1/4 and 1/2 maps (``block_dims[1]``, ``block_dims[0]``
+    channels), which it takes detached.  Input [B, 3, H, W] in [0, 1] (RGB,
+    turned to gray unless ``is_rgb``) or [B, 1, H, W].  ``bn_fix`` adds a
+    BatchNorm after the 1/2 lateral conv (``layer1_outconv.0/1``; without
+    it the conv alone is ``layer1_outconv``).  Computes in
+    ``backbone_dtype(device, self.training)``; returns [1/4
+    (refine_dims[1]), 1/2 (refine_dims[0])] NCHW float32 maps."""
+
+    def __init__(self, block_dims=(128, 196, 256),
+                 refine_dims=(64, 128, 256), is_rgb: bool = False,
+                 bn_fix: bool = False):
+        super().__init__()
+        rd, bd = tuple(refine_dims), tuple(block_dims)
+        self.is_rgb = is_rgb
+        self.conv1 = nn.Conv2d(3 if is_rgb else 1, rd[0], 7, stride=2,
+                               padding=3, bias=False)
+        self.bn1 = bn(rd[0])
+        self.layer1 = nn.Sequential(BasicBlock(rd[0], rd[0]),
+                                    BasicBlock(rd[0], rd[0]))
+        self.layer2 = nn.Sequential(BasicBlock(rd[0], rd[1], 2),
+                                    BasicBlock(rd[1], rd[1]))
+        self.layer2_outconv = nn.Sequential(conv1x1(rd[1] + bd[1], rd[1]),
+                                            bn(rd[1]))
+        lateral = conv1x1(rd[0] + bd[0], rd[1])
+        self.layer1_outconv = (nn.Sequential(lateral, bn(rd[1])) if bn_fix
+                               else lateral)
+        self.layer1_outconv2 = out_conv2(rd[1], rd[0])
+
+    def forward(self, x: torch.Tensor, add_feats) -> List[torch.Tensor]:
+        """add_feats: the trunk's [1/4, 1/2] NCHW maps."""
+        if not self.is_rgb and x.shape[1] == 3:
+            x = _to_gray(x)
+        dt = backbone_dtype(x.device, self.training)
+        x1 = F.relu(run(self.bn1, run(self.conv1, x, dt), dt))
+        for blk in self.layer1:
+            x1 = blk(x1, dt)                                  # 1/2
+        x2 = x1
+        for blk in self.layer2:
+            x2 = blk(x2, dt)                                  # 1/4
+        f4, f2 = (f.detach().to(dt) for f in add_feats)
+        x2_out = run(self.layer2_outconv, torch.cat([x2, f4], dim=1), dt)
+        x2_2x = resize_bilinear_align_corners(x2_out, *x1.shape[-2:])
+        x1_out = run(self.layer1_outconv, torch.cat([x1, f2], dim=1), dt)
+        x1_out = run(self.layer1_outconv2, x1_out + x2_2x, dt)
+        return [x2_out.float(), x1_out.float()]

@@ -1,7 +1,8 @@
 """Cascade-stage transformer: window cross attention around the previous
 stage's matches (counterpart of casmtr_tpu/models/cascade_transformer.py;
 the 'local' and 'POLA' self layers, the structured 'window' cross layers,
-and the indoor recipe's windowed relative PE).  The stack computes in
+the indoor recipe's windowed relative PE, and the learnable keypoint
+detector head).  The stack computes in
 ``transformer_dtype`` (the POLA blocks in float32, as the JAX package's),
 feeds the cross layers q/k/v in ``table_dtype`` and returns float32 tokens
 for window matching."""
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from casmtr_tpu_torch.models.backbone.resnet_fpn import bn
 from casmtr_tpu_torch.models.cascade_attention import LocalBlock
 from casmtr_tpu_torch.models.pola import POLATransBlock
 from casmtr_tpu_torch.models.precision import run
@@ -103,7 +105,10 @@ class CascadeFeatureTransformer(nn.Module):
     """Cascade-level transformer: 'local' window or 'POLA' self layers and
     window cross layers; cross layers update both images simultaneously.
     With ``relative_pe`` the cross layers add the windowed relative
-    position bias of ``h_pos_bias`` and ``w_pos_bias``."""
+    position bias of ``h_pos_bias`` and ``w_pos_bias``.  With ``detector``
+    'learnable' a head ``detector`` (3x3 conv, BatchNorm, SiLU, 1x1 conv,
+    in float32) maps image0's output tokens to a keypoint heatmap in
+    training."""
 
     def __init__(self, config):
         super().__init__()
@@ -113,10 +118,8 @@ class CascadeFeatureTransformer(nn.Module):
             raise NotImplementedError(
                 f"cascade self-attention {config.self_attn_type!r} is not "
                 "ported yet (ROADMAP queue A: the self-attention zoo)")
-        if config.detector is not None:
-            raise NotImplementedError(
-                "the keypoint detector is not ported yet (ROADMAP queue A: "
-                "the detector head)")
+        if config.detector not in (None, "learnable"):
+            raise NotImplementedError(f"detector {config.detector!r}")
         window, full_window = get_propagations(
             config.propagation, config.window_size, config.dilated)
         if full_window is not None:
@@ -144,6 +147,10 @@ class CascadeFeatureTransformer(nn.Module):
             n = self.LB * 2 + config.sr_ratio
             self.h_pos_bias = nn.Embedding(n, config.nhead)
             self.w_pos_bias = nn.Embedding(n, config.nhead)
+        d = config.d_model
+        self.detector = (nn.Sequential(nn.Conv2d(d, d, 3, padding=1), bn(d),
+                                       nn.SiLU(), nn.Conv2d(d, 1, 1))
+                         if config.detector == "learnable" else None)
 
     def _relative_pe(self, hw_c_q, hw_c_t, next_idx_c, window_idx, H: int,
                      W: int) -> torch.Tensor:
@@ -190,7 +197,8 @@ class CascadeFeatureTransformer(nn.Module):
         grid; with ``relative_pe`` also the 1/8 grids hw0_c/hw1_c and the
         1/8 best matches next_idx_c01/next_idx_c10 [B, h*w].  Returns
         (feat0, feat1 float32, idx_c01 [B, L0, 4ww], idx_c10, corners01
-        [B, L0/4, 2], corners10)."""
+        [B, L0/4, 2], corners10, heatmap0 [B, H0, W0] float32 from the
+        detector head in training, else None)."""
         H0, W0 = hw0
         H1, W1 = hw1
         dt = transformer_dtype(feat0.device, self.training)
@@ -215,5 +223,10 @@ class CascadeFeatureTransformer(nn.Module):
                 (feat0, up01), (feat1, up10) = (
                     layer(feat0, feat1, hw0, hw1, win01, dt, tab, rel01),
                     layer(feat1, feat0, hw1, hw0, win10, dt, tab, rel10))
-        return (feat0.float(), feat1.float(), up01, up10, win01[:, :, 0, :],
-                win10[:, :, 0, :])
+        feat0, feat1 = feat0.float(), feat1.float()
+        heat0 = None
+        if self.detector is not None and self.training:
+            grid = feat0.transpose(1, 2).reshape(feat0.shape[0], -1, H0, W0)
+            heat0 = self.detector(grid)[:, 0]
+        return (feat0, feat1, up01, up10, win01[:, :, 0, :],
+                win10[:, :, 0, :], heat0)

@@ -6,7 +6,8 @@ level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
 matching -> fine sub-pixel refinement.
 ``module.training`` selects the mode: in training BatchNorm uses batch
 statistics and each cascade level's matches are the ground-truth-filtered
-ones that the loss supervises.
+ones that the loss supervises; a level with a ``detector_mode`` also
+selects its keypoint-detector labels then.
 
 Precision follows the JAX package's policy, read from the tensors' device
 and the mode: on the card the backbone computes in bfloat16 in eval and in
@@ -83,10 +84,26 @@ def _check_ported(cfg: LoftrConfig) -> None:
     if cfg.fine.block_type != "loftr":
         raise NotImplementedError(
             f"fine block {cfg.fine.block_type!r} is not ported yet")
-    if any(s.detector_mode is not None for s in stages):
-        raise NotImplementedError(
-            "the keypoint detector branch is not ported yet (ROADMAP queue "
-            "A: the detector head)")
+    if any(s.detector_mode not in (None, "ST", "gumbel") for s in stages):
+        raise NotImplementedError("detector modes: only ST and gumbel")
+
+
+def detector_labels(stage_cfg, heat, ws, mask, idx_c01, gt_idx, gt_mask,
+                    m_cap: int, hw0, uniform=None):
+    """A cascade level's keypoint-detector labels in training (None x 3
+    without ``detector_mode`` or ground truth): the heatmap of the
+    learnable head, else each query's largest masked window score before
+    its softmax, picks one position per grid cell (``detect_keypoints``;
+    ``uniform`` is the gumbel mode's draw, ``sample_uniform_{level}c`` of
+    the batch), and ``select_detector_labels`` takes the labels."""
+    if stage_cfg.detector_mode is None or gt_idx is None:
+        return None, None, None
+    if heat is None:
+        heat = ws.max_sim_c01.reshape(ws.max_sim_c01.shape[0], *hw0)
+    det = cm.detect_keypoints(heat, ws.conf01, stage_cfg.detector_mode,
+                              stage_cfg.grid_size or 4, uniform)
+    return cm.select_detector_labels(det, mask, idx_c01, gt_idx, gt_mask,
+                                     m_cap)
 
 
 def _tokens(x: torch.Tensor) -> torch.Tensor:
@@ -133,10 +150,12 @@ class CasMTR(nn.Module):
         mask0/mask1 [B, H, W] (True = valid) and scale0/scale1 [B, 2]
         (original pixels per model pixel).  In training the batch also holds
         each cascade level's ground truth gt_idx_{4c,2c} / gt_mask_{4c,2c}
-        [B, L0] (train.supervision.compute_supervision) and optionally a
-        selection priority_{4c,2c} [B, L0].  ``capacity_scale`` multiplies
-        every fixed match capacity in eval (a batch of B pairs shares one
-        selection, so a B-pair forward passes B)."""
+        [B, L0] (train.supervision.compute_supervision), optionally a
+        selection priority_{4c,2c} [B, L0], and for a gumbel detector the
+        draw sample_uniform_{4c,2c} (train.train_step.detector_uniforms).
+        ``capacity_scale`` multiplies every fixed match capacity in eval (a
+        batch of B pairs shares one selection, so a B-pair forward passes
+        B)."""
         cfg = self.config
         train = self.training
         ts = cfg.train_size
@@ -202,7 +221,7 @@ class CasMTR(nn.Module):
             t1 = _tokens(add_sine_pe_norm(f1, (ts // level, ts // level)))
             mask_0, m_0 = level_mask(mask0_full, *hw0)
             mask_1, m_1 = level_mask(mask1_full, *hw1)
-            t0, t1, idx01, idx10, corners01, corners10 = getattr(
+            t0, t1, idx01, idx10, corners01, corners10, heat = getattr(
                 self, f"loftr_coarse_{name}")(t0, t1, prev_idx01, prev_idx10,
                                               hw0, hw1, hw0_8c, hw1_8c,
                                               ds.next_idx_c01,
@@ -226,18 +245,22 @@ class CasMTR(nn.Module):
                     double_check=mc.double_check[i], mask0_2d=m_0,
                     mask1_2d=m_1)
                 m_cap = mc.max_matches[i] * capacity_scale
+            gt_idx = batch.get(f"gt_idx_{name}") if train else None
+            gt_mask = batch.get(f"gt_mask_{name}") if train else None
             matches, extras = cm.extract_cascade_matches(
                 ws, mask, hw0, hw1, m_cap, scale=H0 / hw0[0],
                 scale0=scale0, scale1=scale1,
                 priority=batch.get(f"priority_{name}"),
-                idx_c01=idx01 if train else None,
-                gt_idx_c01=batch.get(f"gt_idx_{name}") if train else None,
-                gt_mask_c01=batch.get(f"gt_mask_{name}") if train else None)
+                idx_c01=idx01 if train else None, gt_idx_c01=gt_idx,
+                gt_mask_c01=gt_mask)
+            det = detector_labels(scfg, heat, ws, mask, idx01, gt_idx,
+                                  gt_mask, m_cap, hw0,
+                                  batch.get(f"sample_uniform_{name}"))
             cascades[name] = CascadeStage(
                 ws.conf01, idx01, idx10, ws.next_idx_c01, ws.next_idx_c10,
                 ws.next_conf_c01, ws.next_conf_c10, matches, hw0, hw1,
-                window_gt_label=extras.get("window_gt_label"),
-                window_conf=extras.get("window_conf"))
+                extras.get("window_gt_label"), extras.get("window_conf"),
+                *det)
             prev = (_grid(t0, hw0), _grid(t1, hw1), ws.next_idx_c01,
                     ws.next_idx_c10)
             pre_confs.append(ws.next_conf_c01)

@@ -1,6 +1,7 @@
 """Cascade-level windowed softmax matching (counterpart of
-casmtr_tpu/ops/cascade_matching.py): the eval filtering chain, and the
-training-time thresholding and ground-truth window labels.
+casmtr_tpu/ops/cascade_matching.py): the eval filtering chain, the
+training-time thresholding and ground-truth window labels, and the
+keypoint-detector branch's selection and labels.
 
 The window scores of the structured candidate set go through CUDA kernel B
 on the card, and their gradient through kernel B-bwd
@@ -31,6 +32,9 @@ class WindowSoftmaxResult(NamedTuple):
     next_idx_c10: torch.Tensor   # [B, L1]
     next_conf_c01: torch.Tensor
     next_conf_c10: torch.Tensor
+    # [B, L0]: the largest masked score of each query before its softmax,
+    # the detector branch's heatmap when it has no learnable head
+    max_sim_c01: Optional[torch.Tensor] = None
 
 
 def _structured_score(f0, f1, corners, hw0, hw1, prop_w: int):
@@ -82,7 +86,8 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
     next_idx01 = torch.gather(idx_c01, 2, local01[..., None])[..., 0]
     next_idx10 = torch.gather(idx_c10, 2, local10[..., None])[..., 0]
     return WindowSoftmaxResult(conf01, conf10, next_idx01, next_idx10,
-                               next_conf01, next_conf10)
+                               next_conf01, next_conf10,
+                               sim01.amax(dim=2))
 
 
 def window_border_ok(next_idx_c01, hw0, hw1, bd: int, mask0_2d=None,
@@ -213,3 +218,50 @@ def extract_cascade_matches(ws: WindowSoftmaxResult, mask: torch.Tensor,
         extras["window_gt_label"] = window_gt.reshape(-1, Kw)[sel]
         extras["window_conf"] = ws.conf01.reshape(-1, Kw)[sel]
     return matches, extras
+
+
+def detect_keypoints(heatmap0, conf01, mode: str, grid_size: int,
+                     uniform: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Grid-wise hard keypoint selection with a straight-through gradient:
+    the heatmap [B, H, W] is cut into grid_size x grid_size cells, one
+    position per cell is picked (the argmax of the cell's softmax, of the
+    heatmap plus Gumbel noise in ``gumbel`` mode, of the heatmap alone in
+    ``ST`` mode), and the rows of ``conf01`` [B, H*W, K] at the other
+    positions are zeroed; the gradient passes through the soft selection.
+    ``uniform`` [B, (H/g)*(W/g), g*g] in (0, 1] is the Gumbel mode's draw
+    (the caller's generator; see train.train_step).  Returns
+    [B, H*W, K]."""
+    B, H, W = heatmap0.shape
+    g = grid_size
+    cells = heatmap0.reshape(B, H // g, g, W // g, g).transpose(2, 3)
+    cells = cells.reshape(B, (H // g) * (W // g), g * g)
+    if mode == "gumbel":
+        if uniform is None:
+            raise ValueError("the gumbel detector needs a uniform draw")
+        logits = cells - torch.log(-torch.log(uniform + 1e-9))
+    elif mode == "ST":
+        logits = cells
+    else:
+        raise NotImplementedError(mode)
+    soft = torch.softmax(logits, dim=-1)
+    hard = torch.nn.functional.one_hot(soft.argmax(-1), g * g).to(soft.dtype)
+    sel = hard - soft.detach() + soft
+    sel = sel.reshape(B, H // g, W // g, g, g).transpose(2, 3)
+    return conf01 * sel.reshape(B, H * W)[..., None]
+
+
+def select_detector_labels(detector_matrix, base_mask, idx_c01, gt_idx_c01,
+                           gt_mask_c01, m_cap: int):
+    """Fixed-capacity selection of the detector branch's window labels:
+    the positions whose detector confidence exceeds uniform (1/Kw), that
+    pass the base training mask and whose ground truth lies inside their
+    window, in order of that confidence.  Returns (labels [M, Kw] bool,
+    confidences [M, Kw], valid [M])."""
+    B, L0, Kw = detector_matrix.shape
+    det_conf = detector_matrix.amax(dim=2)
+    window_gt = (gt_idx_c01[..., None] == idx_c01) & gt_mask_c01[..., None]
+    mask = (base_mask & (det_conf > 1.0 / Kw)
+            & (window_gt.sum(-1) == 1))
+    sel, valid = select_topm(mask.reshape(-1), det_conf.reshape(-1), m_cap)
+    return (window_gt.reshape(-1, Kw)[sel],
+            detector_matrix.reshape(-1, Kw)[sel], valid)

@@ -37,8 +37,9 @@ class CoarseStage(NamedTuple):
 
 
 class CascadeStage(NamedTuple):
-    """Output of a cascade matching level; the window labels exist only in
-    training (None in eval)."""
+    """Output of a cascade matching level; the window labels and the
+    detector branch's labels exist only in training (None in eval, and the
+    detector's also without ``detector_mode``)."""
     conf_matrix: torch.Tensor     # [B, L0, Kw] window softmax confidences
     idx_c01: torch.Tensor         # [B, L0, Kw] candidate indices
     idx_c10: torch.Tensor         # [B, L1, Kw]
@@ -51,6 +52,9 @@ class CascadeStage(NamedTuple):
     hw1: Tuple[int, int]
     window_gt_label: Optional[torch.Tensor] = None  # [M, Kw] bool one-hot
     window_conf: Optional[torch.Tensor] = None      # [M, Kw] f32
+    detector_gt_label: Optional[torch.Tensor] = None  # [M, Kw] bool one-hot
+    detector_conf: Optional[torch.Tensor] = None      # [M, Kw] f32
+    detector_valid: Optional[torch.Tensor] = None     # [M] bool
 
 
 class FineStage(NamedTuple):

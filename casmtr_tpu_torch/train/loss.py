@@ -1,7 +1,8 @@
 """CasMTR training loss (counterpart of casmtr_tpu/train/loss.py): focal or
 cross-entropy on the coarse dual-softmax confidences, the per-level window
-label loss, and the fine sub-pixel l2(-with-std) loss, as masked means over
-the fixed-capacity buffers."""
+label loss (and the keypoint detector's, where a level has one), and the
+fine sub-pixel l2(-with-std) loss, as masked means over the fixed-capacity
+buffers."""
 
 from __future__ import annotations
 
@@ -107,6 +108,11 @@ def casmtr_loss(out: MatchOutput, gt: Dict, expec_f_gt, cfg: LoftrConfig,
                             st.matches.valid, lc) * lc.cascade_weight
         loss = loss + lcas
         scalars[f"loss_{level_key}"] = lcas
+        if st.detector_gt_label is not None:
+            ldet = cascade_loss(st.detector_conf, st.detector_gt_label,
+                                st.detector_valid, lc) * lc.detector_weight
+            loss = loss + ldet
+            scalars[f"loss_{level_key}_det"] = ldet
 
     if out.fine is not None and expec_f_gt is not None:
         last = list(out.cascades.values())[-1] if out.cascades else out.coarse

@@ -90,6 +90,31 @@ def prepare_batch(batch: Dict, lcfg: LoftrConfig, dev: torch.device
     return batch, gt
 
 
+def detector_uniforms(lcfg: LoftrConfig, batch: Dict[str, torch.Tensor],
+                      seed: int, step: int) -> Dict[str, torch.Tensor]:
+    """The gumbel detector's draws of one step: for each cascade level whose
+    ``detector_mode`` is gumbel, ``sample_uniform_{level}c`` [B, cells,
+    g*g] uniform in [1e-9, 1) (the JAX package's range), from a generator
+    on the batch's device seeded from (``seed``, ``step``).  The JAX
+    package draws from its own PRNG, so the two streams differ; the model
+    takes the draw from the batch, so a test can feed both the same."""
+    if not lcfg.cascade:
+        return {}
+    B, H, W = batch["image0"].shape[:3]
+    dev = batch["image0"].device
+    out = {}
+    for level, scfg in zip(lcfg.cascade_levels, (lcfg.coarse2, lcfg.coarse3)):
+        if scfg.detector_mode != "gumbel":
+            continue
+        g = scfg.grid_size or 4
+        gen = torch.Generator(device=dev).manual_seed(int(
+            np.random.SeedSequence([seed, step, level]).generate_state(1)[0]))
+        u = torch.rand((B, (H // level // g) * (W // level // g), g * g),
+                       generator=gen, device=dev)
+        out[f"sample_uniform_{level}c"] = 1e-9 + (1.0 - 1e-9) * u
+    return out
+
+
 def forward_loss(model: nn.Module, batch: Dict[str, torch.Tensor], gt: Dict,
                  lcfg: LoftrConfig
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -117,7 +142,10 @@ def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
                     ) -> Callable:
     """Returns step_fn(state, batch) -> (state, scalars), scalars being the
     0-dim tensors loss, loss_8c, loss_f, grad_norm, and loss_{level} and
-    valid_n_{level} for each cascade level (4c; 4c and 2c for CasMTR-2c).
+    valid_n_{level} for each cascade level (4c; 4c and 2c for CasMTR-2c),
+    and loss_{level}_det for a level with a keypoint detector.  A gumbel
+    detector draws its noise from ``detector_uniforms`` of the trainer's
+    seed and the step.
 
     ``batch`` holds image0/image1 [B, H, W, 3], depth0/depth1 [B, H, W],
     K0/K1 [B, 3, 3], T_0to1/T_1to0 [B, 4, 4] and optionally mask0/mask1 and
@@ -129,6 +157,8 @@ def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
 
     def step_fn(state: TrainState, batch: Dict):
         batch, gt = prepare_batch(batch, lcfg, dev)
+        batch.update(detector_uniforms(lcfg, batch, cfg.trainer.seed,
+                                       state.step))
         params = dict(model.named_parameters())
         # the forward moves the BatchNorm statistics; a skipped step restores
         stats = [b.clone() for b in model.buffers()]

@@ -9,10 +9,14 @@ It drives the ported recipes outdoor_casmtr_4c and outdoor_casmtr_2c, the
 flagship's ResNetFPN variant of 4c (RESNET: the backbone of
 __graft_entry__._flagship_cfg(backbone="resnet")), the plain QuadtreeLoFTR
 recipe quadtree_baseline (BASELINE: ResNetFPN_8_2, gray, eight quadtree
-layers, no cascade) and the indoor recipe indoor_casmtr_4c_runnable
+layers, no cascade), the indoor recipe indoor_casmtr_4c_runnable
 (INDOOR: ResNetFPN_8_4_2, eight quadtree layers, POLA self layers and
-relative-PE cross layers at 1/4, served at bucket 640 and trained at 640^2),
-at full width.  Phases, each printing its own lines and its seconds:
+relative-PE cross layers at 1/4, served at bucket 640 and trained at 640^2)
+and the published indoor_casmtr_4c as the PMT-refine model (REFINE:
+build_model(..., refine=True), a frozen gray quadtree trunk of 128 / [128,
+196, 256], a ladder side network of 64 / 128 in RGB, the indoor 1/4 stack
+and fine heads; bucket 640, 640^2), at full width.  Phases, each printing
+its own lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
@@ -96,7 +100,10 @@ at full width.  Phases, each printing its own lines and its seconds:
    in the card's default, with 4c's counts.  quadtree_baseline (A 16,
    A′ 16 per pair) and the indoor recipe at bucket 640 on 640x480 frames
    (A 16, A′ 16, B 2; its cross layers take the relative-PE gather path,
-   so C 0) answer in both precisions.
+   so C 0) answer in both precisions; so does the refine model, through
+   the Matcher's canvas, masks and selection around it (A 16, A′ 16, B 2;
+   in training too the frozen trunk runs its eval forward, so its A and A′
+   are the eval instances).
 5. Profile: one more steady request of each recipe in each precision under
    torch.profiler (device busy share, device time by operator and by
    kernel); of quadtree_baseline and the indoor recipe in bf16 only.
@@ -123,7 +130,10 @@ at full width.  Phases, each printing its own lines and its seconds:
    projections that go through kernels A, A′ and C.  Then one more step
    under torch.profiler, per precision.  quadtree_baseline at 704^2 (per
    step A 16, A′ 16, A-bwd 32) and the indoor recipe at 640^2 (also B 2,
-   B-bwd 1, no C) likewise; their profiled step in bf16 only.
+   B-bwd 1, no C) likewise; their profiled step in bf16 only.  The refine
+   model at 640^2 likewise (A 16, A′ 16, B 2, B-bwd 1, no A-bwd: its trunk
+   is frozen), and after its steps every trunk parameter and BatchNorm
+   buffer must be bit-identical to its value before them.
 8. Training reference: one step at 256^2 on the card and on the CPU from
    the same weights and batch.  With float32 forced on both (each recipe
    and the ResNetFPN variant): loss within 1e-4 relative, cosine of the
@@ -140,7 +150,12 @@ at full width.  Phases, each printing its own lines and its seconds:
    recipe are ResNetFPN-based as the variant: their whole f32 step is
    printed with the CPU's response to a nudge, their backbone gated as the
    variant's, and the indoor 1/4 stack alone (POLA and the relative-PE
-   gather path) as the recipes' cascade stacks.
+   gather path) as the recipes' cascade stacks.  The refine model as the
+   indoor recipe, its ladder (in train mode, on the trunk's maps taken once
+   on the CPU) gated in place of the backbone.
+9. Detector: one 4c step at 256^2 with the learnable keypoint-detector
+   head and the ST detector on its 1/4 level (loss_4c_det printed), and
+   the head alone on the tokens it took there, card f32 against CPU f32.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -149,6 +164,7 @@ CUDA is unavailable or any phase fails.
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import statistics
@@ -223,6 +239,9 @@ BF16_LOSS_RTOL = 2e-2
 # the reference's own GPU training step, 704^2, fp16: its cascade-free
 # quadtree step (bench.py, BASELINE.md), quadtree_baseline's architecture
 REFERENCE_S_PER_STEP = 1.19
+# the detector branch's check (detector_phase): 4c's 1/4 level with the
+# learnable head and the straight-through detector
+DETECTOR = {"detector": "learnable", "detector_mode": "ST", "grid_size": 4}
 
 HOLD_CYCLES = 1_000_000  # about 0.5 ms of the card's clock: longer than the
                          # host takes to enqueue one kernel wrapper
@@ -243,21 +262,33 @@ RESNET = "outdoor_casmtr_4c ResNetFPN"
 # CasMTR-4c (ResNetFPN_8_4_2, POLA self layers, relative-PE cross layers)
 BASELINE = "quadtree_baseline"
 INDOOR = "indoor_casmtr_4c_runnable"
+# the published indoor recipe as the PMT-refine model (build_model(...,
+# refine=True)): a frozen quadtree trunk, a ladder side network and new 4c
+# heads; the trunk's parameters and statistics must not change in training
+REFINE = "indoor_casmtr_4c refine"
+REFINED = (REFINE,)
+FROZEN_TRUNK = ("backbone", "loftr_coarse")
+# the relative nudge of the images under which the refine model's trunk
+# flips a 1/8 top-k pick on the CPU alone at the reference's 256^2 pair
+# (frozen_trunk_reference)
+TRUNK_NUDGE = 1e-5
 MODELS = {r: (r, {}) for r in RECIPES}
 MODELS[RESNET] = ("outdoor_casmtr_4c", {"loftr": {"backbone": {
     "backbone_type": "ResNetFPN", "initial_dim": 64,
     "block_dims": [64, 128, 256]}}})
 MODELS[BASELINE] = (BASELINE, {})
 MODELS[INDOOR] = (INDOOR, {})
+MODELS[REFINE] = ("indoor_casmtr_4c", {})
 # per model: quadtree layers at 1/8, cascade levels, and of those the levels
 # whose two cross layers run kernel C (the indoor recipe's relative-PE cross
 # layers take the gather path instead)
 LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
-          RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0)}
+          RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0),
+          REFINE: (8, 1, 0)}
 # serving canvas and training size per model: the indoor recipe serves a
 # ScanNet 640x480 frame padded to 640^2 and trains at its train_size
 BUCKET = {m: 832 for m in MODELS}
-BUCKET[INDOOR] = 640
+BUCKET[INDOOR] = BUCKET[REFINE] = 640
 TPU_KERNELS = {
     "quadtree_fine_attention":
         "casmtr_tpu/ops/pallas/quadtree_kernels.py:118",
@@ -323,13 +354,13 @@ def per_pair(model, bf16):
 def per_step(model, bf16):
     """Launches per training step (no rematerialization): the forward's,
     and one backward for each forward whose inputs need a gradient -- all
-    but the detached 1->0 window scores; A and A′ share A-bwd.  With
-    ``bf16`` (the card's training default) A, A′, A-bwd, C and C-bwd are
-    their bf16 instances and their f32 instances launch 0 times; B and B-bwd
-    stay f32."""
+    but the detached 1->0 window scores; A and A′ share A-bwd, which a
+    frozen trunk (REFINED) never launches.  With ``bf16`` (the card's
+    training default) A, A′, A-bwd, C and C-bwd are their bf16 instances
+    and their f32 instances launch 0 times; B and B-bwd stay f32."""
     qt, levels, c_levels = LAYOUT[model]
     return dict(per_pair(model, bf16), **_typed(
-        {"quadtree_fine_attention_bwd": 4 * qt,
+        {"quadtree_fine_attention_bwd": 0 if model in REFINED else 4 * qt,
          "window_cross_attention_bwd": 4 * c_levels}, bf16),
         window_patch_score_bwd=levels)
 
@@ -341,7 +372,7 @@ LAUNCHES_PER_TRAIN_STEP = {m: per_step(m, True) for m in MODELS}
 LAUNCHES_PER_TRAIN_STEP_F32 = {m: per_step(m, False) for m in MODELS}
 TRAIN_SIZE = 704
 TRAIN_SIZES = {m: TRAIN_SIZE for m in MODELS}
-TRAIN_SIZES[INDOOR] = 640
+TRAIN_SIZES[INDOOR] = TRAIN_SIZES[REFINE] = 640
 TRAIN_SHIFT = (16, 24)   # (dy, dx) pixels from image0 to image1
 # The library yardstick of each row: one PyTorch call on inputs gathered
 # beforehand (the gather is not timed).  scaled_dot_product_attention takes
@@ -1821,6 +1852,25 @@ def precision(name):
                 os.environ[k] = v
 
 
+def matcher_for(name, **kw):
+    """``serving.Matcher`` of MODELS[name] with ``kw`` (``overrides``
+    replaces the model's own).  A REFINED model is the Matcher's canvas,
+    masks and selection around the PMT-refine assembly: the port's Matcher,
+    as the JAX package's, has no refine switch, so its factory is swapped
+    for the construction only."""
+    from casmtr_tpu_torch import serving
+    base, overrides = MODELS[name]
+    kw.setdefault("overrides", overrides or None)
+    if name not in REFINED:
+        return serving.Matcher(base, **kw)
+    build = serving.build_model
+    serving.build_model = functools.partial(build, refine=True)
+    try:
+        return serving.Matcher(base, **kw)
+    finally:
+        serving.build_model = build
+
+
 def serve(torch, matcher, recipe, reqs, prec):
     """The requests through ``matcher`` (of MODELS[recipe]) in precision
     ``prec`` ("bf16", the card's default, or "f32" forced), the launch
@@ -1879,12 +1929,9 @@ def serving_phase(torch, recipe, precs=("bf16", "f32")):
     (``precs``), from the same weights in one process.  Returns
     ({precision: (launch totals, last request's counts, steady ms)}, the
     matcher, a request to profile)."""
-    from casmtr_tpu_torch.serving import Matcher
     t0 = time.perf_counter()
-    base, overrides = MODELS[recipe]
     bucket = BUCKET[recipe]
-    matcher = Matcher(base, bucket=bucket, seed=0,
-                      overrides=overrides or None)
+    matcher = matcher_for(recipe, bucket=bucket, seed=0)
     n_params = sum(p.numel() for p in matcher.model.parameters())
     log(f"serving: Matcher('{recipe}', bucket={bucket}) on "
         f"{matcher.device}, {type(matcher.model).__name__}, {n_params} "
@@ -2008,16 +2055,25 @@ def zero_threshold_overrides(name):
     return overrides
 
 
-def reference_forward(torch, recipe, dev, img0, img1):
+def reference_forward(torch, recipe, dev, img0, img1, prepare=None,
+                      nudge=0.0):
     """MODELS[recipe] at full width at bucket 256, thresholds 0, seeded
     random weights, on ``dev``, in the precision the environment gives
-    there."""
-    from casmtr_tpu_torch.serving import Matcher
-    m = Matcher(MODELS[recipe][0], bucket=256, thr=0.0,
-                overrides=zero_threshold_overrides(recipe), device=dev,
-                seed=0)
+    there; ``prepare(model)`` runs first (to hook it), and ``nudge``
+    multiplies the packed images by (1 + nudge x a seeded normal draw)."""
+    m = matcher_for(recipe, bucket=256, thr=0.0,
+                    overrides=zero_threshold_overrides(recipe), device=dev,
+                    seed=0)
+    batch = m._pack([(img0, img1)])
+    if nudge:
+        gen = torch.Generator().manual_seed(0)
+        for k in ("image0", "image1"):
+            batch[k] = batch[k] * (1 + nudge * torch.randn(
+                tuple(batch[k].shape), generator=gen)).to(dev)
+    if prepare is not None:
+        prepare(m.model)
     with torch.inference_mode():
-        return m.model(m._pack([(img0, img1)]))
+        return m.model(batch)
 
 
 def compare_outputs(torch, a, b):
@@ -2064,6 +2120,49 @@ def describe(conf, window, stages):
                 f"{s['px']:.3e}" for n, s in stages.items()))
 
 
+def hook_trunk(store, feed, model):
+    """Forward hooks on a REFINED model's frozen trunk (``backbone`` and
+    ``loftr_coarse``): each module's output is kept in ``store``; with
+    ``feed`` (outputs kept from another run) the module's output is
+    replaced by that run's, moved to its device."""
+    for name in FROZEN_TRUNK:
+        def hook(module, args, out, name=name):
+            store[name] = out
+            if feed is not None:
+                return type(out)(t.to(out[0].device) for t in feed[name])
+        getattr(model, name).register_forward_hook(hook)
+
+
+def frozen_trunk_reference(torch, recipe, img0, img1, cpu, trunk):
+    """A REFINED model's f32 serving reference, card against CPU, held at
+    what lies on either side of its trunk's discrete choices (the 1/8
+    quadtree's top-k, which a relative nudge of TRUNK_NUDGE of the images
+    flips on the CPU alone: printed).  The trunk's backbone maps within
+    BACKBONE_RTOL of their largest value; the heads (ladder, 1/4 stack,
+    window matching, fine stage) on the CPU's trunk outputs ``trunk``, the
+    card against the CPU's output ``cpu``, at the recipes' gates, which
+    the caller applies to the comparison returned."""
+    with precision("f32"):
+        nudged = reference_forward(torch, recipe, "cpu", img0, img1,
+                                   nudge=TRUNK_NUDGE)
+        own = {}
+        card = reference_forward(torch, recipe, "cuda", img0, img1,
+                                 functools.partial(hook_trunk, own, trunk))
+    log(f"reference: {recipe} the CPU's own response to a nudge of "
+        f"{TRUNK_NUDGE:g} of the images: "
+        + describe(*compare_outputs(torch, nudged, cpu)))
+    peak = max(float((a.double().cpu() - b.double()).abs().max()
+                     / b.double().abs().max())
+               for a, b in zip(own["backbone"], trunk["backbone"]))
+    log(f"reference: {recipe} frozen trunk, card f32 vs CPU f32: backbone "
+        f"maps {peak:.2e} of their largest value (tol {BACKBONE_RTOL:g})")
+    check(peak <= BACKBONE_RTOL, "reference: trunk backbone maps disagree")
+    out = compare_outputs(torch, card, cpu)
+    log(f"reference: {recipe} heads on the CPU's trunk outputs, card f32 vs "
+        f"CPU f32: {describe(*out)}")
+    return out
+
+
 def reference_phase(torch, recipe):
     """The card against the CPU on one 256^2 pair, in two precisions: the
     card with float32 forced against the CPU's float32 default (confidences
@@ -2071,21 +2170,32 @@ def reference_phase(torch, recipe):
     within PX_TOL); the card's bf16 default against the CPU with both
     variables at 1 (bf16 stacks, f32 kernel inputs, as the JAX package's
     CPU graph), at every stage within the CPU's own bf16 against float32
-    difference (the scale of bf16 rounding; see BF16_CONF_TOL)."""
+    difference (the scale of bf16 rounding; see BF16_CONF_TOL).  A REFINED
+    model's f32 forward is printed whole and gated by
+    frozen_trunk_reference (its trunk's 1/8 top-k flips under a nudge far
+    below the card's rounding)."""
     rng = np.random.default_rng(1)
     big = texture(rng, 300, 300)
     img0, img1 = big[:256, :256], big[7:263, 5:261]
-    outs = {}
+    outs, trunk = {}, {}
     for prec, dev in (("f32", "cuda"), ("f32", "cpu"), ("bf16", "cuda"),
                       ("bf16 forced", "cpu")):
+        grab = (functools.partial(hook_trunk, trunk, None)
+                if (prec, dev) == ("f32", "cpu") and recipe in REFINED
+                else None)
         with precision(prec):
             outs[prec, dev] = reference_forward(torch, recipe, dev, img0,
-                                                img1)
+                                                img1, grab)
     conf, window, st = compare_outputs(torch, outs["f32", "cuda"],
                                        outs["f32", "cpu"])
     log(f"reference: {recipe} bucket 256, thresholds 0, card f32 vs CPU "
         f"f32: {describe(conf, window, st)} (tol conf {CONF_TOL:g}, final "
-        f"Jaccard >= {MIN_JACCARD}, px {PX_TOL:g})")
+        f"Jaccard >= {MIN_JACCARD}, px {PX_TOL:g}"
+        + ("; gated on the CPU's trunk below)" if recipe in REFINED
+           else ")"))
+    if recipe in REFINED:
+        conf, window, st = frozen_trunk_reference(
+            torch, recipe, img0, img1, outs["f32", "cpu"], trunk)
     fin = st["final"]
     check(fin["n"][1] > 0, "reference: no final matches on the CPU")
     check(conf <= CONF_TOL, "reference: coarse confidences disagree")
@@ -2149,12 +2259,16 @@ def train_batch(size, seed):
 def kernel_grad_params(model):
     """The q/k/v projections whose gradients go through kernel A-bwd (the
     1/8 quadtree layers, kernels A and A′) and C-bwd (the two cross layers
-    of each cascade level; the indoor recipe's take the relative-PE gather
-    path instead)."""
+    of each cascade level; the indoor recipes' take the relative-PE gather
+    path instead); not those of a frozen trunk."""
+    from casmtr_tpu_torch.models.casmtr_refine import (CasMTRRefine,
+                                                       frozen_param_label)
+    frozen = isinstance(model, CasMTRRefine)
     return [n for n, _ in model.named_parameters()
             if n.split(".")[0] in ("loftr_coarse", "loftr_coarse_8c",
                                    "loftr_coarse_4c", "loftr_coarse_2c")
-            and n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")]
+            and n.split(".")[-2] in ("q_proj", "k_proj", "v_proj")
+            and not (frozen and frozen_param_label(n))]
 
 
 def model_config(name, **loftr):
@@ -2167,19 +2281,23 @@ def model_config(name, **loftr):
     return build_config(recipe, overrides=overrides)
 
 
-def build_trainer(torch, name, size, device=None, model=None):
-    """MODELS[name] at ``size`` with seeded random weights (or a copy of
-    ``model``), its optimizer state and its step."""
+def build_trainer(torch, name, size, device=None, model=None, **loftr):
+    """MODELS[name] at ``size`` (with the ``loftr`` overrides) with seeded
+    random weights (or a copy of ``model``), its optimizer state and its
+    step; a REFINED model with its trunk frozen."""
     from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.models.casmtr_refine import frozen_param_label
     from casmtr_tpu_torch.train.train_step import (init_train_state,
                                                    make_train_step)
     from casmtr_tpu_torch.weights import init_random_
-    cfg = model_config(name, train_size=size)
+    cfg = model_config(name, train_size=size, **loftr)
+    refine = name in REFINED
     if model is None:
-        model = build_model(cfg.loftr)
+        model = build_model(cfg.loftr, refine=refine)
         init_random_(model, torch.Generator().manual_seed(0))
-    state, tx = init_train_state(model, cfg, steps_per_epoch=1000,
-                                 base_lr=1e-3, device=device)
+    state, tx = init_train_state(
+        model, cfg, steps_per_epoch=1000, base_lr=1e-3, device=device,
+        frozen_label_fn=frozen_param_label if refine else None)
     return model, state, make_train_step(model, cfg, tx, device=device)
 
 
@@ -2211,11 +2329,17 @@ def training_phase(torch, name, prec):
                 else LAUNCHES_PER_TRAIN_STEP_F32)[name]
     n_params = sum(p.numel() for p in model.parameters())
     watch = kernel_grad_params(model)
-    n_watch = 3 * LAYOUT[name][0] + 6 * len(levels)
-    check(len(watch) == n_watch, f"training: {len(watch)} kernel-path q/k/v "
+    refine = name in REFINED
+    n_watch = 3 * LAYOUT[name][0] * (not refine) + 6 * len(levels)
+    check(len(watch) == n_watch, f"training: {len(watch)} trainable q/k/v "
           f"projections, expected {n_watch}")
     params = dict(model.named_parameters())
     start = {n: params[n].detach().clone() for n in watch}
+    trunk = {}
+    if refine:
+        from casmtr_tpu_torch.models.casmtr_refine import frozen_param_label
+        trunk = {n: t.clone() for n, t in model.state_dict().items()
+                 if frozen_param_label(n)}
     batch = train_batch(size, 0)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2256,6 +2380,13 @@ def training_phase(torch, name, prec):
     moved = sum(not torch.equal(start[n], params[n].detach()) for n in watch)
     check(moved == len(watch), f"training: {len(watch) - moved} q/k/v "
           "projections did not move")
+    if refine:
+        sd = model.state_dict()
+        same = sum(torch.equal(t, sd[n]) for n, t in trunk.items())
+        log(f"training: {recipe} frozen trunk after the {1 + len(times)} "
+            f"steps: {same} of {len(trunk)} parameters and BatchNorm "
+            "buffers bit-identical")
+        check(same == len(trunk) > 0, "training: the frozen trunk changed")
     for k, v in totals.items():
         check(v > 0 or expected[k] == 0,
               f"training: kernel {k} never launched on the main path")
@@ -2344,7 +2475,9 @@ def reference_step(torch, name, size, dev, base, prec, nudge=None):
     with precision(prec):
         model, state, step = build_trainer(torch, name, size, device=dev,
                                            model=copy.deepcopy(base))
-        coarse = coarse_gradient(torch, model, batch, dev)
+        # a frozen trunk's 1/8 stack takes no gradient
+        coarse = (None if name in REFINED
+                  else coarse_gradient(torch, model, batch, dev))
         t0 = time.perf_counter()
         _, scalars = step(state, batch)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
@@ -2379,23 +2512,33 @@ def step_difference(torch, a, b):
     rel = {k: abs(sa[k] - sb[k]) / (abs(sb[k]) or 1.0) for k in sb
            if k.startswith("loss")}
     cos, worst = leaf_errors(torch, ga, gb)
-    return rel, cos, worst, cosine(ca, cb)
+    return rel, cos, worst, (float("nan") if cb is None else cosine(ca, cb))
 
 
 def backbone_stage(torch, base, size, dev, prec):
-    """The backbone of a copy of ``base`` on ``dev`` in train mode in
-    precision ``prec``, on the reference batch's two images as
-    CasMTR.forward feeds them, and the gradients of its parameters for a
-    seeded cotangent of its maps: (maps, running statistics after the
-    forward, the maps' product with the cotangent, gradients by parameter),
-    in float64 on the CPU."""
+    """The backbone of a copy of ``base`` (of a REFINED model: its ladder,
+    fed the frozen trunk's 1/4 and 1/2 maps, taken once in f32 on the CPU)
+    on ``dev`` in train mode in precision ``prec``, on the reference
+    batch's two images as the model's forward feeds them, and the gradients
+    of its parameters for a seeded cotangent of its maps: (maps, running
+    statistics after the forward, the maps' product with the cotangent,
+    gradients by parameter), in float64 on the CPU."""
     batch = train_batch(size, 1)
     x = torch.from_numpy(np.concatenate([batch["image0"], batch["image1"]])
-                         ).permute(0, 3, 1, 2).to(dev)
+                         ).permute(0, 3, 1, 2)
+    feats = None
+    if hasattr(base, "ladder"):
+        with precision("f32"), torch.no_grad():
+            feats = base.backbone(x)[1:]
+    x = x.to(dev)
     rng = np.random.default_rng(2)
     with precision(prec):
-        bb = copy.deepcopy(base.backbone).to(dev).train()
-        maps = bb(x)
+        if feats is None:
+            bb = copy.deepcopy(base.backbone).to(dev).train()
+            maps = bb(x)
+        else:
+            bb = copy.deepcopy(base.ladder).to(dev).train()
+            maps = bb(x, [f.to(dev) for f in feats])
         dot = sum((m * torch.from_numpy(rng.standard_normal(
             tuple(m.shape)).astype(np.float32)).to(dev)).sum() for m in maps)
         params = dict(bb.named_parameters())
@@ -2426,25 +2569,26 @@ def backbone_difference(torch, a, b):
 
 
 def backbone_reference(torch, name, base, size):
-    """The variant's backbone stage, card against CPU: in f32 within
-    BACKBONE_RTOL and MIN_GRAD_COS; the card's bf16 default against the
-    CPU's bf16 backbone within BF16_TRAIN_NOISE x the CPU's own
-    bf16-against-f32 difference."""
+    """The variant's backbone stage (a REFINED model's ladder), card against
+    CPU: in f32 within BACKBONE_RTOL and MIN_GRAD_COS; the card's bf16
+    default against the CPU's bf16 backbone within BF16_TRAIN_NOISE x the
+    CPU's own bf16-against-f32 difference."""
     res = {(dev, prec): backbone_stage(torch, base, size, dev, prec)
            for dev, prec in (("cuda", "f32"), ("cpu", "f32"), ("cuda", "bf16"),
                              ("cpu", "bf16 backbone"))}
+    part = "ladder" if name in REFINED else "backbone"
     peak, rms, stats, dot, (cos, (worst, worst_name)) = backbone_difference(
         torch, res["cuda", "f32"], res["cpu", "f32"])
-    log(f"training reference: {name} backbone {size}^2 train mode, card f32 "
+    log(f"training reference: {name} {part} {size}^2 train mode, card f32 "
         f"vs CPU f32: maps {peak:.2e} of their largest value, running "
         f"statistics {stats:.2e}, cotangent product {dot:.2e} (tol "
         f"{BACKBONE_RTOL:g} each); gradient cosine {cos:.8f} (min "
         f"{MIN_GRAD_COS}), worst per-leaf relative error {worst:.2e} "
         f"({worst_name}, not gated)")
     check(max(peak, stats, dot) <= BACKBONE_RTOL,
-          "training reference: backbone maps or statistics disagree")
+          f"training reference: {part} maps or statistics disagree")
     check(cos >= MIN_GRAD_COS,
-          "training reference: backbone gradients disagree")
+          f"training reference: {part} gradients disagree")
     own = backbone_difference(torch, res["cpu", "bf16 backbone"],
                               res["cpu", "f32"])
     got = backbone_difference(torch, res["cuda", "bf16"],
@@ -2452,16 +2596,16 @@ def backbone_reference(torch, name, base, size):
     for label, i in (("maps RMS error", 1), ("running statistics", 2),
                      ("cotangent product", 3)):
         tol = BF16_TRAIN_NOISE * own[i]
-        log(f"training reference: {name} backbone bf16 {label}: {got[i]:.3e} "
+        log(f"training reference: {name} {part} bf16 {label}: {got[i]:.3e} "
             f"(tol {tol:.3e}; the CPU's own {own[i]:.3e})")
-        check(got[i] <= tol, f"training reference: bf16 backbone {label} "
+        check(got[i] <= tol, f"training reference: bf16 {part} {label} "
               "disagrees")
     tol = BF16_TRAIN_NOISE * (1 - own[4][0])
-    log(f"training reference: {name} backbone bf16 1 - gradient cosine "
+    log(f"training reference: {name} {part} bf16 1 - gradient cosine "
         f"{1 - got[4][0]:.3e} (tol {tol:.3e}; the CPU's own "
         f"{1 - own[4][0]:.3e})")
     check(1 - got[4][0] <= tol,
-          "training reference: bf16 backbone gradients disagree")
+          f"training reference: bf16 {part} gradients disagree")
 
 
 def cascade_stack_reference(torch, name, base, size):
@@ -2576,7 +2720,7 @@ def train_reference_phase(torch, name):
             + f"; gradient cosine {nudged[1]:.6f}, of loss_8c on the 1/8 "
             f"q/k/v {nudged[3]:.6f}")
         backbone_reference(torch, name, base, size)
-        if name == INDOOR:
+        if name in (INDOOR, REFINE):
             cascade_stack_reference(torch, name, base, size)
         return
     log(f"training reference: {name} f32 gates: each loss term within "
@@ -2607,6 +2751,46 @@ def train_reference_phase(torch, name):
             f"{1 - c:.3e} (tol {tol:.3e}; the CPU's own {1 - c_own:.3e})")
         check(1 - c <= tol, f"training reference: bf16 {label} disagrees")
     cascade_stack_reference(torch, name, base, size)
+
+
+def detector_phase(torch):
+    """The keypoint-detector branch: one 4c training step at 256^2 on the
+    card in its default precision with the learnable head and the ST
+    detector on the 1/4 level (DETECTOR), its loss_4c_det printed, and the
+    head alone, in train mode on the tokens it took in that step, card
+    against CPU in f32: heatmap within BACKBONE_RTOL of its largest value,
+    its BatchNorm statistics within BACKBONE_RTOL."""
+    size = 256
+    model, state, step = build_trainer(torch, RECIPES[0], size,
+                                       coarse2=DETECTOR)
+    head = model.loftr_coarse_4c.detector
+    grab = []
+    hook = head.register_forward_pre_hook(
+        lambda m, args: grab.append(args[0].detach().clone()))
+    _, scalars = step(state, train_batch(size, 1))
+    hook.remove()
+    vals = {k: float(v) for k, v in scalars.items()}
+    log(f"detector: {RECIPES[0]} {size}^2 one step with {DETECTOR}: "
+        + ", ".join(f"{k} {v:.4g}" for k, v in sorted(vals.items())))
+    check(all(np.isfinite(v) for v in vals.values()),
+          "detector: non-finite loss or gradient norm")
+    check("loss_4c_det" in vals, "detector: no detector loss term")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        with precision("f32"):
+            h = copy.deepcopy(head).to(dev).train()
+            with torch.no_grad():
+                heat = h(grab[0].to(dev))
+        out[dev] = (heat.double().cpu(),
+                    [b.double().cpu() for n, b in h.named_buffers()
+                     if not n.endswith("num_batches_tracked")])
+    (hg, sg), (hc, sc) = out["cuda"], out["cpu"]
+    err = float((hg - hc).abs().max() / hc.abs().max())
+    stats = max(float((a - b).abs().max()) for a, b in zip(sg, sc))
+    log(f"detector: head alone on the step's {tuple(grab[0].shape)} tokens, "
+        f"card f32 vs CPU f32: heatmap {err:.2e} of its largest value, "
+        f"statistics {stats:.2e} (tol {BACKBONE_RTOL:g} each)")
+    check(max(err, stats) <= BACKBONE_RTOL, "detector: the head disagrees")
 
 
 def timed(name, fn, *args):
@@ -2660,7 +2844,8 @@ def main():
         # one request per precision of the two recipes, one in bf16 of the
         # baseline and the indoor recipe
         profiled = (precs if recipe in RECIPES else
-                    ("bf16",) if recipe in (BASELINE, INDOOR) else ())
+                    ("bf16",) if recipe in (BASELINE, INDOOR, REFINE)
+                    else ())
         for prec in profiled:
             timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
                   matcher, request, prec,
@@ -2678,7 +2863,8 @@ def main():
                     f"training {recipe} {prec}", training_phase, torch,
                     recipe, prec)
                 train_runs[recipe, prec] = (totals, counts)
-                if prec == "bf16" or recipe not in (BASELINE, INDOOR):
+                if prec == "bf16" or recipe not in (BASELINE, INDOOR,
+                                                    REFINE):
                     timed(f"training profile {recipe} {prec}",
                           train_profile_phase, torch, f"{recipe} {prec}",
                           step, state, batch, statistics.median(times))
@@ -2687,6 +2873,7 @@ def main():
     for recipe in MODELS:
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)
+    timed("detector", detector_phase, torch)
 
     # launches: each path's counts, summed over the models' runs, and each
     # model's count in its last request and its last step.  A row reads the

@@ -8,8 +8,8 @@ Twins backbone at its smallest preset), with the same jittered weights:
   confidences and the 1/2 window confidences within 1e-4;
 * ``Matcher("outdoor_casmtr_2c")`` against the JAX ``Matcher`` on a square
   and a padded request;
-* one training step against the JAX package's step and ``jax.grad`` of the
-  same composition: loss terms within 1e-5 relative, per-leaf gradients
+* one training step against the JAX package's step and the gradients it
+  takes (``step_gradients``): loss terms within 1e-5 relative, per-leaf gradients
   within 1e-4 relative (leaf norms floored as in test_torch_train.py),
   BatchNorm statistics within 1e-5;
 * ``load_jax_variables`` fills every key of the 2c model (``up_block2``,
@@ -26,7 +26,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from tests.test_torch_slice import (_assert_same_matches, _by_pair,  # noqa
                                     _fields, _images)
-from tests.test_torch_train import _jnp, _leaves, _pair_batch  # noqa: E402
+from tests.test_torch_train import (_jnp, _leaves, _pair_batch,  # noqa
+                                    step_gradients)
 from tests.torch_parity import configs, jitter, tiny_2c_overrides  # noqa
 
 RECIPE = "outdoor_casmtr_2c"
@@ -152,8 +153,6 @@ def step_run():
     the flax side jitted once, its tree from ``jax.eval_shape`` and its
     values from the port's seeded initialization, jittered."""
     from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
-    from casmtr_tpu.train import supervision as jspv
-    from casmtr_tpu.train.loss import casmtr_loss as jax_loss
     from casmtr_tpu.train.optim import build_optimizer as jax_build
     from casmtr_tpu.train.train_step import TrainState as JaxState
     from casmtr_tpu.train.train_step import make_train_step as jax_step
@@ -176,23 +175,14 @@ def step_run():
 
     tx = jax_build(jcfg.trainer, 1e-3, 100)
     step_fn = jax_step(jm, jcfg, tx)
+    taken = []
 
-    def grads_fn(params, bs, b):
-        gt = jspv.compute_supervision(b, jcfg.loftr)
-        b = dict(b, **{k: gt[k] for k in ("gt_idx_4c", "gt_mask_4c",
-                                          "gt_idx_2c", "gt_mask_2c")})
+    def both_fn(s, b):
+        with step_gradients(taken):
+            out = step_fn(s, b)
+        return out, taken[-1]
 
-        def loss_fn(p):
-            out, _ = jm.apply({"params": p, "batch_stats": bs}, b,
-                              train=True, mutable=["batch_stats"])
-            eg = jspv.fine_expec_gt(gt, out.cascades["2c"].matches, b,
-                                    jcfg.loftr)
-            return jax_loss(out, gt, eg, jcfg.loftr)[0]
-
-        return jax.grad(loss_fn)(params)
-
-    both = jax.jit(lambda s, b: (step_fn(s, b),
-                                 grads_fn(s.params, s.batch_stats, b)))
+    both = jax.jit(both_fn)
     p0 = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state0 = JaxState(jnp.zeros((), jnp.int32), p0,
                       jax.tree_util.tree_map(jnp.asarray,

@@ -127,8 +127,15 @@ def _torch_grads(fn, qkv_bf16, cot, widened):
 
 
 def _jax_grads(fn, qkv, cot):
-    _, vjp = jax.vjp(fn, *qkv)
-    return vjp(jnp.asarray(cot))
+    """``jax.vjp`` of ``fn`` at ``qkv`` on ``cot``, compiled once (an
+    interpret-mode Pallas kernel runs its grid loop inside the graph
+    rather than op by op) with XLA's excess precision off, so the bf16
+    roundings stay where the kernel puts them."""
+    def grads(*xs):
+        return jax.vjp(fn, *xs)[1](jnp.asarray(cot))
+
+    return jax.jit(grads).lower(*qkv).compile(
+        {"xla_allow_excess_precision": False})(*qkv)
 
 
 def _hold_bwd(label, torch_fn, jax_fn, qkv, cot):

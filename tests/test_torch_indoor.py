@@ -26,8 +26,11 @@ jittered weights:
   per-leaf gradients within 1e-4 relative, BatchNorm statistics within
   1e-5;
 * the branches still not ported raise NotImplementedError: the
-  ``local_global``, ``topk``, ``linear`` and ``LKA`` self layers, the
-  detector, quadtree attention ``Guided`` and the 1/8 relative PE.
+  ``local_global``, ``topk``, ``linear`` and ``LKA`` self layers,
+  quadtree attention ``Guided`` and the 1/8 relative PE; the detector
+  head and the detector modes, refused here until they were ported, now
+  build (tests/test_torch_detector.py holds them against the JAX
+  package).
 
 The tolerances were fixed before the first run."""
 
@@ -47,7 +50,7 @@ from tests.test_torch_train import _leaves as leaves  # noqa: E402
 from tests.test_torch_train import (_pair_batch, jax_step,  # noqa: E402
                                     step_variables, torch_step)
 from tests.torch_parity import (configs, jitter,  # noqa: E402
-                                tiny_indoor_overrides)
+                                port_variables, tiny_indoor_overrides)
 
 RECIPE = "indoor_casmtr_4c_runnable"
 ATOL = 1e-5
@@ -192,14 +195,14 @@ def test_indoor_eval_forward_stages_match_jax(hw):
     img0, img1 = _images(np.random.default_rng(0), 2, *hw)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxCasMTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     names = leaves(variables)
     assert any("relative_position_bias_table" in k for k in names)
     assert any("h_pos_bias" in k for k in names)
     want = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
                                                               batch)
-    model = CasMTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():
@@ -320,6 +323,10 @@ REFUSED = {
 }
 
 
+# refused until the detector branch was ported: now they build
+PORTED = {"detector", "detector_mode"}
+
+
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_branches_still_raise(case):
     from casmtr_tpu_torch.models import build_model
@@ -327,5 +334,10 @@ def test_unported_branches_still_raise(case):
     for part, value in REFUSED[case].items():
         ov["loftr"][part].update(value)
     _, tcfg = configs(ov, RECIPE)
+    if case in PORTED:
+        model = build_model(tcfg.loftr)
+        assert (model.loftr_coarse_4c.detector is not None) == (
+            case == "detector")
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         build_model(tcfg.loftr)

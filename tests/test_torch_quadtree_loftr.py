@@ -3,8 +3,8 @@ JAX package, on the CPU at tiny widths (tests/torch_parity.py
 ``tiny_baseline_overrides``: ResNetFPN_8_2 in gray, one self and one cross
 quadtree layer, the LoFTR fine stage), with the same jittered weights:
 
-* ``build_model`` returns QuadtreeLoFTR for the recipe (CasMTR for the
-  cascade recipes) and still refuses the PMT-refine assembly;
+* ``build_model`` returns QuadtreeLoFTR for the recipe, CasMTR for the
+  cascade recipes and CasMTRRefine with ``refine``;
 * ``qtatt_a`` against the JAX ``qtatt_a`` at 2 and 3 levels, 2 and 8
   heads: messages within 1e-5, and its q/k/v gradients against
   ``jax.vjp`` within 1e-5 of the largest gradient;
@@ -44,7 +44,8 @@ from tests.test_torch_train import _leaves as leaves  # noqa: E402
 from tests.test_torch_train import (_pair_batch, jax_step,  # noqa: E402
                                     step_variables, torch_step)
 from tests.torch_parity import (configs, jitter,  # noqa: E402
-                                tiny_baseline_overrides, tiny_indoor_overrides)
+                                port_variables, tiny_baseline_overrides,
+                                tiny_indoor_overrides)
 
 RECIPE = "quadtree_baseline"
 MSG_ATOL = 1e-5
@@ -59,13 +60,16 @@ TRAIN_SIZE = 64
 def test_build_model_dispatches_like_the_jax_factory():
     from casmtr_tpu_torch.models import build_model
     from casmtr_tpu_torch.models.casmtr import CasMTR
+    from casmtr_tpu_torch.models.casmtr_refine import CasMTRRefine
     from casmtr_tpu_torch.models.loftr import QuadtreeLoFTR
     _, tcfg = configs(tiny_baseline_overrides(), RECIPE)
     assert type(build_model(tcfg.loftr)) is QuadtreeLoFTR
     _, icfg = configs(tiny_indoor_overrides(), "indoor_casmtr_4c_runnable")
     assert type(build_model(icfg.loftr)) is CasMTR
-    with pytest.raises(NotImplementedError, match="PMT refine"):
-        build_model(tcfg.loftr, refine=True)
+    ov = tiny_indoor_overrides()
+    ov["loftr"]["backbone"]["refine_dims"] = [6, 12, 16]
+    _, rcfg = configs(ov, "indoor_casmtr_4c")
+    assert type(build_model(rcfg.loftr, refine=True)) is CasMTRRefine
 
 
 # --------------------------------------------------------------------------
@@ -136,13 +140,13 @@ def test_baseline_eval_forward_matches_jax(hw, attn_type):
     img0, img1 = _images(np.random.default_rng(0), 2, *hw)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxQuadtreeLoFTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = QuadtreeLoFTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     has_merge = any("py_att_weight" in k for k in leaves(variables))
     assert has_merge == (attn_type == "B")
     want = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
                                                               batch)
-    model = QuadtreeLoFTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():

@@ -10,7 +10,9 @@ at the tiny 4c configuration (tests/torch_parity.py), piece by piece:
   parameters within 1e-6; the LR schedules and the EMA ramp agree;
 * the whole step from the same (jittered) flax variables and batch: loss
   within 1e-5 relative, per-leaf gradients within 1e-4 relative to
-  ``jax.grad`` of the same composition, BatchNorm statistics after the step
+  those the JAX step takes (``jax.value_and_grad`` of its composition,
+  read from the same trace by ``step_gradients``), BatchNorm statistics
+  after the step
   within 1e-5 (flax moves the running variance toward the biased batch
   variance);
 * a batch with a NaN pixel changes nothing in either package but the step
@@ -394,8 +396,6 @@ def step_run():
     jitted once; its variable tree comes from ``jax.eval_shape`` and the
     values from the port's seeded initialization, jittered."""
     from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
-    from casmtr_tpu.train import supervision as jspv
-    from casmtr_tpu.train.loss import casmtr_loss as jax_loss
     from casmtr_tpu.train.optim import build_optimizer as jax_build
     from casmtr_tpu.train.train_step import TrainState as JaxState
     from casmtr_tpu.train.train_step import make_train_step as jax_step
@@ -421,25 +421,17 @@ def step_run():
     variables = jitter(jax_variables(model.state_dict(), like), seed=1)
     load_jax_variables(model, variables)
 
-    # JAX: the package's step, and jax.grad of the same composition
+    # JAX: the package's step, and the gradients it takes
     tx = jax_build(jcfg.trainer, 1e-3, 100)
     step_fn = jax_step(jm, jcfg, tx)
+    taken = []
 
-    def grads_fn(params, bs, b):
-        gt = jspv.compute_supervision(b, jcfg.loftr)
-        b = dict(b, gt_idx_4c=gt["gt_idx_4c"], gt_mask_4c=gt["gt_mask_4c"])
+    def both_fn(s, b):
+        with step_gradients(taken):
+            out = step_fn(s, b)
+        return out, taken[-1]
 
-        def loss_fn(p):
-            out, _ = jm.apply({"params": p, "batch_stats": bs}, b,
-                              train=True, mutable=["batch_stats"])
-            eg = jspv.fine_expec_gt(gt, out.cascades["4c"].matches, b,
-                                    jcfg.loftr)
-            return jax_loss(out, gt, eg, jcfg.loftr)[0]
-
-        return jax.grad(loss_fn)(params)
-
-    both = jax.jit(lambda s, b: (step_fn(s, b),
-                                 grads_fn(s.params, s.batch_stats, b)))
+    both = jax.jit(both_fn)
     p0 = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state0 = JaxState(jnp.zeros((), jnp.int32), p0,
                       jax.tree_util.tree_map(jnp.asarray,
@@ -564,61 +556,77 @@ def test_train_step_runs_on_the_card_by_default():
 # one step of each package, shared with the bf16 and ResNetFPN step tests
 # --------------------------------------------------------------------------
 
-def step_variables(jcfg, tcfg, batch, seed: int = 1):
+def step_variables(jcfg, tcfg, batch, seed: int = 1, refine: bool = False):
     """The JAX model, the zero-filled flax variable tree ``like`` and
     jittered variables whose values come from the port's seeded
     initialization (its tree from ``jax.eval_shape``), for one training
-    step of each package from the same weights."""
+    step of each package from the same weights; ``refine`` builds the
+    PMT-refine models."""
     from casmtr_tpu.models import build_model as jax_build_model
     from casmtr_tpu_torch.models import build_model
     from casmtr_tpu_torch.weights import init_random_, jax_variables
-    jm = jax_build_model(jcfg.loftr)
+    jm = jax_build_model(jcfg.loftr, refine=refine)
     shapes = jax.eval_shape(lambda: jm.init(
         jax.random.PRNGKey(0), {k: jnp.asarray(v) for k, v in batch.items()},
         train=False))
     like = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
                                   dict(shapes))
-    model = build_model(tcfg.loftr)
+    model = build_model(tcfg.loftr, refine=refine)
     init_random_(model, torch.Generator().manual_seed(seed))
     return jm, like, jitter(jax_variables(model.state_dict(), like),
                             seed=seed)
 
 
+@contextlib.contextmanager
+def step_gradients(store: list):
+    """Inside the block, the JAX package's training step appends the
+    gradients it computes to ``store`` (the tree it hands to
+    ``optax.global_norm``, before the non-finite skip), so one trace of the
+    step yields them; the step's module global ``optax`` is swapped for a
+    view of optax whose ``global_norm`` records its argument."""
+    import optax
+
+    import casmtr_tpu.train.train_step as jts
+
+    class Recording:
+        def __getattr__(self, name):
+            return getattr(optax, name)
+
+        @staticmethod
+        def global_norm(tree):
+            store.append(tree)
+            return optax.global_norm(tree)
+
+    jts.optax = Recording()
+    try:
+        yield
+    finally:
+        jts.optax = optax
+
+
 def jax_step(jm, jcfg, variables, batch, exact: bool = False,
-             two_pass_bn: bool = False):
+             two_pass_bn: bool = False, frozen_label_fn=None,
+             with_params: bool = False):
     """The JAX package's training step on ``variables`` and ``batch``, and
-    ``jax.grad`` of the same composition: (scalars, gradients, batch
+    the gradients it takes (``step_gradients``): (scalars, gradients, batch
     statistics after the step).  ``exact`` compiles with XLA's excess
     precision off, so a bf16 graph rounds wherever flax's per-module dtype
     says (as the port does); ``two_pass_bn`` traces it with flax's
     BatchNorm in the port's two-pass variance
-    (``torch_parity.two_pass_batch_norm``)."""
-    from casmtr_tpu.train import supervision as jspv
-    from casmtr_tpu.train.loss import casmtr_loss as jax_loss
+    (``torch_parity.two_pass_batch_norm``); ``frozen_label_fn`` is the
+    optimizer's, as ``init_train_state`` takes it; ``with_params`` adds the
+    parameters after the step to the results."""
     from casmtr_tpu.train.optim import build_optimizer as jax_build
     from casmtr_tpu.train.train_step import TrainState as JaxState
     from casmtr_tpu.train.train_step import make_train_step
-    names = ([f"{lvl}c" for lvl in jcfg.loftr.cascade_levels]
-             if jcfg.loftr.cascade else [])
-    tx = jax_build(jcfg.trainer, 1e-3, 100)
+    tx = jax_build(jcfg.trainer, 1e-3, 100, frozen_label_fn=frozen_label_fn)
     step_fn = make_train_step(jm, jcfg, tx)
-
-    def grads_fn(params, bs, b):
-        gt = jspv.compute_supervision(b, jcfg.loftr)
-        b = dict(b, **{f"gt_{k}_{n}": gt[f"gt_{k}_{n}"] for n in names
-                       for k in ("idx", "mask")})
-
-        def loss_fn(p):
-            out, _ = jm.apply({"params": p, "batch_stats": bs}, b,
-                              train=True, mutable=["batch_stats"])
-            last = out.cascades[names[-1]] if names else out.coarse
-            eg = jspv.fine_expec_gt(gt, last.matches, b, jcfg.loftr)
-            return jax_loss(out, gt, eg, jcfg.loftr)[0]
-
-        return jax.grad(loss_fn)(params)
+    grads = []
 
     def both(s, b):
-        return step_fn(s, b), grads_fn(s.params, s.batch_stats, b)
+        with step_gradients(grads):
+            out = step_fn(s, b)
+        return out, grads[-1]
 
     p0 = jax.tree_util.tree_map(jnp.asarray, variables["params"])
     state0 = JaxState(jnp.zeros((), jnp.int32), p0,
@@ -632,24 +640,34 @@ def jax_step(jm, jcfg, variables, batch, exact: bool = False,
     compiled = (lowered.compile({"xla_allow_excess_precision": False})
                 if exact else lowered.compile())
     (state1, scalars), grads = compiled(*args)
-    return scalars, grads, state1.batch_stats
+    out = (scalars, grads, state1.batch_stats)
+    return out + (state1.params,) if with_params else out
 
 
-def torch_step(tcfg, variables, like, batch):
+def torch_step(tcfg, variables, like, batch, refine: bool = False,
+               with_params: bool = False):
     """The port's training step on the CPU from ``variables``: (scalars,
-    gradients, batch statistics after the step), laid out as flax trees."""
+    gradients, batch statistics after the step), laid out as flax trees;
+    ``refine`` trains the PMT-refine model with its frozen trunk;
+    ``with_params`` adds the parameters after the step to the results."""
     from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.models.casmtr_refine import frozen_param_label
     from casmtr_tpu_torch.train.train_step import (init_train_state,
                                                    make_train_step)
     from casmtr_tpu_torch.weights import jax_variables, load_jax_variables
-    model = build_model(tcfg.loftr)
+    model = build_model(tcfg.loftr, refine=refine)
     load_jax_variables(model, variables)
-    state, tx = init_train_state(model, tcfg, 100, 1e-3, device="cpu")
+    state, tx = init_train_state(
+        model, tcfg, 100, 1e-3, device="cpu",
+        frozen_label_fn=frozen_param_label if refine else None)
     _, scalars = make_train_step(model, tcfg, tx, device="cpu")(state,
                                                                 batch)
     grads = jax_variables(
         {n: (p.grad if p.grad is not None else torch.zeros_like(p))
          for n, p in model.named_parameters()}, {"params": like["params"]})
-    stats = jax_variables(model.state_dict(),
-                          {"batch_stats": like["batch_stats"]})
-    return scalars, grads["params"], stats["batch_stats"]
+    sd = model.state_dict()
+    stats = jax_variables(sd, {"batch_stats": like["batch_stats"]})
+    out = (scalars, grads["params"], stats["batch_stats"])
+    if with_params:
+        out += (jax_variables(sd, {"params": like["params"]})["params"],)
+    return out

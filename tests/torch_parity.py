@@ -153,6 +153,27 @@ def jitter(variables, seed: int = 0):
         leaf, jax.tree_util.tree_map(np.asarray, dict(variables)))
 
 
+def flax_like(init):
+    """The zero-filled float32 numpy tree of the flax variables that
+    ``init()`` makes, its shapes from ``jax.eval_shape`` (traced, not
+    compiled)."""
+    return jax.tree_util.tree_map(lambda s: np.zeros(s.shape, np.float32),
+                                  dict(jax.eval_shape(init)))
+
+
+def port_variables(module, init, seed: int = 0):
+    """Jittered flax variables for the same weights in both packages,
+    without compiling the flax init: the port's seeded initialization of
+    ``module`` (``weights.init_random_``) laid out as the tree of
+    ``flax_like(init)`` (``weights.jax_variables``), then ``jitter``."""
+    import torch
+
+    from casmtr_tpu_torch.weights import init_random_, jax_variables
+    init_random_(module, torch.Generator().manual_seed(seed))
+    return jitter(jax_variables(module.state_dict(), flax_like(init)),
+                  seed=seed)
+
+
 @contextlib.contextmanager
 def two_pass_batch_norm():
     """Flax's BatchNorm with the two-pass batch variance E[(x - E[x])^2],
