@@ -4,6 +4,10 @@ outdoor recipes and the indoor ``indoor_casmtr_4c_runnable``):
 backbone pyramid -> 1/8 quadtree transformer + dual-softmax -> per cascade
 level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
 matching -> fine sub-pixel refinement.
+``training_stage`` selects how much of it is built and runs, as in the JAX
+package (``run_levels``, ``runs_fine``): stage 1 the 1/8 stage alone,
+stage 2 adds the 1/4 level (and for 4c the fine stage), stage 3 the whole
+model.
 ``module.training`` selects the mode: in training BatchNorm uses batch
 statistics and each cascade level's matches are the ground-truth-filtered
 ones that the loss supervises; a level with a ``detector_mode`` also
@@ -71,10 +75,6 @@ def _check_ported(cfg: LoftrConfig) -> None:
         raise NotImplementedError(
             f"cascade_levels {levels}: only CasMTR-4c (4,) and CasMTR-2c "
             "(4, 2) are ported")
-    if levels == (4, 2) and cfg.training_stage < 3:
-        raise NotImplementedError(
-            f"training_stage {cfg.training_stage} of a two-level cascade: "
-            "only the whole 2c model (stage >= 3) is ported")
     stages = (cfg.coarse2, cfg.coarse3)[:len(levels)]
     if any(s.post_config.rt is not None or s.post_config.rd is not None
            for s in stages):
@@ -86,6 +86,22 @@ def _check_ported(cfg: LoftrConfig) -> None:
             f"fine block {cfg.fine.block_type!r} is not ported yet")
     if any(s.detector_mode not in (None, "ST", "gumbel") for s in stages):
         raise NotImplementedError("detector modes: only ST and gumbel")
+
+
+def run_levels(cfg: LoftrConfig) -> tuple:
+    """The cascade levels that ``cfg.training_stage`` builds and runs, as in
+    the JAX package: none at stage 1 (the 1/8 stage alone), the 1/4 level
+    from stage 2, and 2c's 1/2 level only from stage 3."""
+    levels = tuple(cfg.cascade_levels)
+    if cfg.training_stage < 2:
+        return ()
+    return levels if cfg.training_stage >= 3 else levels[:1]
+
+
+def runs_fine(cfg: LoftrConfig) -> bool:
+    """Whether the fine stage is built and run: 4c from stage 2, 2c only at
+    stage 3 (a 2c model at stage 2 ends at its 1/4 matches)."""
+    return len(run_levels(cfg)) == len(cfg.cascade_levels) > 0
 
 
 def detector_labels(stage_cfg, heat, ws, mask, idx_c01, gt_idx, gt_mask,
@@ -128,13 +144,14 @@ class CasMTR(nn.Module):
         two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
         self.loftr_coarse_8c = LocalFeatureTransformer(config.coarse)
-        if config.training_stage >= 2:
+        levels = run_levels(config)
+        if 4 in levels:
             self.up_block1 = UpBlock(config.coarse.d_model, bd[1])
             self.loftr_coarse_4c = CascadeFeatureTransformer(config.coarse2)
-            if two:
-                self.up_block2 = UpBlock(config.coarse2.d_model, bd[0])
-                self.loftr_coarse_2c = CascadeFeatureTransformer(
-                    config.coarse3)
+        if 2 in levels:
+            self.up_block2 = UpBlock(config.coarse2.d_model, bd[0])
+            self.loftr_coarse_2c = CascadeFeatureTransformer(config.coarse3)
+        if runs_fine(config):
             # 2c refines its 1/2 tokens themselves; 4c the 1/2 backbone map
             # with the 1/4 tokens as context
             d_c = config.coarse3.d_model if two else config.coarse2.d_model
@@ -194,7 +211,8 @@ class CasMTR(nn.Module):
         coarse = CoarseStage(ds.conf_matrix, ds.next_idx_c01, ds.next_idx_c10,
                              ds.next_conf_c01, ds.next_conf_c10, matches_8c,
                              hw0_8c, hw1_8c)
-        if cfg.training_stage < 2:
+        levels = run_levels(cfg)
+        if not levels:
             return MatchOutput(coarse, {}, None, matches_8c, (H0, W0),
                                (H1, W1))
 
@@ -205,7 +223,7 @@ class CasMTR(nn.Module):
                 ds.next_idx_c10)
         pre_confs, pre_hws = [ds.next_conf_c01], [hw0_8c]
         cascades = {}
-        for i, level in enumerate(cfg.cascade_levels):
+        for i, level in enumerate(levels):
             name = f"{level}c"
             scfg = (cfg.coarse2, cfg.coarse3)[i]
             x0, x1, prev_idx01, prev_idx10 = prev
@@ -265,6 +283,10 @@ class CasMTR(nn.Module):
                     ws.next_idx_c10)
             pre_confs.append(ws.next_conf_c01)
             pre_hws.append(hw0)
+
+        if not runs_fine(cfg):   # 2c at stage 2: the 1/4 matches are final
+            return MatchOutput(coarse, cascades, None, matches, (H0, W0),
+                               (H1, W1))
 
         # ----- fine sub-pixel stage -----
         Wf = cfg.fine_window_size

@@ -3,10 +3,13 @@ casmtr_tpu/serving.py).
 
 Every image is resized so its long side fits a square ``bucket`` canvas
 (df-divisible), padded bottom-right and masked; keypoints come back in the
-original image's pixel coordinates.  Image paths and checkpoints are not
-ported yet (ROADMAP queue A: eval, CLIs and checkpoints): inputs are
-arrays and the weights are random from a seed, or loaded afterwards with
-``casmtr_tpu_torch.weights.load_jax_variables(matcher.model, ...)``.
+original image's pixel coordinates.  The weights come from ``ckpt`` (a
+reference ``.ckpt``/``.pth`` or a port checkpoint directory,
+``train.checkpoints.load_checkpoint_variables``), else random from a seed;
+the JAX package's variables load afterwards with
+``casmtr_tpu_torch.weights.load_jax_variables(matcher.model, ...)``.  Inputs
+are arrays: image paths are not ported yet (they need an image decoder
+without cv2; ROADMAP queue A, data).
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ class Matcher:
     """Image matcher at a fixed canvas size.
 
     model: recipe name (casmtr_tpu_torch.configs.MODEL_RECIPES) or a Config.
+    ckpt: a reference .ckpt/.pth (strict: every key of the model) or a port
+        checkpoint directory (``train.checkpoints.CheckpointManager``; its
+        newest step's parameters and BatchNorm statistics), loaded over the
+        seeded initialization before the model moves to ``device``.
     bucket: square canvas side; every input is resized (long side) and
         padded to it.
     df: size divisor of the resized image (backbone stride alignment).
@@ -87,7 +94,8 @@ class Matcher:
     """
 
     def __init__(self, model: Union[str, Config] = "outdoor_casmtr_4c",
-                 bucket: int = 832, df: int = 64, thr: float = 0.2,
+                 ckpt: Optional[str] = None, bucket: int = 832, df: int = 64,
+                 thr: float = 0.2,
                  overrides: Optional[Dict] = None, device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         cfg = build_config(model) if isinstance(model, str) else model
@@ -110,6 +118,10 @@ class Matcher:
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
         init_random_(self.model, generator)
+        if ckpt:
+            from casmtr_tpu_torch.train.checkpoints import \
+                load_checkpoint_variables
+            load_checkpoint_variables(ckpt, self.model)
         self.model.to(self.device).eval()
 
     def _preprocess(self, img: np.ndarray):
@@ -173,3 +185,11 @@ class Matcher:
             results.append(MatchResult(out["mkpts0"][sel], out["mkpts1"][sel],
                                        out["mconf"][sel]))
         return results
+
+    def warmup(self, batch_sizes: Sequence[int] = (1,)) -> None:
+        """Pay the first request's costs up front (on the card cuDNN's
+        autotuning and the kernels' build): one dummy batch of a blank
+        half-bucket image pair per batch size."""
+        dummy = np.zeros((self.bucket // 2, self.bucket // 2, 3), np.float32)
+        for bs in batch_sizes:
+            self.match_batch([(dummy, dummy)] * bs)

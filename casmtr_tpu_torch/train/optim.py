@@ -13,6 +13,7 @@ The schedules read the optimizer's own update count, which a skipped step
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Iterable, Optional
@@ -234,6 +235,15 @@ def build_optimizer(tcfg: TrainerConfig, base_lr: float, steps_per_epoch: int,
                   "vit": (tcfg.vit_lr_scale, schedule),
                   "new": (1.0, staged)}, label_fn, wd,
                  clip if clip and clip > 0 else None)
+
+
+def set_schedule_step(opt_state: OptState, step: int) -> OptState:
+    """``opt_state`` with its schedules' counter moved to ``step``, so that
+    a resumed run continues its learning-rate schedule from the restored
+    global step instead of re-entering warmup.  Only the schedule counter
+    moves, as optax's ScaleByScheduleState in the JAX package's function:
+    Adam's bias-correction ``count`` stays as restored (or 0 when fresh)."""
+    return dataclasses.replace(opt_state, schedule_count=int(step))
 
 
 def ema_beta_at(step: int, tcfg: TrainerConfig) -> float:

@@ -156,6 +156,35 @@ its own lines and its seconds:
 9. Detector: one 4c step at 256^2 with the learnable keypoint-detector
    head and the ST detector on its 1/4 level (loss_4c_det printed), and
    the head alone on the tokens it took there, card f32 against CPU f32.
+10. Checkpoints and staged training, in a temporary directory.  Serving:
+   outdoor_casmtr_4c at bucket 832 with seeded random weights in memory;
+   its state dict written as a reference-format .ckpt ("matcher."
+   prefix), converted by casmtr_tpu_torch.cli.convert into a port
+   checkpoint directory; Matcher(ckpt=file) and Matcher(ckpt=directory),
+   built from another seed, must hold every parameter and buffer
+   bit-identical to the in-memory Matcher's, answer phase 4's requests in
+   the card's default with its per-pair launch counts, and give
+   bit-identical coarse and window confidences and final matches (else
+   the difference is printed and the three are held to phase 6's f32
+   gates with float32 forced); then the first request's latency in a
+   fresh process (this script with --first-request) without and with
+   Matcher.warmup().  Staged training: outdoor_casmtr_2c at 704^2, batch
+   1, full width, in the card's default, on phase 7's shifted pair, stage
+   1 (the 1/8 stage alone), then stages 2 (plus the 1/4 level, no fine
+   stage) and 3, each a fresh model of its stage resumed by
+   cli.train.resume_state from the checkpoint (train.checkpoints.
+   CheckpointManager) the stage before saved, then a same-stage resume at
+   stage 3; per stage one warm-up step and 2 timed steps with the launch
+   counts zeroed just before and read just after each (per step: stage 1
+   the bf16 A 12, A′ 12, A-bwd 24 and nothing else; stage 2 also C 4,
+   C-bwd 4, B 2, B-bwd 1; stage 3 as phase 7's 2c), finite losses of
+   exactly the stage's terms, the kernel-path q/k/v projections moved,
+   s/step and peak memory; after each resume the restored tensors
+   bit-identical to the checkpoint and the new ones to their seeded init,
+   each group's learning rate at the first resumed step the schedule's at
+   the restore step ('new' restarting its warmup, STAGE_TRAINER), and on
+   the same-stage resume the optimizer moments and Adam count
+   bit-identical to the checkpoint's.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -285,6 +314,19 @@ MODELS[REFINE] = ("indoor_casmtr_4c", {})
 LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
           RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0),
           REFINE: (8, 1, 0)}
+# phase 10: the checkpointed serving recipe and the staged recipe, whose
+# stages 1 and 2 run the 1/8 stack alone and with the 1/4 level
+CKPT_RECIPE = "outdoor_casmtr_4c"
+STAGED = "outdoor_casmtr_2c"
+STAGES = (1, 2, 3)
+STAGE_NAMES = {s: f"{STAGED} stage {s}" for s in STAGES}
+LAYOUT.update({STAGE_NAMES[1]: (6, 0, 0), STAGE_NAMES[2]: (6, 1, 1),
+               STAGE_NAMES[3]: LAYOUT[STAGED]})
+# the staged run's new-stage warmup (the recipe's is 0 steps long): the
+# 'new' group restarts at warmup_ratio_stages x base_lr / 2 at each resume
+STAGE_TRAINER = {"warmup_step_stages": 200, "warmup_ratio_stages": 0.1}
+STAGE_BASE_LR = 1e-3
+STAGE_STEPS_PER_EPOCH = 1000
 # serving canvas and training size per model: the indoor recipe serves a
 # ScanNet 640x480 frame padded to 640^2 and trains at its train_size
 BUCKET = {m: 832 for m in MODELS}
@@ -370,6 +412,8 @@ LAUNCHES_PER_PAIR = {m: per_pair(m, True) for m in MODELS}
 LAUNCHES_PER_PAIR_F32 = {m: per_pair(m, False) for m in MODELS}
 LAUNCHES_PER_TRAIN_STEP = {m: per_step(m, True) for m in MODELS}
 LAUNCHES_PER_TRAIN_STEP_F32 = {m: per_step(m, False) for m in MODELS}
+LAUNCHES_PER_STAGE_STEP = {s: per_step(STAGE_NAMES[s], True)
+                           for s in STAGES}
 TRAIN_SIZE = 704
 TRAIN_SIZES = {m: TRAIN_SIZE for m in MODELS}
 TRAIN_SIZES[INDOOR] = TRAIN_SIZES[REFINE] = 640
@@ -2792,6 +2836,298 @@ def detector_phase(torch):
         f"statistics {stats:.2e} (tol {BACKBONE_RTOL:g} each)")
     check(max(err, stats) <= BACKBONE_RTOL, "detector: the head disagrees")
 
+# --------------------------------------------------------------------------
+# phase 10: checkpoints and staged training
+# --------------------------------------------------------------------------
+
+def same_outputs(torch, a, b):
+    """Whether two forwards' coarse and window confidences and final
+    matches are bit-identical."""
+    pairs = [(a.coarse.conf_matrix, b.coarse.conf_matrix)]
+    pairs += [(a.cascades[k].conf_matrix, b.cascades[k].conf_matrix)
+              for k in b.cascades]
+    pairs += [(getattr(a.final_matches, f), getattr(b.final_matches, f))
+              for f in ("b_ids", "i_ids", "j_ids", "valid", "mconf",
+                        "mkpts0", "mkpts1")]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def forwards(torch, matcher, reqs):
+    """The model's outputs on each request's packed batch."""
+    with torch.inference_mode():
+        return [matcher.model(matcher._pack([(i0, i1)])) for _, i0, i1 in
+                reqs]
+
+
+def first_request_probe(ckpt, warm):
+    """In a fresh process: Matcher(CKPT_RECIPE, ckpt=ckpt) at bucket 832,
+    ``warmup()`` first when ``warm``, then one request; prints one JSON
+    line with the seconds of the warm-up and the first request's ms."""
+    import torch
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.serving import Matcher
+    kernels.lib()
+    t0 = time.perf_counter()
+    m = Matcher(CKPT_RECIPE, ckpt=ckpt, bucket=BUCKET[CKPT_RECIPE])
+    built = time.perf_counter() - t0
+    warm_s = None
+    if warm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    _, img0, img1 = requests(np.random.default_rng(0))[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.match(img0, img1)
+    torch.cuda.synchronize()
+    print(json.dumps({"built_s": built, "warmup_s": warm_s,
+                      "first_request_ms": (time.perf_counter() - t0) * 1e3}))
+    return 0
+
+
+def checkpoint_serving_phase(torch, tmp):
+    """CKPT_RECIPE at full width, bucket 832, seeded random weights held in
+    memory by one Matcher; its state dict written as a reference-format
+    .ckpt ({"state_dict": {"matcher." + key: tensor}}) and converted by
+    cli.convert into a port directory; Matcher(ckpt=file) and
+    Matcher(ckpt=dir), initialized from another seed, must hold every
+    parameter and buffer bit-identical to the first, and answer phase 4's
+    requests in the card's default with the per-pair launch counts and
+    bit-identical outputs (confidences, window confidences, final matches);
+    where cuDNN's autotuner makes them differ, the difference is printed
+    and the three are held to phase 6's f32 gates with float32 forced.
+    Then the first request's latency in a fresh process, with and without
+    ``warmup()``.  Returns {matcher: (launch totals, last counts)}."""
+    from casmtr_tpu_torch.cli import convert
+    from casmtr_tpu_torch.serving import Matcher
+    recipe, bucket = CKPT_RECIPE, BUCKET[CKPT_RECIPE]
+    ref = matcher_for(recipe, bucket=bucket, seed=0)
+    ckpt = os.path.join(tmp, "released.ckpt")
+    out = os.path.join(tmp, "converted")
+    torch.save({"state_dict": {"matcher." + k: v.cpu() for k, v in
+                               ref.model.state_dict().items()}}, ckpt)
+    t0 = time.perf_counter()
+    check(convert.main([ckpt, out, "--model", recipe, "--strict"]) == 0,
+          "checkpoints: cli.convert failed")
+    log(f"checkpoints: cli.convert of the {os.path.getsize(ckpt) / 2 ** 20:.1f}"
+        f" MiB reference-format file: {time.perf_counter() - t0:.1f} s")
+    want = ref.model.state_dict()
+    loaded = {}
+    for label, path in (("file", ckpt), ("directory", out)):
+        t0 = time.perf_counter()
+        m = Matcher(recipe, ckpt=path, bucket=bucket, seed=1)
+        got = m.model.state_dict()
+        same = sum(torch.equal(got[k], v) for k, v in want.items())
+        log(f"checkpoints: Matcher(ckpt={label}) built and loaded in "
+            f"{time.perf_counter() - t0:.1f} s: {same} of {len(want)} "
+            "parameters and buffers bit-identical to the in-memory weights")
+        check(got.keys() == want.keys() and same == len(want),
+              f"checkpoints: Matcher(ckpt={label}) holds other weights")
+        loaded[label] = m
+    reqs = requests(np.random.default_rng(0), bucket)
+    runs = {}
+    for label, m in [("memory", ref)] + list(loaded.items()):
+        log(f"checkpoints: phase 4's requests through the Matcher of the "
+            f"{label} weights")
+        runs[label] = serve(torch, m, recipe, reqs, "bf16")[:2]
+    base = forwards(torch, ref, reqs)
+    exact = {label: [same_outputs(torch, a, b) for a, b in
+                     zip(forwards(torch, m, reqs), base)]
+             for label, m in loaded.items()}
+    log(f"checkpoints: bf16 outputs bit-identical to the in-memory "
+        f"Matcher's per request: {exact}")
+    if not all(all(v) for v in exact.values()):
+        with precision("f32"):
+            base = forwards(torch, ref, reqs)
+            for label, m in loaded.items():
+                for (name, _, _), a, b in zip(reqs, forwards(torch, m, reqs),
+                                              base):
+                    conf, window, st = compare_outputs(torch, a, b)
+                    fin = st["final"]
+                    jac = 1.0 if fin["n"] == (0, 0) else fin["jaccard"]
+                    log(f"checkpoints: f32 {label} vs memory, {name}: "
+                        f"{describe(conf, window, st)}")
+                    check(max([conf, *window.values()]) <= CONF_TOL
+                          and jac >= MIN_JACCARD and fin["px"] <= PX_TOL,
+                          f"checkpoints: Matcher(ckpt={label}) disagrees")
+    for warm in (False, True):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--first-request",
+             out, "--warm" if warm else "--cold"], capture_output=True,
+            text=True, timeout=600)
+        check(res.returncode == 0, "checkpoints: the first-request probe "
+              f"failed: {res.stderr[-2000:]}")
+        probe = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f"checkpoints: fresh process, Matcher(ckpt=directory) built in "
+            f"{probe['built_s']:.1f} s, "
+            + (f"warmup() {probe['warmup_s']:.2f} s, " if warm else
+               "no warmup(), ")
+            + f"first request {probe['first_request_ms']:.1f} ms")
+    return runs
+
+
+def stage_lrs(tx, opt_state):
+    """The learning rate of each group that holds a parameter, at the
+    optimizer's next update."""
+    held = set(opt_state.labels.values())
+    return {g: sched(opt_state.schedule_count) * scale
+            for g, (scale, sched) in tx.groups.items() if g in held}
+
+
+def staged_training_phase(torch, tmp):
+    """STAGED at 704^2, batch 1, full width, in the card's default precision,
+    on phase 7's shifted pair: stage 1 from seeded random weights, then
+    stages 2 and 3, each a fresh model of its stage (another seed)
+    resumed by cli.train.resume_state from the checkpoint the stage before
+    saved through CheckpointManager, then a same-stage resume at stage 3.
+    Per stage one warm-up step and 2 timed steps with the launch counts
+    zeroed just before and read just after each (LAUNCHES_PER_STAGE_STEP),
+    finite losses of exactly the stage's terms, the kernel-path q/k/v
+    projections moved; after each resume the restored tensors bit-identical
+    to the checkpoint and the others to their seeded init, each group's
+    learning rate at the first resumed step the schedule's at the restore
+    step (the 'new' group restarting its warmup at
+    warmup_ratio_stages x base_lr / 2); on the same-stage resume the
+    optimizer moments and counts bit-identical to the checkpoint's.
+    Returns {stage: (launch totals, last counts)}."""
+    from casmtr_tpu_torch.cli.train import resume_state
+    from casmtr_tpu_torch.config import override
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                    checkpoint_state)
+    from casmtr_tpu_torch.train.optim import build_lr_schedule
+    from casmtr_tpu_torch.train.train_step import (init_train_state,
+                                                   make_train_step)
+    from casmtr_tpu_torch.weights import init_random_
+    size, base_lr, spe = TRAIN_SIZE, STAGE_BASE_LR, STAGE_STEPS_PER_EPOCH
+    batch = train_batch(size, 0)
+    ckpts = os.path.join(tmp, "run", "ckpts")
+    runs = {}
+    for run, stage in enumerate(STAGES + (STAGES[-1],)):
+        tag = f"stage {stage}" + (" same-stage resume" if run == 3 else "")
+        cfg = override(model_config(STAGED, train_size=size,
+                                    training_stage=stage),
+                       {"trainer": STAGE_TRAINER})
+        model = build_model(cfg.loftr)
+        init_random_(model, torch.Generator().manual_seed(run))
+        fresh = {k: v.clone() for k, v in model.state_dict().items()}
+        state, tx = init_train_state(model, cfg, spe, base_lr)
+        if run:
+            restored = CheckpointManager(ckpts).restore()
+            t0 = time.perf_counter()
+            state, tx, _ = resume_state(cfg, state, restored, base_lr, spe,
+                                        reset_lr=True)
+            rstep = restored["step"]
+            sd, saved = model.state_dict(), restored["state_dict"]
+            taken = [k for k in sd if k in saved]
+            same = sum(torch.equal(sd[k].cpu(), saved[k]) for k in taken)
+            kept = sum(torch.equal(sd[k].cpu(), fresh[k])
+                       for k in sd if k not in saved)
+            log(f"staged: {tag}: resume_state from step {rstep} in "
+                f"{time.perf_counter() - t0:.2f} s: {same} of {len(taken)} "
+                f"restored tensors bit-identical to the checkpoint, {kept} "
+                f"of {len(sd) - len(taken)} new ones at their seeded init")
+            check(same == len(taken) > 0 and kept == len(sd) - len(taken),
+                  f"staged: {tag}: the resumed weights are not the "
+                  "checkpoint's and the seeded init's")
+            opt, sopt = state.opt_state, restored["opt_state"]
+            check(opt.schedule_count == rstep == state.step,
+                  f"staged: {tag}: the schedule does not continue from "
+                  "the restore step")
+            lrs = stage_lrs(tx, opt)
+            main_lr = build_lr_schedule(cfg.trainer, base_lr, spe)(rstep)
+            want = {"main": main_lr,
+                    "vit": main_lr * cfg.trainer.vit_lr_scale,
+                    "new": cfg.trainer.warmup_ratio_stages * base_lr / 2}
+            log(f"staged: {tag}: learning rates at the first resumed step "
+                f"{lrs} (expected {want})")
+            check("new" in lrs and all(
+                abs(v - want[g]) <= 1e-12 for g, v in lrs.items()),
+                  f"staged: {tag}: learning rates {lrs}")
+            if run == 3:
+                same = sum(torch.equal(opt.mu[n].cpu(), sopt["mu"][n])
+                           and torch.equal(opt.nu[n].cpu(), sopt["nu"][n])
+                           for n in sopt["mu"])
+                log(f"staged: {tag}: optimizer moments of {same} of "
+                    f"{len(sopt['mu'])} parameters bit-identical, Adam "
+                    f"count {opt.count} (saved {sopt['count']})")
+                check(opt.mu.keys() == sopt["mu"].keys()
+                      and same == len(sopt["mu"])
+                      and opt.count == sopt["count"] > 0,
+                      f"staged: {tag}: the optimizer state was not kept")
+        step = make_train_step(model, cfg, tx)
+        watch = kernel_grad_params(model)
+        params = dict(model.named_parameters())
+        start = {n: params[n].detach().clone() for n in watch}
+        expected = LAUNCHES_PER_STAGE_STEP[stage]
+        terms = {"loss", "loss_8c", "grad_norm"} | {
+            f"{k}_{lvl}c" for lvl in (4, 2)[:stage - 1]
+            for k in ("loss", "valid_n")} | (
+            {"loss_f"} if stage == 3 else set())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        times = []
+        for i in range(2):
+            before = dict(kernels.LAUNCHES)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, scalars = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            vals = {k: float(v) for k, v in scalars.items()}
+            log(f"staged: {tag} step {i + 1}: {times[-1]:.4f} s, "
+                + ", ".join(f"{k} {v:.4g}" for k, v in sorted(vals.items()))
+                + f", kernel launches {counts}")
+            check(set(vals) == terms,
+                  f"staged: {tag}: loss terms {sorted(vals)}")
+            check(all(np.isfinite(v) for v in vals.values()),
+                  f"staged: {tag}: non-finite loss or gradient norm")
+            check(counts == expected,
+                  f"staged: {tag}: launches {counts}, expected {expected}")
+        totals = dict(kernels.LAUNCHES)
+        for k, v in totals.items():
+            check(v > 0 or expected[k] == 0,
+                  f"staged: {tag}: kernel {k} never launched")
+        moved = sum(not torch.equal(start[n], params[n].detach())
+                    for n in watch)
+        check(moved == len(watch) > 0,
+              f"staged: {tag}: {len(watch) - moved} q/k/v projections did "
+              "not move")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"staged: {tag}: {sum(p.numel() for p in params.values())} "
+            f"parameters, warm-up step {warm:.2f} s, median "
+            f"{statistics.median(times):.4f} s/step, peak device memory "
+            f"{peak:.2f} GiB, {moved} of {len(watch)} kernel-path q/k/v "
+            "projections moved")
+        runs[tag] = (totals, counts)
+        if run < 3:
+            t0 = time.perf_counter()
+            CheckpointManager(ckpts).save(state.step,
+                                          checkpoint_state(state))
+            log(f"staged: {tag}: checkpoint of step {state.step} saved in "
+                f"{time.perf_counter() - t0:.2f} s")
+        del model, state, step, params, tx
+        torch.cuda.empty_cache()
+    return runs
+
+
+def checkpoint_phase(torch):
+    """Phase 10 in a temporary directory that is removed afterwards."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        serving = checkpoint_serving_phase(torch, tmp)
+        torch.cuda.empty_cache()
+        return serving, staged_training_phase(torch, tmp)
+
 
 def timed(name, fn, *args):
     t0 = time.perf_counter()
@@ -2800,7 +3136,7 @@ def timed(name, fn, *args):
     return out
 
 
-def main():
+def main(argv):
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; the port's smoke test "
@@ -2808,6 +3144,11 @@ def main():
         return 2
     import casmtr_tpu_torch  # noqa: F401  (fails outside the repository)
     from casmtr_tpu_torch.ops import kernels
+    if argv[:1] == ["--first-request"]:   # phase 10's fresh-process probe
+        return first_request_probe(argv[1], argv[2] == "--warm")
+    if argv:
+        print("usage: chip_smoke.py", file=sys.stderr)
+        return 2
 
     # full float32 everywhere the port compares numbers, and bf16 products
     # summed in float32
@@ -2874,6 +3215,7 @@ def main():
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)
     timed("detector", detector_phase, torch)
+    ckpt_runs, stage_runs = timed("checkpoints", checkpoint_phase, torch)
 
     # launches: each path's counts, summed over the models' runs, and each
     # model's count in its last request and its last step.  A row reads the
@@ -2892,6 +3234,13 @@ def main():
             row["launches_from"] = f"{path}, {prec}"
             row["launches"] = sum(t[row["name"]] for t, _ in runs.values())
             row[key] = {r: c[row["name"]] for r, (_, c) in runs.items()}
+            # phase 10's paths, counted on their own: the checkpointed
+            # Matchers per pair, the staged run per step of each stage
+            if prec == "bf16":
+                row["launches_checkpoints"] = (
+                    {r: c[row["name"]] for r, (_, c) in ckpt_runs.items()}
+                    if path == "serving" else
+                    {r: c[row["name"]] for r, (_, c) in stage_runs.items()})
     log(json.dumps({"kernels": rows + train_rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2900,4 +3249,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -196,3 +196,35 @@ def two_pass_batch_norm():
         yield
     finally:
         fnn.BatchNorm = base
+
+
+def flax_to_torch_sd(tree, shapes, prefix="matcher."):
+    """A reference-format state dict (torch tensors under the reference's
+    names, with its ``matcher.`` prefix) whose conversion by the JAX
+    package's ``utils/convert.convert_state_dict`` reproduces the flax
+    ``tree`` (``params`` or ``batch_stats``) bit-exactly: the inverse of
+    its ``_transform`` (conv HWIO -> OIHW, Dense [in, out] -> [out, in]),
+    as ``tests/test_cli_convert_roundtrip._flax_to_torch_sd``.  ``shapes``
+    maps each unprefixed key to the reference's shape (the port's
+    ``state_dict`` keeps the reference's layouts): a Dense that realizes a
+    1x1 conv comes out as the reference's [out, in, 1, 1]."""
+    import torch
+
+    from casmtr_tpu.utils.convert import flax_path_to_torch_key
+    sd = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, path + (k,))
+                continue
+            key = flax_path_to_torch_key(path, k)
+            a = np.asarray(v)
+            if k == "kernel" and a.ndim == 4:      # HWIO -> OIHW
+                a = a.transpose(3, 2, 0, 1)
+            elif k == "kernel" and a.ndim == 2:    # [in,out] -> [out,in]
+                a = a.T.reshape(shapes[key])       # (a 1x1 conv: [o,i,1,1])
+            sd[prefix + key] = torch.from_numpy(np.ascontiguousarray(a))
+
+    walk(tree, ())
+    return sd
