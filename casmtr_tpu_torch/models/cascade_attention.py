@@ -1,12 +1,18 @@
-"""Window and global self-attention blocks (counterpart of
-casmtr_tpu/models/cascade_attention.py: GroupAttention, Attention, VITMlp,
-GroupBlock, LocalBlock).  Twins uses GroupBlock; the 1/4 cascade self layers
-use LocalBlock.  Tokens are [B, N, C].  Each block computes in the
-``dtype`` its caller passes (default: the input's), steps cast by
+"""Window and global self-attention blocks and the large-kernel-attention
+block (counterpart of casmtr_tpu/models/cascade_attention.py:
+GroupAttention, Attention, VITMlp, GroupBlock, DoubleGroupBlock,
+LocalBlock, LKA, VAN, LKABlock).  Twins uses GroupBlock; the cascade self
+layers use LocalBlock ('local'), DoubleGroupBlock ('local_global') or
+LKABlock ('LKA').  Tokens are [B, N, C].  Each attention block computes in
+the ``dtype`` its caller passes (default: the input's), steps cast by
 models/precision.py; attention scores and softmaxes are float32 and the
-probabilities are rounded to the values' dtype, as the JAX package's."""
+probabilities are rounded to the values' dtype, as the JAX package's.
+LKABlock computes in float32 whatever its input, as the JAX package's
+(its flax modules take no dtype)."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -167,3 +173,89 @@ class LocalBlock(nn.Module):
     def forward(self, x: torch.Tensor, h: int, w: int,
                 dtype=None) -> torch.Tensor:
         return self.block_local(x, h, w, dtype)
+
+
+class DoubleGroupBlock(nn.Module):
+    """A window block, then a global block with spatial-reduction keys and
+    values (Twins-style)."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+                 sr_ratio: int = 1, ws: int = 1):
+        super().__init__()
+        self.block_local = GroupBlock(dim, num_heads, mlp_ratio, 1, ws)
+        self.block_global = GroupBlock(dim, num_heads, mlp_ratio, sr_ratio, 1)
+
+    def forward(self, x: torch.Tensor, h: int, w: int,
+                dtype=None) -> torch.Tensor:
+        return self.block_global(self.block_local(x, h, w, dtype), h, w,
+                                 dtype)
+
+
+class LKA(nn.Module):
+    """Large-kernel attention: a depthwise (2d-1)^2 conv, a depthwise
+    dilated conv (kernel ceil(21/d), dilation d), a 1x1 conv, and the
+    input gated by the result; paddings as the JAX package's explicit ones
+    (every conv keeps the map's size)."""
+
+    def __init__(self, dim: int, kernel_size: int = 21, dilation: int = 3):
+        super().__init__()
+        d = dilation
+        self.conv0 = nn.Conv2d(dim, dim, 2 * d - 1, padding=d - 1,
+                               groups=dim)
+        ks = math.ceil(kernel_size / d)
+        pad = math.ceil((kernel_size - d - 1) / 2)
+        self.conv_spatial = nn.Conv2d(dim, dim, ks, padding=pad, dilation=d,
+                                      groups=dim)
+        self.conv1 = nn.Conv2d(dim, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.conv1(self.conv_spatial(self.conv0(x)))
+
+
+class VAN(nn.Module):
+    """1x1 conv, GELU, LKA, 1x1 conv, plus the input.  The JAX package
+    names the two 1x1 convs ``proj_1`` and ``proj_2``, which its name
+    rules map to ``proj.1`` and ``proj.2``."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.proj = nn.ModuleDict({"1": nn.Conv2d(dim, dim, 1),
+                                   "2": nn.Conv2d(dim, dim, 1)})
+        self.spatial_gating_unit = LKA(dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.gelu(self.proj["1"](x))
+        return self.proj["2"](self.spatial_gating_unit(y)) + x
+
+
+class LKABlock(nn.Module):
+    """BatchNorm, VAN and a conv MLP (1x1, 3x3 depthwise, GELU, 1x1), each
+    residual scaled per channel by a layer scale (initially 1e-2).  In
+    training the BatchNorms normalize with the batch statistics and move
+    their running ones as flax's do (``resnet_fpn.BatchNorm2d``)."""
+
+    def __init__(self, dim: int, mlp_ratio: float = 4.0):
+        # the backbone package imports this module (Twins' GroupBlock)
+        from casmtr_tpu_torch.models.backbone.resnet_fpn import bn
+        super().__init__()
+        hidden = int(dim * mlp_ratio)
+        self.layer_scale_1 = nn.Parameter(torch.full((dim,), 1e-2))
+        self.layer_scale_2 = nn.Parameter(torch.full((dim,), 1e-2))
+        self.norm1 = bn(dim)
+        self.norm2 = bn(dim)
+        self.attn = VAN(dim)
+        self.mlp_fc1 = nn.Conv2d(dim, hidden, 1)
+        self.mlp_dwconv_dwconv = nn.Conv2d(hidden, hidden, 3, padding=1,
+                                           groups=hidden)
+        self.mlp_fc2 = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """x: [B, h*w, C] in any dtype; returns float32 tokens."""
+        B, N, C = x.shape
+        xi = x.float().transpose(1, 2).reshape(B, C, h, w)
+        xi = xi + self.layer_scale_1[:, None, None] * self.attn(
+            self.norm1(xi))
+        y = self.mlp_fc1(self.norm2(xi))
+        y = self.mlp_fc2(F.gelu(self.mlp_dwconv_dwconv(y)))
+        xi = xi + self.layer_scale_2[:, None, None] * y
+        return xi.flatten(2).transpose(1, 2)

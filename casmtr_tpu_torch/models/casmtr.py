@@ -143,7 +143,8 @@ class CasMTR(nn.Module):
         bd = tuple(config.backbone.block_dims)
         two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
-        self.loftr_coarse_8c = LocalFeatureTransformer(config.coarse)
+        self.loftr_coarse_8c = LocalFeatureTransformer(
+            config.coarse, config.train_size // 8)
         levels = run_levels(config)
         if 4 in levels:
             self.up_block1 = UpBlock(config.coarse.d_model, bd[1])
@@ -243,7 +244,8 @@ class CasMTR(nn.Module):
                 self, f"loftr_coarse_{name}")(t0, t1, prev_idx01, prev_idx10,
                                               hw0, hw1, hw0_8c, hw1_8c,
                                               ds.next_idx_c01,
-                                              ds.next_idx_c10)
+                                              ds.next_idx_c10,
+                                              ds.conf_matrix)
             ws = cm.window_softmax_matching(
                 t0, t1, idx01, idx10, mc.dsmax_temperature[i], mask_0,
                 mask_1, corners0=corners01, corners1=corners10, hw0=hw0,

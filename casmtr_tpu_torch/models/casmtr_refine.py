@@ -65,7 +65,8 @@ class CasMTRRefine(nn.Module):
         rd = tuple(bb.refine_dims)
         self.backbone = ResNetFPN_8_4_2(bb.initial_dim, tuple(bb.block_dims),
                                         is_rgb=False)
-        self.loftr_coarse = LocalFeatureTransformer(config.coarse)
+        self.loftr_coarse = LocalFeatureTransformer(config.coarse,
+                                                     config.train_size // 8)
         if config.training_stage >= 2:
             if bb.no_lst:
                 self.proj4c = nn.Conv2d(bb.block_dims[1], rd[1], 1)
@@ -149,7 +150,7 @@ class CasMTRRefine(nn.Module):
         t0, t1, idx01, idx10, corners01, corners10, heat = \
             self.loftr_coarse_4c(t0, t1, ds.next_idx_c01, ds.next_idx_c10,
                                  hw0, hw1, hw0_8c, hw1_8c, ds.next_idx_c01,
-                                 ds.next_idx_c10)
+                                 ds.next_idx_c10, ds.conf_matrix)
         mc, scfg = cfg.match_cascade, cfg.coarse2
         ws = cm.window_softmax_matching(
             t0, t1, idx01, idx10, mc.dsmax_temperature[0], mask_0, mask_1,

@@ -41,7 +41,8 @@ class QuadtreeLoFTR(nn.Module):
                 f"fine block {config.fine.block_type!r} is not ported yet")
         self.config = config
         self.backbone = build_backbone(config)
-        self.loftr_coarse = LocalFeatureTransformer(config.coarse)
+        self.loftr_coarse = LocalFeatureTransformer(config.coarse,
+                                                     config.train_size // 8)
         self.fine_preprocess = FinePreprocess(
             config.fine.d_model, config.coarse.d_model,
             config.backbone.block_dims[0], config.fine_window_size,

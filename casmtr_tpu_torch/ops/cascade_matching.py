@@ -5,7 +5,9 @@ keypoint-detector branch's selection and labels.
 
 The window scores of the structured candidate set go through CUDA kernel B
 on the card, and their gradient through kernel B-bwd
-(ops/kernels/window_kernels.py).
+(ops/kernels/window_kernels.py); other candidate sets (the dilated
+propagation's) take the JAX package's gather path, in plain PyTorch on
+every device, as the JAX package has no kernel for it either.
 """
 
 from __future__ import annotations
@@ -13,8 +15,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from casmtr_tpu_torch.ops import nms
+from casmtr_tpu_torch.ops import kernels, nms
 from casmtr_tpu_torch.ops.image_ops import resize_nearest
 from casmtr_tpu_torch.ops.kernels.window_kernels import window_patch_score
 from casmtr_tpu_torch.ops.matching import (grid_to_pixels, select_topm,
@@ -50,18 +53,50 @@ def _structured_score(f0, f1, corners, hw0, hw1, prop_w: int):
     return unblock_children(s, h0 // 2, w0 // 2)
 
 
+# the gather path's window scores take at most this many bytes of gathered
+# target rows at a time
+SCORE_CHUNK_BYTES = 1 << 28
+
+
+def _gathered_score(f0, f1, idx):
+    """s[b, l, k] = <f0[b, l], f1[b, idx[b, l, k]]> for a chunk of
+    candidates, under the clipped-gather rule."""
+    B = f0.shape[0]
+    bi = torch.arange(B, device=f0.device)[:, None, None]
+    rows = f1[bi, kernels.clip_index(idx.long(), f1.shape[1])]
+    return torch.einsum("blc,blkc->blk", f0, rows)
+
+
+def window_score(f0, f1, idx):
+    """The JAX package's gather path of the window scores
+    (``gather_ops.window_score``), in plain PyTorch on every device:
+    scores [B, L0, K] of f0 [B, L0, C] against the rows ``idx`` [B, L0, K]
+    of f1 [B, L1, C].  The gathered rows [B, L0, K, C] would be gigabytes
+    on a dilated window at full size (81 x 4 candidates), so they are taken
+    in chunks of candidates, and in training each chunk is gathered again
+    for the backward instead of kept (the JAX package checkpoints the same
+    gather)."""
+    B, L0, C = f0.shape
+    step = max(1, SCORE_CHUNK_BYTES // (B * L0 * C * f0.element_size()))
+    grad = torch.is_grad_enabled() and (f0.requires_grad or f1.requires_grad)
+    out = []
+    for i in range(0, idx.shape[2], step):
+        part = idx[:, :, i:i + step]
+        out.append(checkpoint(_gathered_score, f0, f1, part,
+                              use_reentrant=False) if grad
+                   else _gathered_score(f0, f1, part))
+    return torch.cat(out, dim=2)
+
+
 def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
                             mask0=None, mask1=None, corners0=None,
                             corners1=None, hw0=None, hw1=None,
                             prop_window: int = 0) -> WindowSoftmaxResult:
-    """Window-restricted softmax in both directions over the structured
-    candidate windows; the 1->0 direction carries no gradient.  feat0:
-    [B, L0, C]; feat1: [B, L1, C]; idx_c01: [B, L0, Kw]; mask0/1: [B, L]
-    flat padding masks."""
-    if corners0 is None or prop_window <= 0:
-        raise NotImplementedError(
-            "window_softmax_matching: only the structured window candidates "
-            "are ported (ROADMAP queue A: the other propagations)")
+    """Window-restricted softmax in both directions; the 1->0 direction
+    carries no gradient.  feat0: [B, L0, C]; feat1: [B, L1, C]; idx_c01:
+    [B, L0, Kw]; mask0/1: [B, L] flat padding masks.  With the structured
+    windows' ``corners`` and ``prop_window`` the scores go through kernel
+    B, else through the gather path (``window_score``)."""
     c = feat0.shape[-1]
     f0 = feat0.float() / (c ** 0.5)
     f1 = feat1.float() / (c ** 0.5)
@@ -73,11 +108,16 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
         wm = torch.gather(mask_t, 1, idx.reshape(B, -1)).reshape(idx.shape)
         return sim.masked_fill(~((wm * mask_q[:, :, None]) > 0), -INF)
 
-    sim01 = _structured_score(f0, f1, corners0, hw0, hw1, prop_window)
+    def score(fq, ft, corners, hw_q, hw_t, idx):
+        if corners is None or prop_window <= 0:
+            return window_score(fq, ft, idx)
+        return _structured_score(fq, ft, corners, hw_q, hw_t, prop_window)
+
+    sim01 = score(f0, f1, corners0, hw0, hw1, idx_c01)
     sim01 = masked(sim01 / temperature, mask0, mask1, idx_c01)
     conf01 = torch.softmax(sim01, dim=2)
     with torch.no_grad():
-        sim10 = _structured_score(f1, f0, corners1, hw1, hw0, prop_window)
+        sim10 = score(f1, f0, corners1, hw1, hw0, idx_c10)
     sim10 = masked(sim10 / temperature, mask1, mask0, idx_c10)
     conf10 = torch.softmax(sim10, dim=2)
 

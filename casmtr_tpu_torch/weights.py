@@ -12,9 +12,12 @@ key:
 * Conv kernel HWIO -> OIHW (depthwise [kh, kw, 1, C] -> [C, 1, kh, kw]);
 * BatchNorm scale/bias + batch_stats mean/var -> weight/bias +
   running_mean/running_var; LayerNorm scale -> weight;
-* QTAttB merge logits ``py_att_weight`` -> ``py_att.weight`` (quadtree
-  attention A has none); Embed ``embedding`` -> Embedding ``weight``; POLA's
-  ``relative_position_bias_table`` keeps its name.
+* QTAttB and Guided merge logits ``py_att_weight`` -> ``py_att.weight``
+  (quadtree attention A has none); Embed ``embedding`` -> Embedding
+  ``weight``; POLA's ``relative_position_bias_table`` and LKABlock's
+  ``layer_scale_1``/``layer_scale_2`` keep their names (so LKABlock's
+  ``mlp_fc1`` and ``VAN``'s ``proj_1`` become ``mlp_fc1`` and ``proj.1``,
+  as the JAX package's rules map them).
 
 ``jax_variables`` is the inverse: it lays torch tensors (parameters,
 running statistics, or gradients by parameter name) out as the nested
@@ -163,8 +166,10 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded random weights: Linear/Conv weights N(0, 1/fan_in), biases 0,
     norm scales 1, BatchNorm running statistics (0, 1), quadtree merge
     logits and relative-PE embeddings N(0, 1), POLA bias tables N(0,
-    0.02^2) (the JAX package's initial scale).  Raises if a parameter is of
-    a kind not listed."""
+    0.02^2) (the JAX package's initial scale), LKA layer scales 1e-2 (the
+    JAX package's initial value).  Raises if a parameter is of a kind not
+    listed."""
+    from casmtr_tpu_torch.models.cascade_attention import LKABlock
     from casmtr_tpu_torch.models.pola import NeighborWindowAttention
     from casmtr_tpu_torch.models.transformer import QTAttB
 
@@ -188,6 +193,9 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             elif isinstance(m, NeighborWindowAttention):
                 t = m.relative_position_bias_table
                 t.copy_(randn(t, 0.02))
+            elif isinstance(m, LKABlock):
+                m.layer_scale_1.fill_(1e-2)
+                m.layer_scale_2.fill_(1e-2)
             else:
                 continue
             done.update(id(p) for p in m.parameters(recurse=False))

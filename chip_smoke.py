@@ -15,8 +15,9 @@ relative-PE cross layers at 1/4, served at bucket 640 and trained at 640^2)
 and the published indoor_casmtr_4c as the PMT-refine model (REFINE:
 build_model(..., refine=True), a frozen gray quadtree trunk of 128 / [128,
 196, 256], a ladder side network of 64 / 128 in RGB, the indoor 1/4 stack
-and fine heads; bucket 640, 640^2), at full width.  Phases, each printing
-its own lines and its seconds:
+and fine heads; bucket 640, 640^2), and the model zoo's three
+configurations (phase 11), at full width.  Phases, each printing its own
+lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch and
    CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
@@ -185,6 +186,35 @@ its own lines and its seconds:
    the restore step ('new' restarting its warmup, STAGE_TRAINER), and on
    the same-stage resume the optimizer moments and Adam count
    bit-identical to the checkpoint's.
+11. The model zoo (ZOO): three published recipes with two orthogonal
+   switches each, at full width with seeded random weights.  Z1:
+   outdoor_casmtr_4c with 'local_global' self layers at 1/4
+   (DoubleGroupBlock, sr_ratio 4) and the 'dilated1' propagation at
+   dilation 2 (the cascade gather paths: no B, no C); Z2:
+   outdoor_casmtr_4c with 'LKA' self layers and the 1/8 stack's relative
+   PE (its levels take the plain gather path: no A or A′ from the 1/8
+   stack); Z3: outdoor_casmtr_2c with 'topk' self layers at 1/4 (Guided
+   quadtree attention on the top 16 of the 1/8 cycle top-k, one level:
+   kernel A, A-bwd in training) and 'linear' self layers at 1/2.  First
+   kernel A at Z3's Guided shapes (208^2 K = 16 H = 4, and with its
+   log-sum-exp and A-bwd at 176^2), f32 and bf16, against the plain
+   versions as in phases 2 and 3, and the plain paths of Z1 (the dilated
+   cross attention and window scores) and Z2 (attention B with the 1/8
+   relative bias) timed beside the kernels of the recipes' own paths on
+   the same grids (zoo_plain_paths).  Then per model: serving at bucket
+   832 in the card's default, a warm request and two timed ones, each held
+   to the per-pair count (Z1 A 12 / A′ 12 and no B or C, Z2 B 2 / C 4 and
+   no A or A′, Z3 A 16 / A′ 12 / B 4 / C 8), and one more profiled; the
+   serving reference of phase 6; training at 704^2 in the card's default,
+   a warm-up step and two timed ones, each held to the per-step count (Z3
+   also A-bwd 28), and one more profiled, with
+   finite nonzero gradients on the new modules' parameters (the global
+   block's sr and kv projections, the LKA convs, the 1/8 bias tables, the
+   Guided layers' q/k/v) and the LKA BatchNorm statistics moved at every
+   step; one f32 step at 256^2 on the card against the CPU, each loss
+   term within 1e-4 relative (or 10x its largest response on the CPU to
+   two nudges of the images by 1e-6, where larger) and the whole
+   gradient's cosine >= 0.999.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -268,6 +298,10 @@ BF16_LOSS_RTOL = 2e-2
 # the reference's own GPU training step, 704^2, fp16: its cascade-free
 # quadtree step (bench.py, BASELINE.md), quadtree_baseline's architecture
 REFERENCE_S_PER_STEP = 1.19
+# phase 11's training reference: a loss term may also differ by up to this
+# many times its largest response on the CPU to two nudges of NUDGE of the
+# images (a random model's discrete choices flip under float32 rounding)
+NUDGE_FACTOR = 10.0
 # the detector branch's check (detector_phase): 4c's 1/4 level with the
 # learnable head and the straight-through detector
 DETECTOR = {"detector": "learnable", "detector_mode": "ST", "grid_size": 4}
@@ -308,12 +342,40 @@ MODELS[RESNET] = ("outdoor_casmtr_4c", {"loftr": {"backbone": {
 MODELS[BASELINE] = (BASELINE, {})
 MODELS[INDOOR] = (INDOOR, {})
 MODELS[REFINE] = ("indoor_casmtr_4c", {})
+# the models of phases 4-8
+BASE_MODELS = tuple(MODELS)
+# phase 11, the model zoo: published recipes with two orthogonal switches
+# each (the full-width counterparts of tests/torch_parity.ZOO).  Z1: the
+# 'local_global' self layers (DoubleGroupBlock, its global half with the
+# recipe's sr_ratio 4) and the 'dilated1' propagation at dilation 2 (the
+# cascade gather paths: no B, no C); Z2: the 'LKA' self layers and the 1/8
+# stack's relative PE (its levels take the plain gather path: no A or A′
+# there); Z3: 2c with Guided quadtree attention ('topk', top 16 of the 1/8
+# cycle top-k, one level: kernel A at 1/4) and the 'linear' self layers at
+# 1/2
+Z1 = "outdoor_casmtr_4c local_global dilated1"
+Z2 = "outdoor_casmtr_4c LKA coarse relative PE"
+Z3 = "outdoor_casmtr_2c topk linear"
+ZOO = (Z1, Z2, Z3)
+MODELS[Z1] = ("outdoor_casmtr_4c", {"loftr": {"coarse2": {
+    "self_attn_type": "local_global", "propagation": "dilated1",
+    "dilated": 2}}})
+MODELS[Z2] = ("outdoor_casmtr_4c", {"loftr": {
+    "coarse2": {"self_attn_type": "LKA"}, "coarse": {"relative_pe": True}}})
+MODELS[Z3] = ("outdoor_casmtr_2c", {"loftr": {
+    "coarse2": {"self_attn_type": "topk", "topks": [16]},
+    "coarse3": {"self_attn_type": "linear"}}})
 # per model: quadtree layers at 1/8, cascade levels, and of those the levels
 # whose two cross layers run kernel C (the indoor recipe's relative-PE cross
 # layers take the gather path instead)
 LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
           RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0),
-          REFINE: (8, 1, 0)}
+          REFINE: (8, 1, 0), Z1: (6, 1, 0), Z2: (0, 1, 1), Z3: (6, 2, 2)}
+# the cascade levels that do not score their windows with kernel B (the
+# dilated propagation's gather path), and the Guided self layers at 1/4
+# (kernel A once per image each)
+SCORE_LEVELS = {Z1: 0}
+GUIDED = {Z3: 2}
 # phase 10: the checkpointed serving recipe and the staged recipe, whose
 # stages 1 and 2 run the 1/8 stack alone and with the 1/4 level
 CKPT_RECIPE = "outdoor_casmtr_4c"
@@ -379,18 +441,22 @@ def _typed(counts, bf16):
 
 def per_pair(model, bf16):
     """Launches per image pair on the eval path (no backward): each 1/8
-    quadtree layer runs A′ at the intermediate and A at the finest level
-    once per image; per cascade level 2 window-score directions, and on
-    the levels that use kernel C 2 cross layers x 2 images.  With ``bf16``
-    (the card's eval default) A, A′ and C are their bf16 instances and
-    their f32 instances launch 0 times; B stays f32."""
+    quadtree layer that goes through the kernels runs A′ at the
+    intermediate and A at the finest level once per image, and each Guided
+    layer A once per image; per cascade level that scores with kernel B 2
+    window-score directions, and on the levels that use kernel C 2 cross
+    layers x 2 images.  With ``bf16`` (the card's eval default) A, A′ and C
+    are their bf16 instances and their f32 instances launch 0 times; B
+    stays f32."""
     qt, levels, c_levels = LAYOUT[model]
-    return dict(_typed({"quadtree_fine_attention": 2 * qt,
+    guided = GUIDED.get(model, 0)
+    return dict(_typed({"quadtree_fine_attention": 2 * (qt + guided),
                         "quadtree_fine_topk": 2 * qt,
                         "window_cross_attention": 4 * c_levels,
                         "quadtree_fine_attention_bwd": 0,
                         "window_cross_attention_bwd": 0}, bf16),
-                window_patch_score=2 * levels, window_patch_score_bwd=0)
+                window_patch_score=2 * SCORE_LEVELS.get(model, levels),
+                window_patch_score_bwd=0)
 
 
 def per_step(model, bf16):
@@ -401,10 +467,11 @@ def per_step(model, bf16):
     training default) A, A′, A-bwd, C and C-bwd are their bf16 instances
     and their f32 instances launch 0 times; B and B-bwd stay f32."""
     qt, levels, c_levels = LAYOUT[model]
+    a_fwd = 4 * qt + 2 * GUIDED.get(model, 0)
     return dict(per_pair(model, bf16), **_typed(
-        {"quadtree_fine_attention_bwd": 0 if model in REFINED else 4 * qt,
+        {"quadtree_fine_attention_bwd": 0 if model in REFINED else a_fwd,
          "window_cross_attention_bwd": 4 * c_levels}, bf16),
-        window_patch_score_bwd=levels)
+        window_patch_score_bwd=SCORE_LEVELS.get(model, levels))
 
 
 # per pair or step in the card's default (bf16), and with float32 forced
@@ -2345,13 +2412,42 @@ def build_trainer(torch, name, size, device=None, model=None, **loftr):
     return model, state, make_train_step(model, cfg, tx, device=device)
 
 
-def training_phase(torch, name, prec):
+def zoo_watch(model):
+    """A ZOO model's new modules: the parameters whose gradients must be
+    finite and nonzero at every step (the global block's sr projection and
+    its keys/values, the LKA convs, the 1/8 relative-PE tables, the Guided
+    layers' q/k/v, which go through kernel A-bwd), and the LKABlocks'
+    BatchNorm statistics, which must move at every step."""
+    from casmtr_tpu_torch.models.cascade_attention import (DoubleGroupBlock,
+                                                           LKABlock)
+    from casmtr_tpu_torch.models.transformer import QuadtreeBlock
+    params, stats = [], []
+    for n, m in model.named_modules():
+        if isinstance(m, DoubleGroupBlock):
+            params += [f"{n}.block_global.attn.{p}.weight"
+                       for p in ("sr", "kv")]
+        elif isinstance(m, LKABlock):
+            params += [f"{n}.attn.spatial_gating_unit.{c}.weight"
+                       for c in ("conv0", "conv_spatial", "conv1")]
+            stats += [f"{n}.norm{i}.running_{s}" for i in (1, 2)
+                      for s in ("mean", "var")]
+        elif isinstance(m, QuadtreeBlock) and m.attn.attn_type == "Guided":
+            params += [f"{n}.attn.{p}_proj.weight" for p in "qkv"]
+    params += [n for n, _ in model.named_parameters()
+               if n.startswith("loftr_coarse_8c.") and "pos_bias" in n]
+    return params, stats
+
+
+def training_phase(torch, name, prec, steps=4):
     """MODELS[name] trained at TRAIN_SIZES[name] in precision ``prec``, which
     the
     caller sets ("bf16", the card's default: bf16 backbone and kernel
     inputs, float32 stacks; or "f32" forced): the step's dtypes, a warm-up
-    step, then 4 timed steps with the launch counts zeroed just before and
-    read just after each, held to the precision's per-step count."""
+    step, then ``steps`` timed steps with the launch counts zeroed just
+    before and read just after each, held to the precision's per-step
+    count; a ZOO model also with finite nonzero gradients on its new
+    modules and its LKA BatchNorm statistics moved at every step
+    (zoo_watch)."""
     from casmtr_tpu_torch.models.backbone.resnet_fpn import backbone_dtype
     from casmtr_tpu_torch.models.transformer import (table_dtype,
                                                      transformer_dtype)
@@ -2375,8 +2471,13 @@ def training_phase(torch, name, prec):
     watch = kernel_grad_params(model)
     refine = name in REFINED
     n_watch = 3 * LAYOUT[name][0] * (not refine) + 6 * len(levels)
-    check(len(watch) == n_watch, f"training: {len(watch)} trainable q/k/v "
-          f"projections, expected {n_watch}")
+    new, new_stats = zoo_watch(model)
+    check(name in ZOO or len(watch) == n_watch, f"training: {len(watch)} "
+          f"trainable q/k/v projections, expected {n_watch}")
+    check((name in ZOO) == bool(new), f"training: {name}: new modules "
+          f"{new}")
+    watch += new
+    buffers = dict(model.named_buffers())
     params = dict(model.named_parameters())
     start = {n: params[n].detach().clone() for n in watch}
     trunk = {}
@@ -2395,8 +2496,9 @@ def training_phase(torch, name, prec):
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
     times = []
-    for i in range(4):
+    for i in range(steps):
         before = dict(kernels.LAUNCHES)
+        stats = {n: buffers[n].clone() for n in new_stats}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, scalars = step(state, batch)
@@ -2419,6 +2521,13 @@ def training_phase(torch, name, prec):
             check(g is not None and bool(torch.isfinite(g).all())
                   and float(g.abs().max()) > 0,
                   f"training: no finite nonzero gradient on {n}")
+        for n, t in stats.items():
+            check(not torch.equal(t, buffers[n]),
+                  f"training: {n} did not move")
+    if new:
+        log(f"training: {recipe} new modules: finite nonzero gradients at "
+            f"every step on {len(new)} parameters ({', '.join(new)}); "
+            f"{len(new_stats)} LKA BatchNorm statistics moved at every step")
     totals = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     moved = sum(not torch.equal(start[n], params[n].detach()) for n in watch)
@@ -3129,6 +3238,251 @@ def checkpoint_phase(torch):
         return serving, staged_training_phase(torch, tmp)
 
 
+# --------------------------------------------------------------------------
+# phase 11: the model zoo
+# --------------------------------------------------------------------------
+
+def guided_inputs(torch, gen, grid, k=16, H=4, D=32):
+    """Z3's Guided level on a grid x grid 1/4 map: q/k/v [1, grid^2, H, D]
+    and the guide [1, (grid/2)^2, k, H], the cycle top-k of a dual-softmax
+    confidence matrix of seeded 1/8 features (the model's own
+    ``_cycle_topk``)."""
+    import types
+    from casmtr_tpu_torch.models.cascade_transformer import \
+        CascadeFeatureTransformer
+    L8 = (grid // 2) ** 2
+    f0, f1 = (torch.randn((1, L8, 64), generator=gen, device="cuda")
+              for _ in range(2))
+    sim = torch.einsum("blc,bsc->bls", f0, f1) / 8.0
+    conf = torch.softmax(sim, 1) * torch.softmax(sim, 2)
+    cfg = model_config(Z3).loftr.coarse2
+    guide = CascadeFeatureTransformer._cycle_topk(
+        types.SimpleNamespace(config=cfg), conf)[0]
+    check(guide.shape == (1, L8, k, H), f"guide {tuple(guide.shape)}")
+    qkv = tuple(torch.randn((1, grid * grid, H, D), generator=gen,
+                            device="cuda") for _ in range(3))
+    return qkv, guide, (grid, grid)
+
+
+def guided_rows(torch, rows, gen, path, grid, train):
+    """Kernel A (and in training A with its log-sum-exp and A-bwd) at Z3's
+    Guided level, f32 and through the bf16 instances on the inputs rounded
+    to bf16 (the card's default), against their plain versions on the same
+    inputs, as phases 2 and 3 hold the 1/8 levels."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    qkv, ids, hw = guided_inputs(torch, gen, grid)
+    label = f"Guided {grid}x{grid} K={ids.shape[2]}"
+    for bf16 in (False, True):
+        q, k, v = (t.to(torch.bfloat16) for t in qkv) if bf16 else qkv
+        sfx = "_bf16" if bf16 else ""
+        P, K, H, D = ids.shape[1], ids.shape[2], q.shape[2], q.shape[3]
+        desc = (f"q/k/v {list(q.shape)} {str(q.dtype)[6:]} guide "
+                f"{list(ids.shape)}")
+        fwd = attention_flops(P * H, 4 * K, D)
+        kernel_row(
+            torch, rows, "quadtree_fine_attention" + sfx,
+            label + (" with LSE" if train else ""), path,
+            (lambda: qk_._launch_fwd(q, k, v, ids, hw, hw, True)[:2])
+            if train else
+            (lambda: qk_.quadtree_fine_attention(q, k, v, ids, hw, hw)),
+            lambda: qk_.quadtree_fine_attention_plain(q, k, v, ids, hw, hw,
+                                                      with_lse=train),
+            desc, nbytes(q, k, v, ids) + P * 4 * H * (D + train) * 4,
+            0 if bf16 else fwd, bf16_flops=fwd if bf16 else 0,
+            library=quadtree_library(torch, q, k, v, ids, hw, False),
+            note=LSE_NOTE if train else "")
+        if not train:
+            continue
+        out, lse = (t.contiguous() for t in qk_.quadtree_fine_attention_plain(
+            q, k, v, ids, hw, hw, with_lse=True))
+        g = torch.randn(out.shape, generator=gen, device="cuda")
+        bwd = attention_flops(P * H, 4 * K, D, backward=True)
+        kernel_row(
+            torch, rows, "quadtree_fine_attention_bwd" + sfx, label, path,
+            lambda: qk_.quadtree_fine_attention_bwd(q, k, v, ids, out, lse,
+                                                    g, hw, hw),
+            lambda: qk_.quadtree_fine_attention_bwd_plain(
+                q, k, v, ids, out, lse, g, hw, hw),
+            desc, nbytes(q, k, v, ids, out, lse, g) + 3 * q.numel() * 4,
+            0 if bf16 else bwd, bf16_flops=bwd if bf16 else 0,
+            scattered=(1, 2),
+            library=quadtree_library(torch, q, k, v, ids, hw, True))
+
+
+def zoo_plain_paths(torch, gen):
+    """The ZOO models' paths that run in plain PyTorch (no kernel, as in
+    the JAX package), timed on the card at the 832^2 eval's shapes
+    (forward, bf16 q/k/v as the card's default feeds them) and the 704^2
+    step's (forward plus backward, bf16 q/k/v), each beside the kernels
+    that the recipe's own path takes on the same grid, with the calls per
+    request and per step: Z1's dilated cross attention (cascade_qtatt_b,
+    dilation 2, 100 candidates; kernel C on 100 structured ones) and
+    window scores (window_score, 324 candidates, f32; kernel B on 100),
+    Z2's 1/8 attention B with the relative bias (qtatt_b, 3 levels from
+    104^2 / 88^2, H=8, D=32, topks 32 / 16 / 8; without the bias, kernels
+    A and A′).  Each forward's output checked finite."""
+    from casmtr_tpu_torch.models.cascade_transformer import (upsample_idx,
+                                                             window_warp_idx)
+    from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
+    from casmtr_tpu_torch.ops import cascade_matching as cm
+    from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    from casmtr_tpu_torch.ops.propagation import get_propagations
+    from casmtr_tpu_torch.ops.quadtree import cascade_qtatt_b, qtatt_b
+    bf = torch.bfloat16
+    out = {}
+
+    def clock(name, fn, leaves, calls):
+        """fn's forward (no gradient) in ms, with ``leaves`` also its forward
+        plus backward, and the last one's total over ``calls``."""
+        with torch.no_grad():
+            check(bool(torch.isfinite(fn()).all()), f"{name}: non-finite")
+            t = time_ms(torch, fn, reps=10)
+        out[name] = t
+        if leaves:
+            y = fn()
+            g = torch.randn(y.shape, device="cuda")
+            t = time_ms(torch, lambda: torch.autograd.grad(fn(), leaves, g),
+                        reps=10)
+            out[name + " fwd+bwd"] = t
+        out[name + f" x{calls}"] = calls * t
+
+    for grid, train in ((208, False), (TRAIN_SIZE // 4, True)):
+        g2, hw, w, H, D, C = grid // 2, (grid, grid), 5, 4, 32, 128
+        tag = f"{grid}x{grid}" + (" (704^2 step)" if train else "")
+        window, full = get_propagations("dilated1", w, 2)
+        nxt = torch.randint(0, g2 * g2, (1, g2 * g2), generator=gen,
+                            device="cuda")
+        win, full_pos = window_warp_idx(nxt, window, g2, g2, full)
+        corners = window_inputs(torch, gen, g2)
+        q, k, v = (torch.randn((1, grid * grid, H, D), generator=gen,
+                               device="cuda").to(bf).requires_grad_(train)
+                   for _ in range(3))
+        qkv = [q, k, v] if train else []
+        clock(f"Z1 dilated cross attention {tag}", lambda: cascade_qtatt_b(
+            q, k, v, win, hw, hw, dilated=2)[0], qkv, 4)
+        clock(f"kernel C, structured windows {tag}",
+              lambda: wk.window_cross_attention(q, k, v, corners, hw, hw, w),
+              qkv, 4)
+        f0, f1 = (torch.randn((1, grid * grid, C), generator=gen,
+                              device="cuda").requires_grad_(train)
+                  for _ in range(2))
+        idx = upsample_idx(full_pos, g2, g2, g2)
+        check(idx.shape[-1] == 4 * full.shape[0], "Z1 window candidates")
+        # per request both directions; per step the 0->1 one with gradient
+        clock(f"Z1 window scores {tag}", lambda: cm.window_score(f0, f1, idx),
+              [f0, f1] if train else [], 1 if train else 2)
+        qb = f0.detach().reshape(1, g2, 2, g2, 2, C).transpose(2, 3).reshape(
+            1, g2 * g2, 4, C).contiguous().requires_grad_(train)
+        f1_2d = f1.detach().reshape(1, grid, grid, C).contiguous()
+        f1_2d.requires_grad_(train)
+        clock(f"kernel B, structured windows {tag}",
+              lambda: wk.window_patch_score(qb, f1_2d, corners, w),
+              [qb, f1_2d] if train else [], 1 if train else 2)
+
+        g8 = grid // 2
+        lft = LocalFeatureTransformer(model_config(Z2).loftr.coarse,
+                                      TRAIN_SIZE // 8).cuda()
+        rel = lft.relative_biases((g8, g8))
+        levels = []
+        x = torch.randn((1, 256, g8, g8), generator=gen, device="cuda")
+        for _ in range(3):
+            levels.append((tuple(x.shape[-2:]), x.flatten(2).transpose(
+                1, 2).reshape(1, -1, 8, 32).contiguous().to(bf)))
+            x = avg_pool_2x2(x)
+        sizes = [hw_ for hw_, _ in levels]
+        toks = [t.requires_grad_(train) for _, t in levels]
+        weight = torch.randn(3, generator=gen, device="cuda")
+        for label, r in (("Z2 1/8 attention B, relative bias", rel),
+                         ("kernels A and A′, no bias", None)):
+            clock(f"{label} {g8}x{g8}" + (" (704^2 step)" if train else ""),
+                  lambda r=r: qtatt_b(toks, toks, toks, sizes, (32, 16, 8),
+                                      weight, r),
+                  toks if train else [], 12)
+    log("plain paths of the zoo (ms; 'xN' the total over the N calls of a "
+        "request, or of a step for the 704^2 rows): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def zoo_kernel_phase(torch):
+    """Z3's Guided level through kernel A at the 832^2 eval's 1/4 shape
+    (208^2) and through A with its log-sum-exp and A-bwd at the 704^2
+    step's (176^2), then the zoo's plain paths (zoo_plain_paths).  Returns
+    (serving rows, training rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows, train_rows = [], []
+    guided_rows(torch, rows, gen, f"eval 832^2 ({Z3})", 208, False)
+    guided_rows(torch, train_rows, gen, f"train 704^2 ({Z3})",
+                TRAIN_SIZE // 4, True)
+    zoo_plain_paths(torch, gen)
+    return rows, train_rows
+
+
+def zoo_train_reference(torch, name):
+    """One step of a ZOO model at 256^2 with float32 forced, card against
+    CPU: each loss term within TRAIN_LOSS_RTOL relative, or where that is
+    larger within NUDGE_FACTOR x its largest response on the CPU to two
+    nudges of the images by NUDGE (a random model's discrete choices can
+    flip under float32 rounding); the whole gradient's cosine >=
+    MIN_GRAD_COS."""
+    size = 256
+    base, _, _ = build_trainer(torch, name, size, device="cpu")
+    res = {dev: reference_step(torch, name, size, dev, base, "f32")
+           for dev in ("cuda", "cpu")}
+    rel, cos, (worst, worst_name), coarse = step_difference(
+        torch, res["cuda"], res["cpu"])
+    (sg, _, tg, _), (sc, _, tc, _) = res["cuda"], res["cpu"]
+    log(f"training reference: {name} {size}^2, one step, card f32 vs CPU "
+        f"f32: loss {sg['loss']:.6f} vs {sc['loss']:.6f}; relative "
+        + ", ".join(f"{k} {r:.2e}" for k, r in rel.items())
+        + f"; gradient cosine {cos:.8f} (min {MIN_GRAD_COS}), of loss_8c "
+        f"on the 1/8 q/k/v {coarse:.8f}; worst per-leaf relative error "
+        f"{worst:.2e} ({worst_name}, not gated); step {tg:.2f} s on the "
+        f"card, {tc:.2f} s on the CPU")
+    allow = {}
+    if any(r > TRAIN_LOSS_RTOL for r in rel.values()):
+        nudged = [step_difference(torch, reference_step(
+            torch, name, size, "cpu", base, "f32", seed), res["cpu"])[0]
+            for seed in (0, 1)]
+        allow = {k: NUDGE_FACTOR * max(n[k] for n in nudged) for k in rel}
+        log(f"training reference: {name} the CPU's largest response to two "
+            f"nudges of {NUDGE:g} of its images: "
+            + ", ".join(f"{k} {allow[k] / NUDGE_FACTOR:.2e}" for k in rel))
+    for k, r in rel.items():
+        check(r <= max(TRAIN_LOSS_RTOL, allow.get(k, 0.0)),
+              f"training reference: {name} {k} disagrees")
+    check(cos >= MIN_GRAD_COS, f"training reference: {name} gradients "
+          "disagree")
+
+
+def zoo_phase(torch, name):
+    """A ZOO model at full width: serving at bucket 832 in the card's
+    default (a warm request and two timed ones, each held to its per-pair
+    launch count) and one more request profiled, the serving reference at
+    bucket 256 (phase 6), training at 704^2 in the card's default (a
+    warm-up step and two timed ones, each held to its per-step count, with
+    zoo_watch's checks) and one more step profiled, and the f32 training
+    reference at 256^2 (zoo_train_reference).  Returns (serving
+    runs, (training launch totals, last step's counts))."""
+    runs, matcher, request = timed(f"serving {name}", serving_phase, torch,
+                                   name, ("bf16",))
+    timed(f"profile {name} bf16", profile_phase, torch, name, matcher,
+          request, "bf16")
+    del matcher
+    torch.cuda.empty_cache()
+    timed(f"reference {name}", reference_phase, torch, name)
+    with precision("bf16"):
+        totals, counts, step, state, batch, times = timed(
+            f"training {name} bf16", training_phase, torch, name, "bf16", 2)
+        timed(f"training profile {name} bf16", train_profile_phase, torch,
+              f"{name} bf16", step, state, batch, statistics.median(times))
+    del step, state
+    torch.cuda.empty_cache()
+    timed(f"training reference {name}", zoo_train_reference, torch, name)
+    return runs, (totals, counts)
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3177,7 +3531,7 @@ def main(argv):
     train_rows = timed("training kernels", train_kernel_phase, torch)
     timed("finite difference", finite_difference_phase, torch)
     serve_runs = {}
-    for recipe in MODELS:
+    for recipe in BASE_MODELS:
         # the ResNetFPN variant in the card's default only
         precs = ("bf16",) if recipe == RESNET else ("bf16", "f32")
         serve_runs[recipe], matcher, request = timed(
@@ -3193,11 +3547,11 @@ def main(argv):
                   recipe == RECIPES[0] and prec == "f32")
         del matcher
         torch.cuda.empty_cache()
-    for recipe in MODELS:
+    for recipe in BASE_MODELS:
         if recipe != RESNET:
             timed(f"reference {recipe}", reference_phase, torch, recipe)
     train_runs = {}
-    for recipe in MODELS:
+    for recipe in BASE_MODELS:
         for prec in ("bf16", "f32"):
             with precision(prec):
                 totals, counts, step, state, batch, times = timed(
@@ -3211,17 +3565,22 @@ def main(argv):
                           step, state, batch, statistics.median(times))
             del step, state
             torch.cuda.empty_cache()
-    for recipe in MODELS:
+    for recipe in BASE_MODELS:
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)
     timed("detector", detector_phase, torch)
     ckpt_runs, stage_runs = timed("checkpoints", checkpoint_phase, torch)
+    zoo_rows, zoo_train_rows = timed("zoo kernels", zoo_kernel_phase, torch)
+    rows += zoo_rows
+    train_rows += zoo_train_rows
+    for name in ZOO:
+        serve_runs[name], train_runs[name, "bf16"] = zoo_phase(torch, name)
 
-    # launches: each path's counts, summed over the models' runs, and each
-    # model's count in its last request and its last step.  A row reads the
-    # runs of its precision: the bf16 instances, B and B-bwd the card's
-    # bf16 default, the f32 A, A′, A-bwd, C and C-bwd the runs with float32
-    # forced.
+    # launches: each path's counts, summed over the models' runs (phase 11's
+    # ZOO models in the card's default only), and each model's count in its
+    # last request and its last step.  A row reads the runs of its
+    # precision: the bf16 instances, B and B-bwd the card's bf16 default,
+    # the f32 A, A′, A-bwd, C and C-bwd the runs with float32 forced.
     for path, table, key in (("serving", rows, "launches_per_pair"),
                              ("training", train_rows, "launches_per_step")):
         for row in table:
@@ -3230,7 +3589,8 @@ def main(argv):
                 runs = {r: serve_runs[r][prec][:2] for r in serve_runs
                         if prec in serve_runs[r]}
             else:
-                runs = {r: train_runs[r, prec] for r in MODELS}
+                runs = {r: v for (r, p), v in train_runs.items()
+                        if p == prec}
             row["launches_from"] = f"{path}, {prec}"
             row["launches"] = sum(t[row["name"]] for t, _ in runs.values())
             row[key] = {r: c[row["name"]] for r, (_, c) in runs.items()}

@@ -28,7 +28,8 @@ from tests.test_torch_slice import (_assert_same_matches, _by_pair,  # noqa
                                     _fields, _images)
 from tests.test_torch_train import (_jnp, _leaves, _pair_batch,  # noqa
                                     step_gradients)
-from tests.torch_parity import configs, jitter, tiny_2c_overrides  # noqa
+from tests.torch_parity import (configs, jitter, port_variables,  # noqa
+                                tiny_2c_overrides)
 
 RECIPE = "outdoor_casmtr_2c"
 PX_ATOL = 1e-3
@@ -54,11 +55,11 @@ def eval_run(request):
     img0, img1 = _images(np.random.default_rng(0), 2, 128, 128)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxCasMTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     want = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
                                                               batch)
-    model = CasMTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():

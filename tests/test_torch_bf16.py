@@ -56,8 +56,8 @@ from casmtr_tpu_torch.ops import quadtree as tqt  # noqa: E402
 from casmtr_tpu_torch.ops.kernels import quadtree_kernels as tqk  # noqa
 from casmtr_tpu_torch.ops.kernels import window_kernels as twk  # noqa: E402
 from tests.test_torch_slice import _by_pair, _fields, _images  # noqa: E402
-from tests.torch_parity import (configs, jitter, tiny_2c_overrides,  # noqa
-                                tiny_4c_overrides)
+from tests.torch_parity import (configs, jitter, port_variables,  # noqa
+                                tiny_2c_overrides, tiny_4c_overrides)
 
 ENV = ("CASMTR_BACKBONE_BF16", "CASMTR_TRANSFORMER_BF16")
 KERNEL_ATOL = 1e-5     # float32 sums of the same bf16 values, another order
@@ -464,15 +464,15 @@ def test_bf16_eval_forward_matches_jax(monkeypatch, recipe, overrides):
     img0, img1 = _images(np.random.default_rng(0), 2, 128, 128)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxCasMTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     want = {}
     for env in ("0", "1"):
         for name in ENV:
             monkeypatch.setenv(name, env)
         want[env] = _exact(lambda v, b: jm.apply(v, b, train=False),
                            variables, batch)
-    model = CasMTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():   # the environment is still "1"

@@ -25,12 +25,12 @@ jittered weights:
   test_torch_quadtree_loftr.py): loss terms within 1e-5 relative,
   per-leaf gradients within 1e-4 relative, BatchNorm statistics within
   1e-5;
-* the branches still not ported raise NotImplementedError: the
-  ``local_global``, ``topk``, ``linear`` and ``LKA`` self layers,
-  quadtree attention ``Guided`` and the 1/8 relative PE; the detector
-  head and the detector modes, refused here until they were ported, now
-  build (tests/test_torch_detector.py holds them against the JAX
-  package).
+* the branches refused here until they were ported now build: the
+  detector head and the detector modes (tests/test_torch_detector.py
+  holds them against the JAX package), the ``local_global``, ``topk``,
+  ``linear`` and ``LKA`` self layers and the 1/8 relative PE
+  (tests/test_torch_zoo.py); quadtree attention ``Guided`` in the 1/8
+  stack, which the JAX package cannot run, raises ValueError.
 
 The tolerances were fixed before the first run."""
 
@@ -313,7 +313,7 @@ def test_indoor_train_step_batch_stats_match_jax(step_run):
 
 REFUSED = {
     "local_global": {"coarse2": {"self_attn_type": "local_global"}},
-    "topk": {"coarse2": {"self_attn_type": "topk"}},
+    "topk": {"coarse2": {"self_attn_type": "topk", "topks": [4]}},
     "linear": {"coarse2": {"self_attn_type": "linear"}},
     "LKA": {"coarse2": {"self_attn_type": "LKA"}},
     "detector": {"coarse2": {"detector": "learnable"}},
@@ -323,21 +323,32 @@ REFUSED = {
 }
 
 
-# refused until the detector branch was ported: now they build
-PORTED = {"detector", "detector_mode"}
+# refused until they were ported: now they build (tests/test_torch_zoo.py
+# and tests/test_torch_detector.py hold them against the JAX package)
+PORTED = {"detector": "detector", "detector_mode": "detector",
+          "local_global": "DoubleGroupBlock", "topk": "QuadtreeBlock",
+          "linear": "LoFTREncoderLayer", "LKA": "LKABlock",
+          "coarse relative PE": "w_pos_bias"}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_unported_branches_still_raise(case):
+    """Each branch builds, or (Guided in the 1/8 stack, which the JAX
+    package cannot run either: its 1/8 stack passes no guide) raises."""
     from casmtr_tpu_torch.models import build_model
     ov = tiny_indoor_overrides()
     for part, value in REFUSED[case].items():
         ov["loftr"][part].update(value)
     _, tcfg = configs(ov, RECIPE)
-    if case in PORTED:
-        model = build_model(tcfg.loftr)
+    if case not in PORTED:
+        with pytest.raises(ValueError, match="passes none"):
+            build_model(tcfg.loftr)
+        return
+    model = build_model(tcfg.loftr)
+    if PORTED[case] == "detector":
         assert (model.loftr_coarse_4c.detector is not None) == (
             case == "detector")
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        build_model(tcfg.loftr)
+    elif case == "coarse relative PE":
+        assert len(model.loftr_coarse_8c.w_pos_bias) == 3
+    else:
+        assert type(model.loftr_coarse_4c.layers[0]).__name__ == PORTED[case]

@@ -15,7 +15,8 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tests.torch_parity import configs, jitter, tiny_4c_overrides  # noqa: E402
+from tests.torch_parity import (configs, flax_like, jitter,  # noqa: E402
+                                port_variables, tiny_4c_overrides)
 
 ATOL = 1e-4
 
@@ -35,9 +36,10 @@ def _t(x):
     return torch.from_numpy(np.array(x))
 
 
-def _init_apply(module, seed, *args):
-    """Jitted flax init (made non-trivial by ``jitter``) and apply; static
-    arguments (grid sizes) are closed over."""
+def _init_apply(module, port, seed, *args):
+    """Jittered variables of the port module ``port``'s seeded weights on
+    the flax init's tree (traced, not compiled: ``port_variables``) and
+    the jitted apply; static arguments (grid sizes) are closed over."""
     arrays = [i for i, a in enumerate(args) if isinstance(a, jax.Array)]
 
     def call(fn):
@@ -46,12 +48,12 @@ def _init_apply(module, seed, *args):
             for i, x in zip(arrays, xs):
                 full[i] = x
             return fn(first, *full)
-        return jax.jit(run)
+        return run
 
     xs = [args[i] for i in arrays]
-    variables = jitter(call(module.init)(jax.random.PRNGKey(seed), *xs),
-                       seed=seed)
-    return variables, call(module.apply)(variables, *xs)
+    variables = port_variables(port, lambda: call(module.init)(
+        jax.random.PRNGKey(seed), *xs), seed=seed)
+    return variables, jax.jit(call(module.apply))(variables, *xs)
 
 
 @pytest.fixture(scope="module")
@@ -68,8 +70,9 @@ def test_twins_fpn_matches_flax(hw):
     from casmtr_tpu_torch.models.backbone.twins import TwinsFPN_8_4_2
     x = np.random.default_rng(0).random((2,) + hw + (3,)).astype(np.float32)
     jm = JaxTwins(initial_dim=8, block_dims=(8, 12, 16), model_type="small")
-    variables, want = _init_apply(jm, 0, jnp.asarray(x))
-    tm = _load(TwinsFPN_8_4_2(8, (8, 12, 16), "small"), variables)
+    tm = TwinsFPN_8_4_2(8, (8, 12, 16), "small")
+    variables, want = _init_apply(jm, tm, 0, jnp.asarray(x))
+    _load(tm, variables)
     with torch.inference_mode():
         got = tm(_t(x).permute(0, 3, 1, 2))
     for g, w in zip(got, want):
@@ -84,9 +87,10 @@ def test_quadtree_block_matches_flax():
     x, t = (rng.standard_normal((2, 192, 16)).astype(np.float32)
             for _ in range(2))
     jm = JaxBlock(16, 2, (4, 4, 4), scale=3)
-    variables, want = _init_apply(jm, 1, jnp.asarray(x), jnp.asarray(t), hw,
-                                  hw)
-    tm = _load(QuadtreeBlock(16, 2, (4, 4, 4), 3), variables)
+    tm = QuadtreeBlock(16, 2, (4, 4, 4), 3)
+    variables, want = _init_apply(jm, tm, 1, jnp.asarray(x), jnp.asarray(t),
+                                  hw, hw)
+    _load(tm, variables)
     with torch.inference_mode():
         got = tm(_t(x), _t(t), hw, hw)
     _close(got, want)
@@ -115,8 +119,9 @@ def test_local_feature_transformer_matches_flax(cfgs, stack):
     jm = JaxLFT(getattr(jcfg.loftr, stack), 128, remat=False)
     jargs = (jnp.asarray(f0), jnp.asarray(f1), hw, hw) + tuple(
         None if m is None else jnp.asarray(m) for m in masks)
-    variables, want = _init_apply(jm, 2, *jargs)
-    tm = _load(LocalFeatureTransformer(getattr(tcfg.loftr, stack)), variables)
+    tm = LocalFeatureTransformer(getattr(tcfg.loftr, stack))
+    variables, want = _init_apply(jm, tm, 2, *jargs)
+    _load(tm, variables)
     with torch.inference_mode():
         got = tm(_t(f0), _t(f1), hw, hw,
                  *(None if m is None else _t(m) for m in masks))
@@ -141,8 +146,9 @@ def test_cascade_feature_transformer_matches_flax(cfgs):
     jm = JaxCFT(jcfg.loftr.coarse2, 32, remat=False, train_mode=False)
     jargs = (jnp.asarray(f0), jnp.asarray(f1), jnp.asarray(idx01),
              jnp.asarray(idx10), hw0, hw1)
-    variables, want = _init_apply(jm, 3, *jargs)
-    tm = _load(CascadeFeatureTransformer(tcfg.loftr.coarse2), variables)
+    tm = CascadeFeatureTransformer(tcfg.loftr.coarse2)
+    variables, want = _init_apply(jm, tm, 3, *jargs)
+    _load(tm, variables)
     with torch.inference_mode():
         got = tm(_t(f0), _t(f1), _t(idx01).long(), _t(idx10).long(), hw0,
                  hw1)
@@ -199,13 +205,15 @@ def test_coarse_matching_matches_jax(masked):
 
 @pytest.fixture(scope="module")
 def model_variables(cfgs):
-    """Variables of the whole tiny 4c model (one jitted flax init)."""
+    """Variables of the whole tiny 4c model: the flax init's tree (traced,
+    not compiled), every leaf jittered into noise of its own, so each
+    mapped value shows where it lands."""
     from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
     img = jnp.zeros((1, 64, 64, 3), jnp.float32)
     model = JaxCasMTR(cfgs[0].loftr)
-    return jitter(jax.jit(lambda key: model.init(
-        key, {"image0": img, "image1": img}, train=False))(
-            jax.random.PRNGKey(4)))
+    return jitter(flax_like(lambda: model.init(
+        jax.random.PRNGKey(4), {"image0": img, "image1": img},
+        train=False)), seed=4)
 
 
 def test_load_jax_variables_fills_every_key(cfgs, model_variables):

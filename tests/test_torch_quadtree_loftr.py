@@ -119,8 +119,9 @@ def test_attention_a_has_no_merge_logits():
     a = QuadtreeAttention(16, 2, (4, 4, 4), attn_type="A")
     b = QuadtreeAttention(16, 2, (4, 4, 4), attn_type="B")
     assert set(b.state_dict()) - set(a.state_dict()) == {"py_att.weight"}
-    with pytest.raises(NotImplementedError, match="Guided"):
-        QuadtreeAttention(16, 2, (4, 4, 4), attn_type="Guided")
+    guided = QuadtreeAttention(16, 2, (4, 4, 4), attn_type="Guided")
+    assert set(guided.state_dict()) == set(b.state_dict())
+    assert guided.py_att.weight.shape == b.py_att.weight.shape == (3,)
 
 
 # --------------------------------------------------------------------------

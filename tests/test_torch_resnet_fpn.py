@@ -37,7 +37,8 @@ from tests.test_torch_slice import (_assert_same_matches, _fields,  # noqa
 from tests.test_torch_train import _leaves as leaves  # noqa: E402
 from tests.test_torch_train import (_pair_batch, jax_step,  # noqa: E402
                                     step_variables, torch_step)
-from tests.torch_parity import configs, jitter, tiny_4c_overrides  # noqa
+from tests.torch_parity import (configs, jitter, port_variables,  # noqa
+                                tiny_4c_overrides)
 
 MAP_ATOL = 1e-4
 BN_ATOL = 1e-5
@@ -70,9 +71,11 @@ def resnet_overrides(**kw):
 @pytest.fixture(scope="module")
 def flax_runs():
     """{(name, is_rgb): (input, variables, eval maps, (train maps, batch
-    statistics after the forward))}, each module initialized and applied in
-    both modes by one jitted call."""
+    statistics after the forward))}: each module's jittered variables from
+    the port's seeded weights on the flax init's tree (traced, not
+    compiled), applied in both modes by one jitted call."""
     from casmtr_tpu.models.backbone import resnet_fpn as jrf
+    from casmtr_tpu_torch.models.backbone import resnet_fpn as trf
     image = np.random.default_rng(0).random((2, 70, 90, 3)).astype(
         np.float32)
     x = jnp.asarray(image)
@@ -82,7 +85,9 @@ def flax_runs():
         if (name, is_rgb) not in runs:
             jm = getattr(jrf, name)(initial_dim=INITIAL_DIM,
                                     block_dims=BLOCK_DIMS, is_rgb=is_rgb)
-            variables = jitter(jax.jit(jm.init)(jax.random.PRNGKey(0), x))
+            variables = port_variables(
+                getattr(trf, name)(INITIAL_DIM, BLOCK_DIMS, is_rgb),
+                lambda: jm.init(jax.random.PRNGKey(0), x))
             both = jax.jit(lambda v, x: (jm.apply(v, x), jm.apply(
                 v, x, train=True, mutable=["batch_stats"])))
             runs[name, is_rgb] = (image, variables, *both(variables, x))
@@ -157,11 +162,11 @@ def test_resnet_variant_eval_forward_matches_jax():
     img0, img1 = _images(np.random.default_rng(0), 2, 128, 128)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxCasMTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     want = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables,
                                                               batch)
-    model = CasMTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():

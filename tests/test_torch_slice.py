@@ -17,7 +17,8 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from tests.torch_parity import configs, jitter, tiny_4c_overrides  # noqa: E402
+from tests.torch_parity import (configs, jitter, port_variables,  # noqa: E402
+                                tiny_4c_overrides)
 
 PX_ATOL = 1e-3
 CONF_ATOL = 1e-4
@@ -76,11 +77,11 @@ def test_casmtr_4c_eval_forward_matches_jax():
     img0, img1 = _images(np.random.default_rng(0), 2, 128, 128)
     batch = {"image0": jnp.asarray(img0), "image1": jnp.asarray(img1)}
     jm = JaxCasMTR(jcfg.loftr)
-    variables = jitter(jax.jit(lambda key: jm.init(key, batch, train=False))(
-        jax.random.PRNGKey(0)))
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), batch, train=False))
     out = jax.jit(lambda v, b: jm.apply(v, b, train=False))(variables, batch)
 
-    model = CasMTR(tcfg.loftr)
     load_jax_variables(model, variables)
     model.eval()
     with torch.inference_mode():

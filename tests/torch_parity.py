@@ -1,6 +1,6 @@
 """Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
-tiny CasMTR-4c, CasMTR-2c, quadtree_baseline and indoor configurations
-built in both packages, flax
+tiny CasMTR-4c, CasMTR-2c, quadtree_baseline, indoor and model-zoo
+configurations built in both packages, flax
 variables made non-trivial and handed to the port as nested dicts of numpy
 arrays, and the chunk rule and child rows of the CPU models of the chunked
 CUDA kernels."""
@@ -123,6 +123,36 @@ def tiny_indoor_overrides(train_size: int = 128,
         loftr["match_coarse"]["thr"] = 0.0
         loftr["match_cascade"].update(test_thr=[0.0], pre_thr=[[0.0, 0.0]])
     return {"loftr": loftr}
+
+
+# the model zoo's three configurations at tiny widths: a published recipe
+# plus two orthogonal switches each (the tiny counterparts of chip_smoke's
+# ZOO models)
+ZOO = {
+    "Z1": ("outdoor_casmtr_4c",
+           {"coarse2": {"self_attn_type": "local_global",
+                        "propagation": "dilated1", "dilated": 2}}),
+    "Z2": ("outdoor_casmtr_4c",
+           {"coarse2": {"self_attn_type": "LKA"},
+            "coarse": {"relative_pe": True}}),
+    "Z3": ("outdoor_casmtr_2c",
+           {"coarse2": {"self_attn_type": "topk", "topks": [4]},
+            "coarse3": {"self_attn_type": "linear"}}),
+}
+
+
+def tiny_zoo_overrides(name: str, train_size: int = 128,
+                       zero_thresholds: bool = False):
+    """(recipe, overrides) of ZOO[name] on the tiny 4c or 2c configuration
+    (``tiny_4c_overrides``, ``tiny_2c_overrides``); Z3's guide takes the
+    top 4 of the tiny 1/8 grid."""
+    recipe, switches = ZOO[name]
+    tiny = (tiny_2c_overrides if recipe.endswith("2c")
+            else tiny_4c_overrides)
+    ov = tiny(train_size, zero_thresholds)
+    for part, value in switches.items():
+        ov["loftr"][part].update(value)
+    return recipe, ov
 
 
 def configs(overrides, recipe: str = "outdoor_casmtr_4c"):
