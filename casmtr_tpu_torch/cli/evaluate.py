@@ -1,0 +1,156 @@
+"""Pose evaluation of a matcher over a dataset of pairs (counterpart of
+``run_eval`` in casmtr_tpu/cli/evaluate.py): the served forward on each
+batch, the batched device pose solver on its final matches, then pose AUC
+@5/10/20 and epipolar precision over the dataset.
+
+The port's only pose solver is the device one (``sfm.pose.
+estimate_pose_batch``, the JAX package's ``--pose-solver device``): the JAX
+package's default, OpenCV's RANSAC, is not ported, so ``pose_solver="cv2"``
+raises.  The command-line ``main`` waits for the port's data layer (image
+decoding and the MegaDepth / ScanNet datasets); until then a caller passes
+its own ``dataset``, whose samples are dicts of numpy arrays: image0 and
+image1 [H, W, 3] in [0, 1], K0 and K1 [3, 3], T_0to1 [4, 4], optionally
+mask0/mask1, scale0/scale1 and ``pair_names``.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from casmtr_tpu_torch.config import Config
+from casmtr_tpu_torch.data.loader import DataLoader
+from casmtr_tpu_torch.serving import configure_card, resolve_device
+from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
+from casmtr_tpu_torch.utils import metrics as M
+from casmtr_tpu_torch.utils.profiler import build_profiler
+
+MODEL_KEYS = ("image0", "image1", "mask0", "mask1", "scale0", "scale1")
+
+
+def _identifier(batch: Dict, b: int, metrics: Dict) -> str:
+    """The pair's names joined, else a running id unique in the run (one
+    process: the JAX package's ids of process 0)."""
+    if "pair_names" in batch:
+        return "#".join(batch["pair_names"][b])
+    return f"r0pair{len(metrics['identifiers'])}"
+
+
+def _device_pose_metrics(out_np: Dict, batch: Dict, cfg: Config,
+                         metrics: Dict, pose_fn, device) -> None:
+    """Pose every pair of the batch at once with ``pose_fn`` (the device
+    solver: the whole fixed-capacity match buffer, one row mask per pair),
+    and append each pair's identifier, epipolar errors (numpy, on the
+    host), rotation and translation errors (inf where the solver gives up)
+    and inliers to ``metrics``."""
+    B = batch["K0"].shape[0]
+    b_ids, valid = out_np["b_ids"], out_np["valid"]
+    sel_b = valid[None, :] & (b_ids[None, :] == np.arange(B)[:, None])
+    M_tot = valid.shape[0]
+
+    def dev(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    res = pose_fn(dev(np.broadcast_to(out_np["mkpts0"], (B, M_tot, 2))),
+                  dev(np.broadcast_to(out_np["mkpts1"], (B, M_tot, 2))),
+                  dev(sel_b), dev(batch["K0"]).float(),
+                  dev(batch["K1"]).float())
+    ok = res.ok.cpu().numpy()
+    Rs, ts = res.R.cpu().numpy(), res.t.cpu().numpy()
+    inl = res.inliers.cpu().numpy()
+    for b in range(B):
+        sel = sel_b[b]
+        epi = M.compute_epipolar_errors(
+            out_np["mkpts0"][sel], out_np["mkpts1"][sel],
+            batch["T_0to1"][b], batch["K0"][b], batch["K1"][b])
+        if ok[b]:
+            t_err, r_err = M.relative_pose_error(batch["T_0to1"][b], Rs[b],
+                                                 ts[b])
+        else:
+            t_err = r_err = np.inf
+        metrics["identifiers"].append(_identifier(batch, b, metrics))
+        metrics["epi_errs"].append(epi)
+        metrics["R_errs"].append(r_err)
+        metrics["t_errs"].append(t_err)
+        metrics["inliers"].append(inl[b][sel])
+
+
+def _model_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The model's inputs of a numpy batch on ``device``: images and scales
+    float32, masks bool, the NHWC layout kept (the models take NHWC)."""
+    out = {}
+    for k in MODEL_KEYS:
+        v = batch.get(k)
+        if isinstance(v, np.ndarray):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = (t.bool() if k.startswith("mask") else t.float()
+                      ).to(device)
+    return out
+
+
+def run_eval(cfg: Config, model: torch.nn.Module, dataset,
+             max_pairs: Optional[int] = None,
+             profiler_name: Optional[str] = None,
+             dump_dir: Optional[str] = None,
+             pose_solver: str = "device", device=None) -> Dict:
+    """Evaluate ``model`` (a port model of ``cfg.loftr``) on ``dataset``,
+    one pair per batch, at most ``max_pairs`` pairs: {"auc@5", "auc@10",
+    "auc@20", "prec@5e-04" (cfg.trainer.epi_err_thr)}.  Runs on the card
+    (``device`` None, with the Matcher's process-wide flags,
+    ``serving.configure_card``) or on ``device``; the model is moved there
+    and put in eval mode.  ``profiler_name`` "inference" prints the time
+    of the matching and of the pose per region; ``dump_dir`` receives the
+    final matches of every batch (pred_eval.npy)."""
+    if pose_solver == "cv2":
+        raise ValueError("pose_solver 'cv2' (OpenCV RANSAC) is not ported; "
+                         "the port's solver is 'device' "
+                         "(sfm.pose.estimate_pose_batch)")
+    if pose_solver != "device":
+        raise ValueError(f"unknown pose solver: {pose_solver!r}")
+    if dataset is None:
+        raise NotImplementedError(
+            "the port has no dataset layer yet (image decoding, MegaDepth, "
+            "ScanNet): pass a dataset of numpy pairs")
+    device = resolve_device(device)
+    if device.type == "cuda":
+        configure_card()
+    model = model.to(device).eval()
+    profiler = build_profiler(profiler_name)
+    pose_fn = functools.partial(estimate_pose_batch,
+                                thr_px=cfg.trainer.ransac_pixel_thr)
+    loader = DataLoader(dataset, None, batch_size=1, num_workers=4,
+                        drop_last=False)
+    metrics = {"identifiers": [], "epi_errs": [], "R_errs": [], "t_errs": [],
+               "inliers": []}
+    n = 0
+    dumps = []
+    for batch in loader:
+        with profiler.profile("Model Matching"):
+            with torch.inference_mode():
+                fm = model(_model_batch(batch, device)).final_matches
+            out_np = {k: getattr(fm, k).cpu().numpy()
+                      for k in ("b_ids", "mkpts0", "mkpts1", "mconf",
+                                "valid")}
+        with profiler.profile("RANSAC"):
+            _device_pose_metrics(out_np, batch, cfg, metrics, pose_fn,
+                                 device)
+        if dump_dir is not None:
+            dumps.append(out_np)
+        n += batch["K0"].shape[0]
+        if max_pairs is not None and n >= max_pairs:
+            break
+
+    metrics = M.gather_metrics(metrics)
+    results = M.aggregate_metrics(metrics, epi_err_thr=cfg.trainer.epi_err_thr)
+    if dump_dir is not None:
+        os.makedirs(dump_dir, exist_ok=True)
+        np.save(os.path.join(dump_dir, "pred_eval.npy"),
+                np.asarray(dumps, dtype=object), allow_pickle=True)
+    summary = profiler.summary()
+    if summary:
+        print(summary)
+    return results

@@ -41,7 +41,7 @@ class BackboneConfig:
 @dataclass(frozen=True)
 class PostConfig:
     """Test-time keypoint filtering (reference: configs/default.py:61-66)."""
-    method: Optional[str] = None          # None|'maxpool_nms'|'local_window_nms'|'softargmax_nms'|'d2d'
+    method: Optional[str] = None          # None|'maxpool_nms'|'local_window_nms'|'softargmax_nms'|'d2d'|'sift'
     window_size: Optional[int] = None
     topk: Optional[int] = None
     rt: Optional[float] = None            # ratio test gate

@@ -11,7 +11,11 @@ model.
 ``module.training`` selects the mode: in training BatchNorm uses batch
 statistics and each cascade level's matches are the ground-truth-filtered
 ones that the loss supervises; a level with a ``detector_mode`` also
-selects its keypoint-detector labels then.
+selects its keypoint-detector labels then.  In eval each level's matches
+pass its ``post_config``: a test-time filter (ops/nms.py; ``d2d`` on the
+level's tokens, ``sift`` on the batch's image0 and mask0) and the rt/rd
+gates, whose second bests the 1/8 dual softmax and the window softmaxes
+track only when a gate asks for them.
 
 Precision follows the JAX package's policy, read from the tensors' device
 and the mode: on the card the backbone computes in bfloat16 in eval and in
@@ -44,7 +48,7 @@ from casmtr_tpu_torch.models.loftr import level_mask
 from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
 from casmtr_tpu_torch.ops import cascade_matching as cm
 from casmtr_tpu_torch.ops import fine_matching as fm
-from casmtr_tpu_torch.ops import matching
+from casmtr_tpu_torch.ops import matching, nms
 from casmtr_tpu_torch.ops.image_ops import resize_bilinear_align_corners
 from casmtr_tpu_torch.ops.position_encoding import add_sine_pe_norm
 from casmtr_tpu_torch.structs import (CascadeStage, CoarseStage, FineStage,
@@ -76,16 +80,21 @@ def _check_ported(cfg: LoftrConfig) -> None:
             f"cascade_levels {levels}: only CasMTR-4c (4,) and CasMTR-2c "
             "(4, 2) are ported")
     stages = (cfg.coarse2, cfg.coarse3)[:len(levels)]
-    if any(s.post_config.rt is not None or s.post_config.rd is not None
-           for s in stages):
-        raise NotImplementedError(
-            "the rt/rd test gates are not ported yet (ROADMAP queue A: the "
-            "filter zoo)")
     if cfg.fine.block_type != "loftr":
         raise NotImplementedError(
             f"fine block {cfg.fine.block_type!r} is not ported yet")
     if any(s.detector_mode not in (None, "ST", "gumbel") for s in stages):
         raise NotImplementedError("detector modes: only ST and gumbel")
+
+
+def stage_d2d(stage_cfg, tokens: torch.Tensor, hw):
+    """A cascade level's d2d saliency and its grid's width, for the
+    ``d2d`` test-time filter (None, None for any other method): the
+    saliency of the level's sqrt(C)-scaled tokens [B, h*w, C]."""
+    if stage_cfg.post_config.method != "d2d":
+        return None, None
+    return (nms.d2d_saliency(tokens.float() / tokens.shape[-1] ** 0.5, hw),
+            hw[1] // 4)
 
 
 def run_levels(cfg: LoftrConfig) -> tuple:
@@ -202,9 +211,17 @@ class CasMTR(nn.Module):
         mask_8c1, m8_1 = level_mask(mask1_full, *hw1_8c)
         t8_0, t8_1 = self.loftr_coarse_8c(t8_0, t8_1, hw0_8c, hw1_8c,
                                           mask_8c0, mask_8c1)
+        # the rt/rd test gates read second-best confidences: the 1/8
+        # level's for every gate, and a level's own for its rt gate and
+        # the later levels' (so 2c's 1/2 rt gate makes the 1/4 level track)
+        posts = [s.post_config for s in
+                 (cfg.coarse2, cfg.coarse3)[:len(cfg.cascade_levels)]]
+        gates_on = not train and any(p.rt is not None or p.rd is not None
+                                     for p in posts)
         mc8 = cfg.match_coarse
         ds = matching.dual_softmax(t8_0, t8_1, mc8.dsmax_temperature,
-                                   mask_8c0, mask_8c1)
+                                   mask_8c0, mask_8c1,
+                                   track_second=gates_on)
         matches_8c = matching.extract_coarse_matches(
             ds.conf_matrix, mc8.thr, mc8.border_rm, hw0_8c, hw1_8c,
             mc8.max_matches * capacity_scale, scale=H0 / hw0_8c[0],
@@ -223,6 +240,7 @@ class CasMTR(nn.Module):
         prev = (_grid(t8_0, hw0_8c), _grid(t8_1, hw1_8c), ds.next_idx_c01,
                 ds.next_idx_c10)
         pre_confs, pre_hws = [ds.next_conf_c01], [hw0_8c]
+        pre_confs_s = [ds.next_conf_c01_s]
         cascades = {}
         for i, level in enumerate(levels):
             name = f"{level}c"
@@ -249,7 +267,9 @@ class CasMTR(nn.Module):
             ws = cm.window_softmax_matching(
                 t0, t1, idx01, idx10, mc.dsmax_temperature[i], mask_0,
                 mask_1, corners0=corners01, corners1=corners10, hw0=hw0,
-                hw1=hw1, prop_window=scfg.window_size)
+                hw1=hw1, prop_window=scfg.window_size,
+                track_second=not train and any(p.rt is not None
+                                               for p in posts[i:]))
             if train:
                 mask = cm.cascade_match_mask_train(
                     ws, mc.thr[i], idx01.shape[-1], hw0, hw1,
@@ -257,13 +277,21 @@ class CasMTR(nn.Module):
                 m_cap = min(mc.train_pad_num_gt_min[i], mc.max_matches[i])
             else:
                 pc = scfg.post_config
+                s_d2d, d2d_w = stage_d2d(scfg, t0, hw0)
+                sift = pc.method == "sift"
                 mask = cm.cascade_match_mask_test(
                     ws, hw0, hw1, mc.test_thr[i], mc.border_rm[i],
                     pre_confs=pre_confs, pre_hws=pre_hws,
                     pre_thrs=list(mc.pre_thr[i]), post_method=pc.method,
-                    post_window=pc.window_size,
+                    post_window=pc.window_size, post_topk=pc.topk,
+                    post_temperature=pc.temperature, post_stride=pc.stride,
                     double_check=mc.double_check[i], mask0_2d=m_0,
-                    mask1_2d=m_1)
+                    mask1_2d=m_1, s_d2d=s_d2d, d2d_w=d2d_w, rt=pc.rt,
+                    rd=pc.rd, pre_confs_s=pre_confs_s,
+                    rd_coarse=((ds.next_idx_c01, ds.next_idx_c01_s, hw0_8c)
+                               if pc.rd is not None else None),
+                    image0=batch["image0"] if sift else None,
+                    image0_mask=mask0_full if sift else None)
                 m_cap = mc.max_matches[i] * capacity_scale
             gt_idx = batch.get(f"gt_idx_{name}") if train else None
             gt_mask = batch.get(f"gt_mask_{name}") if train else None
@@ -284,6 +312,7 @@ class CasMTR(nn.Module):
             prev = (_grid(t0, hw0), _grid(t1, hw1), ws.next_idx_c01,
                     ws.next_idx_c10)
             pre_confs.append(ws.next_conf_c01)
+            pre_confs_s.append(ws.next_conf_c01_s)
             pre_hws.append(hw0)
 
         if not runs_fine(cfg):   # 2c at stage 2: the 1/4 matches are final

@@ -27,7 +27,8 @@ from casmtr_tpu_torch.models.backbone.resnet_fpn import (Ladder_4_2,
 from casmtr_tpu_torch.models.cascade_transformer import \
     CascadeFeatureTransformer
 from casmtr_tpu_torch.models.casmtr import (UpBlock, _check_ported, _grid,
-                                            _tokens, detector_labels)
+                                            _tokens, detector_labels,
+                                            stage_d2d)
 from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
 from casmtr_tpu_torch.models.loftr import level_mask
 from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
@@ -162,13 +163,18 @@ class CasMTRRefine(nn.Module):
                 mc.double_check[0], m_0, m_1)
             m_cap = min(mc.train_pad_num_gt_min[0], mc.max_matches[0])
         else:
+            # the JAX package's refine model passes the filters but neither
+            # the rt/rd gates nor image0 (so 'sift' raises there)
+            pc = scfg.post_config
+            s_d2d, d2d_w = stage_d2d(scfg, t0, hw0)
             mask = cm.cascade_match_mask_test(
                 ws, hw0, hw1, mc.test_thr[0], mc.border_rm[0],
                 pre_confs=[ds.next_conf_c01], pre_hws=[hw0_8c],
-                pre_thrs=list(mc.pre_thr[0]),
-                post_method=scfg.post_config.method,
-                post_window=scfg.post_config.window_size,
-                double_check=mc.double_check[0], mask0_2d=m_0, mask1_2d=m_1)
+                pre_thrs=list(mc.pre_thr[0]), post_method=pc.method,
+                post_window=pc.window_size, post_topk=pc.topk,
+                post_temperature=pc.temperature, post_stride=pc.stride,
+                double_check=mc.double_check[0], mask0_2d=m_0, mask1_2d=m_1,
+                s_d2d=s_d2d, d2d_w=d2d_w)
             m_cap = mc.max_matches[0] * capacity_scale
         gt_idx = batch.get("gt_idx_4c") if train else None
         gt_mask = batch.get("gt_mask_4c") if train else None

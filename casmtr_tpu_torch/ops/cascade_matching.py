@@ -38,6 +38,10 @@ class WindowSoftmaxResult(NamedTuple):
     # [B, L0]: the largest masked score of each query before its softmax,
     # the detector branch's heatmap when it has no learnable head
     max_sim_c01: Optional[torch.Tensor] = None
+    # the window softmax's second best and its global index into L1, for
+    # the rt test gate (None unless asked for)
+    next_conf_c01_s: Optional[torch.Tensor] = None  # [B, L0]
+    next_idx_c01_s: Optional[torch.Tensor] = None   # [B, L0]
 
 
 def _structured_score(f0, f1, corners, hw0, hw1, prop_w: int):
@@ -91,12 +95,15 @@ def window_score(f0, f1, idx):
 def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
                             mask0=None, mask1=None, corners0=None,
                             corners1=None, hw0=None, hw1=None,
-                            prop_window: int = 0) -> WindowSoftmaxResult:
+                            prop_window: int = 0,
+                            track_second: bool = False) -> WindowSoftmaxResult:
     """Window-restricted softmax in both directions; the 1->0 direction
     carries no gradient.  feat0: [B, L0, C]; feat1: [B, L1, C]; idx_c01:
     [B, L0, Kw]; mask0/1: [B, L] flat padding masks.  With the structured
     windows' ``corners`` and ``prop_window`` the scores go through kernel
-    B, else through the gather path (``window_score``)."""
+    B, else through the gather path (``window_score``).  ``track_second``
+    also records each query's second largest window softmax and its global
+    index (the best candidate knocked out; ties to the first candidate)."""
     c = feat0.shape[-1]
     f0 = feat0.float() / (c ** 0.5)
     f1 = feat1.float() / (c ** 0.5)
@@ -125,9 +132,14 @@ def window_softmax_matching(feat0, feat1, idx_c01, idx_c10, temperature: float,
     next_conf10, local10 = conf10.max(dim=2)
     next_idx01 = torch.gather(idx_c01, 2, local01[..., None])[..., 0]
     next_idx10 = torch.gather(idx_c10, 2, local10[..., None])[..., 0]
+    second = (None, None)
+    if track_second:
+        conf_s, local_s = conf01.scatter(2, local01[..., None], -1.0).max(2)
+        second = (conf_s,
+                  torch.gather(idx_c01, 2, local_s[..., None])[..., 0])
     return WindowSoftmaxResult(conf01, conf10, next_idx01, next_idx10,
                                next_conf01, next_conf10,
-                               sim01.amax(dim=2))
+                               sim01.amax(dim=2), *second)
 
 
 def window_border_ok(next_idx_c01, hw0, hw1, bd: int, mask0_2d=None,
@@ -178,14 +190,52 @@ def cascade_match_mask_test(
         ws: WindowSoftmaxResult, hw0, hw1, test_thr: float, bd: int,
         pre_confs: Sequence[torch.Tensor], pre_hws: Sequence[Tuple[int, int]],
         pre_thrs: Sequence[float], post_method: Optional[str],
-        post_window: Optional[int], double_check: bool = True,
-        mask0_2d=None, mask1_2d=None) -> torch.Tensor:
-    """Test-time filtering chain: post-process, previous-stage confidence
-    gates, border mask, cycle double-check, keep-at-least-one."""
+        post_window: Optional[int], post_topk: Optional[int] = None,
+        double_check: bool = True, mask0_2d=None, mask1_2d=None,
+        s_d2d=None, d2d_w=None,
+        post_temperature: float = 1.0, post_stride: int = 1,
+        rt: Optional[float] = None, rd: Optional[float] = None,
+        pre_confs_s: Optional[Sequence[torch.Tensor]] = None,
+        rd_coarse: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                  Tuple[int, int]]] = None,
+        image0: Optional[torch.Tensor] = None,
+        image0_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Test-time filtering chain: the post-process filter and threshold
+    (``nms.post_process_mask``), the gates, the previous levels'
+    confidences (nearest-upsampled), then border mask, cycle double-check
+    and keep-at-least-one.
+
+    ``rt`` drops a position whose second-best over best confidence exceeds
+    it, at this level (``ws``'s second-best tracking) and at every previous
+    level (``pre_confs_s`` beside ``pre_confs``).  ``rd`` drops it when the
+    1/8 level's best and second-best targets lie more than ``rd`` apart in
+    grid-normalized coordinates; ``rd_coarse`` is (its best and
+    second-best target indices [B, L8], its grid).  The reference declares
+    both gates and never computes their inputs; this is the JAX package's
+    completion of them."""
     mask = nms.post_process_mask(post_method, ws.next_conf_c01, hw0, test_thr,
-                                 window=post_window)
-    for pre_conf, pre_hw, pre_thr in zip(pre_confs, pre_hws, pre_thrs):
-        mask &= upscale_per_position(pre_conf, pre_hw, hw0) > pre_thr
+                                 window=post_window, topk=post_topk,
+                                 s_d2d=s_d2d, d2d_w=d2d_w,
+                                 temperature=post_temperature,
+                                 stride=post_stride, image0=image0,
+                                 image0_mask=image0_mask)
+    if rt is not None:
+        mask &= ~(ws.next_conf_c01_s / (ws.next_conf_c01 + 1e-7) > rt)
+    for i, (pre_conf, pre_hw, pre_thr) in enumerate(
+            zip(pre_confs, pre_hws, pre_thrs)):
+        up = upscale_per_position(pre_conf, pre_hw, hw0)
+        mask &= up > pre_thr
+        if rt is not None:
+            up_s = upscale_per_position(pre_confs_s[i], pre_hw, hw0)
+            mask &= ~(up_s / (up + 1e-7) > rt)
+    if rd is not None:
+        idx8, idx8_s, (h8, w8) = rd_coarse
+        x = (idx8 % w8).float() / w8
+        y = torch.div(idx8, w8, rounding_mode="floor").float() / h8
+        xs = (idx8_s % w8).float() / w8
+        ys = torch.div(idx8_s, w8, rounding_mode="floor").float() / h8
+        dist = torch.sqrt((x - xs) ** 2 + (y - ys) ** 2)
+        mask &= ~(upscale_per_position(dist, (h8, w8), hw0) > rd)
     return _mask_common_tail(ws, mask, hw0, hw1, bd, double_check, mask0_2d,
                              mask1_2d)
 

@@ -18,14 +18,21 @@ class DualSoftmaxResult(NamedTuple):
     next_idx_c10: torch.Tensor   # [B, L1]
     next_conf_c01: torch.Tensor  # [B, L0]
     next_conf_c10: torch.Tensor  # [B, L1]
+    # the row softmax's second best and its column, for the cascade levels'
+    # rt/rd test gates (None unless asked for)
+    next_conf_c01_s: Optional[torch.Tensor] = None  # [B, L0]
+    next_idx_c01_s: Optional[torch.Tensor] = None   # [B, L0]
 
 
 def dual_softmax(feat0: torch.Tensor, feat1: torch.Tensor, temperature: float,
                  mask0: Optional[torch.Tensor] = None,
-                 mask1: Optional[torch.Tensor] = None) -> DualSoftmaxResult:
+                 mask1: Optional[torch.Tensor] = None,
+                 track_second: bool = False) -> DualSoftmaxResult:
     """Dual-softmax confidence.  feat0: [B, L0, C]; feat1: [B, L1, C];
     masks [B, L] (1 = valid).  Similarity of the sqrt(C)-scaled features,
-    divided by ``temperature``."""
+    divided by ``temperature``.  ``track_second`` also records each row
+    softmax's second largest value and its column (the best column knocked
+    out; ties to the first column, as every argmax here)."""
     c = feat0.shape[-1]
     f0 = feat0.float() / (c ** 0.5)
     f1 = feat1.float() / (c ** 0.5)
@@ -38,8 +45,12 @@ def dual_softmax(feat0: torch.Tensor, feat1: torch.Tensor, temperature: float,
     conf = sm10 * sm01
     next_conf_c01, next_idx_c01 = sm01.max(dim=2)
     next_conf_c10, next_idx_c10 = sm10.max(dim=1)
+    second = (None, None)
+    if track_second:
+        # softmax values are >= 0, so the -1 never wins
+        second = sm01.scatter(2, next_idx_c01[..., None], -1.0).max(dim=2)
     return DualSoftmaxResult(conf, next_idx_c01, next_idx_c10,
-                             next_conf_c01, next_conf_c10)
+                             next_conf_c01, next_conf_c10, *second)
 
 
 def _border_ok(rows, cols, bd, h, w, h_valid=None, w_valid=None):

@@ -42,6 +42,17 @@ def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     return dev
 
 
+def configure_card() -> None:
+    """The process-wide PyTorch flags of the port's eval on the card: no
+    TF32 in matrix products and cuDNN convolutions (float32 work is full
+    float32), bf16 products summed in float32, and cuDNN's autotuner on
+    (see Matcher)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = True
+
+
 def _to_rgb_array(img: np.ndarray) -> np.ndarray:
     """[H, W] gray, [H, W, 3] RGB or [H, W, 4] RGBA (alpha dropped); uint8 in
     [0, 255] or float (rescaled if it looks like a 0-255 range)."""
@@ -109,11 +120,7 @@ class Matcher:
         self.thr = float(thr)
         self.device = resolve_device(device)
         if self.device.type == "cuda":
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cuda.matmul.\
-                allow_bf16_reduced_precision_reduction = False
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cudnn.benchmark = True
+            configure_card()
         self.model = build_model(cfg.loftr)
         if generator is None:
             generator = torch.Generator().manual_seed(seed)

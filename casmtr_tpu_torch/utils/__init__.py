@@ -1,2 +1,3 @@
-"""Utilities of the port (counterpart of casmtr_tpu/utils/): for now the
-loading of reference checkpoints, ``convert``."""
+"""Utilities of the port (counterpart of casmtr_tpu/utils/): the loading
+of reference checkpoints (``convert``), the evaluation metrics
+(``metrics``) and region timers (``profiler``)."""

@@ -19,8 +19,9 @@ and fine heads; bucket 640, 640^2), and the model zoo's three
 configurations (phase 11), at full width.  Phases, each printing its own
 lines and its seconds:
 
-1. Environment: the card's name and power limit (nvidia-smi), the torch and
-   CUDA versions, and the build of the CUDA kernels from csrc/ with nvcc.
+1. Environment: the card's name and power limit (nvidia-smi), the torch,
+   CUDA and numpy versions (utils/metrics.error_auc needs numpy 2's
+   trapezoid), and the build of the CUDA kernels from csrc/ with nvcc.
 2. Kernels: each CUDA kernel of the serving path against its plain PyTorch
    version on the card, at the shapes of the 832^2 eval with realistic
    indices (a real top-k, real window corners), in float32 with TF32 off:
@@ -215,6 +216,29 @@ lines and its seconds:
    term within 1e-4 relative (or 10x its largest response on the CPU to
    two nudges of the images by 1e-6, where larger) and the whole
    gradient's cosine >= 0.999.
+12. The test-time filters and the evaluation.  (a) FILTERS on every
+   cascade level (F1 local_window_nms window 4 top 2, F2 softargmax_nms
+   window 5 stride 1, F3 window 4 stride 4, F4 d2d window 5, F5 sift, F6
+   maxpool_nms window 5 with the rt 0.8 and rd 0.05 gates): 4c with each,
+   2c with F4 and F6, phase 4's weights at bucket 832 in the card's
+   default; per model three requests held to the recipe's per-pair
+   launch counts (the filters launch no kernel; steady latency, peak
+   memory), then the padded non-square request's filter chains captured
+   and recomputed on the card and on the CPU from the same tensors with
+   every threshold at 0: F1 and F6 bit-equal, F2-F5 differing only where
+   the deciding value lies within 1e-4 of its boundary (relative for
+   sift's responses), at most 0.1% of the positions; the detector reads
+   the canvas's valid mask; phase 6's f32 reference at bucket 256; then
+   each filter's chain timed at 208^2 and 416^2 (sift on the 832^2
+   image).  (b) sfm.pose.estimate_pose_batch at B 8, M 8192, 512
+   hypotheses on synthetic scenes with 0.3 px noise and 30% outliers:
+   every pair ok, the CPU on the same draw within 0.1 degrees of the
+   card, the poses whose inliers hold half the true matches (at least
+   half the pairs) within 1 / 2 degrees of the true R / t, ms per
+   batch.  (c)
+   cli.evaluate.run_eval of 4c on 8 pairs of a textured plane at 832^2
+   (known K, R, t) through the port's DataLoader: launches 8 x 4c's per
+   pair, the AUC and precision finite (printed: random weights), pairs/s.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -298,6 +322,29 @@ BF16_LOSS_RTOL = 2e-2
 # the reference's own GPU training step, 704^2, fp16: its cascade-free
 # quadtree step (bench.py, BASELINE.md), quadtree_baseline's architecture
 REFERENCE_S_PER_STEP = 1.19
+# phase 12: a continuous filter's keep mask (soft-argmax, d2d, sift), card
+# against CPU from the same tensors, may differ only at positions whose
+# deciding value lies within NEAR_TOL of its boundary (relative to the
+# value for sift's Hessian responses, whose scale is the image's), and at
+# no more than MAX_FLIP_SHARE of the positions
+NEAR_TOL = 1e-4
+MAX_FLIP_SHARE = 1e-3
+# the batched pose solver: B pairs, M matches (4c's final capacity), the
+# hypotheses, 30% outliers among matches with 0.3 px noise.  Every pair
+# ok, card against CPU on the same draw within POSE_CARD_CPU_DEG; within
+# POSE_R_DEG / POSE_T_DEG of the truth every pose whose inliers hold at
+# least POSE_SUPPORT of the true matches, and at least half the pairs so
+# supported.  (At this outlier share and noise the hypotheses, 8-point
+# fits of 8 noisy matches, often find too few inliers: the JAX package's
+# own solver, on the same scenes with its own draw, left 3 of the 8 pairs
+# at 32-2184 inliers of 5734 and 2.3-3.6 degrees of t error; float64
+# gives the port the same.)
+POSE_B, POSE_M, POSE_HYP = 8, 8192, 512
+POSE_OUTLIERS, POSE_NOISE_PX = 0.3, 0.3
+POSE_R_DEG, POSE_T_DEG, POSE_CARD_CPU_DEG = 1.0, 2.0, 0.1
+POSE_SUPPORT = 0.5
+# run_eval: pairs of a textured plane at the bucket's size
+EVAL_PAIRS, EVAL_SIZE = 8, 832
 # phase 11's training reference: a loss term may also differ by up to this
 # many times its largest response on the CPU to two nudges of NUDGE of the
 # images (a random model's discrete choices flip under float32 rounding)
@@ -376,6 +423,35 @@ LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
 # (kernel A once per image each)
 SCORE_LEVELS = {Z1: 0}
 GUIDED = {Z3: 2}
+# phase 12: the test-time filters (post_config of every cascade level; the
+# full-width counterparts of tests/torch_parity.FILTERS), 4c with each, 2c
+# with F4 and F6 on both levels; the filters add no kernel launch
+FILTERS = {
+    "F1": {"method": "local_window_nms", "window_size": 4, "topk": 2},
+    "F2": {"method": "softargmax_nms", "window_size": 5, "stride": 1},
+    "F3": {"method": "softargmax_nms", "window_size": 4, "stride": 4},
+    "F4": {"method": "d2d", "window_size": 5},
+    "F5": {"method": "sift"},
+    "F6": {"method": "maxpool_nms", "window_size": 5, "rt": 0.8,
+           "rd": 0.05},
+}
+# the filters whose keep masks must be bit-equal card against CPU (the
+# others decide on a continuous value near its boundary: NEAR_TOL)
+DISCRETE_FILTERS = ("F1", "F6")
+FILTER_RUNS = {"outdoor_casmtr_4c": tuple(FILTERS),
+               "outdoor_casmtr_2c": ("F4", "F6")}
+FILTERED = {}
+for _recipe, _names in FILTER_RUNS.items():
+    for _f in _names:
+        _stages = ("coarse2", "coarse3")[:LAYOUT[_recipe][1]]
+        FILTERED[f"{_recipe} {_f}"] = _f
+        MODELS[f"{_recipe} {_f}"] = (_recipe, {"loftr": {
+            s: {"post_config": dict(FILTERS[_f])} for s in _stages}})
+        LAYOUT[f"{_recipe} {_f}"] = LAYOUT[_recipe]
+# the evaluation run of phase 12 (cli.evaluate.run_eval, 4c)
+EVAL_NAME = "outdoor_casmtr_4c run_eval"
+MODELS[EVAL_NAME] = MODELS["outdoor_casmtr_4c"]
+LAYOUT[EVAL_NAME] = LAYOUT["outdoor_casmtr_4c"]
 # phase 10: the checkpointed serving recipe and the staged recipe, whose
 # stages 1 and 2 run the 1/8 stack alone and with the 1/4 level
 CKPT_RECIPE = "outdoor_casmtr_4c"
@@ -2274,6 +2350,24 @@ def frozen_trunk_reference(torch, recipe, img0, img1, cpu, trunk):
     return out
 
 
+def reference_pair():
+    """Phase 6's 256^2 pair: a scene and a copy shifted by (7, 5) px."""
+    big = texture(np.random.default_rng(1), 300, 300)
+    return big[:256, :256], big[7:263, 5:261]
+
+
+def check_f32_reference(conf, window, st):
+    """Phase 6's f32 gates on compare_outputs(card, CPU)."""
+    fin = st["final"]
+    check(fin["n"][1] > 0, "reference: no final matches on the CPU")
+    check(conf <= CONF_TOL, "reference: coarse confidences disagree")
+    check(max(window.values(), default=0.0) <= CONF_TOL,
+          "reference: window confidences disagree")
+    check(fin["jaccard"] >= MIN_JACCARD,
+          "reference: final match sets disagree")
+    check(fin["px"] <= PX_TOL, "reference: final keypoints disagree")
+
+
 def reference_phase(torch, recipe):
     """The card against the CPU on one 256^2 pair, in two precisions: the
     card with float32 forced against the CPU's float32 default (confidences
@@ -2285,9 +2379,7 @@ def reference_phase(torch, recipe):
     model's f32 forward is printed whole and gated by
     frozen_trunk_reference (its trunk's 1/8 top-k flips under a nudge far
     below the card's rounding)."""
-    rng = np.random.default_rng(1)
-    big = texture(rng, 300, 300)
-    img0, img1 = big[:256, :256], big[7:263, 5:261]
+    img0, img1 = reference_pair()
     outs, trunk = {}, {}
     for prec, dev in (("f32", "cuda"), ("f32", "cpu"), ("bf16", "cuda"),
                       ("bf16 forced", "cpu")):
@@ -2307,14 +2399,7 @@ def reference_phase(torch, recipe):
     if recipe in REFINED:
         conf, window, st = frozen_trunk_reference(
             torch, recipe, img0, img1, outs["f32", "cpu"], trunk)
-    fin = st["final"]
-    check(fin["n"][1] > 0, "reference: no final matches on the CPU")
-    check(conf <= CONF_TOL, "reference: coarse confidences disagree")
-    check(max(window.values(), default=0.0) <= CONF_TOL,
-          "reference: window confidences disagree")
-    check(fin["jaccard"] >= MIN_JACCARD,
-          "reference: final match sets disagree")
-    check(fin["px"] <= PX_TOL, "reference: final keypoints disagree")
+    check_f32_reference(conf, window, st)
 
     scale = compare_outputs(torch, outs["bf16 forced", "cpu"],
                             outs["f32", "cpu"])
@@ -3483,6 +3568,541 @@ def zoo_phase(torch, name):
     return runs, (totals, counts)
 
 
+# --------------------------------------------------------------------------
+# phase 12: the test-time filters and the evaluation
+# --------------------------------------------------------------------------
+
+def to_device(torch, x, dev):
+    """The tensors in ``x`` (nested tuples, lists, named tuples) on dev."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(to_device(torch, v, dev) for v in x))
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(torch, v, dev) for v in x)
+    return x
+
+
+def capture_levels(torch, matcher, img0, img1):
+    """Every cascade level's filter chain (ops.cascade_matching.
+    cascade_match_mask_test) of one request through ``matcher``: its
+    arguments by name, and the level's tokens (``tokens``, what
+    models.casmtr.stage_d2d reads)."""
+    import inspect
+    from casmtr_tpu_torch.models import casmtr
+    from casmtr_tpu_torch.ops import cascade_matching as cm
+    chain, d2d = cm.cascade_match_mask_test, casmtr.stage_d2d
+    sig = inspect.signature(chain)
+    levels, tokens = [], []
+
+    def record_chain(*a, **kw):
+        bound = sig.bind(*a, **kw)
+        bound.apply_defaults()
+        levels.append(dict(bound.arguments, tokens=tokens[-1]))
+        return chain(*a, **kw)
+
+    def record_d2d(stage_cfg, t, hw):
+        tokens.append(t)
+        return d2d(stage_cfg, t, hw)
+
+    cm.cascade_match_mask_test, casmtr.stage_d2d = record_chain, record_d2d
+    try:
+        matcher.match(img0, img1)
+    finally:
+        cm.cascade_match_mask_test, casmtr.stage_d2d = chain, d2d
+    return levels
+
+
+def level_masks(torch, level, dev):
+    """A captured level's keep masks computed on ``dev`` from its tensors,
+    every threshold at 0: the filter alone (ops.nms.post_process_mask) and
+    the whole chain; d2d's saliency from the level's tokens on dev.
+    Returns (filter mask, chain mask) on the CPU and the arguments on dev."""
+    from casmtr_tpu_torch.ops import cascade_matching as cm
+    from casmtr_tpu_torch.ops import nms
+    kw = {k: to_device(torch, v, dev) for k, v in level.items()}
+    tokens = kw.pop("tokens")
+    kw["test_thr"] = 0.0
+    kw["pre_thrs"] = [0.0] * len(kw["pre_thrs"])
+    if kw["post_method"] == "d2d":
+        kw["s_d2d"] = nms.d2d_saliency(
+            tokens.float() / tokens.shape[-1] ** 0.5, kw["hw0"])
+    filt = nms.post_process_mask(
+        kw["post_method"], kw["ws"].next_conf_c01, kw["hw0"], 0.0,
+        window=kw["post_window"], topk=kw["post_topk"], s_d2d=kw["s_d2d"],
+        d2d_w=kw["d2d_w"], temperature=kw["post_temperature"],
+        stride=kw["post_stride"], image0=kw["image0"],
+        image0_mask=kw["image0_mask"])
+    return filt.cpu(), cm.cascade_match_mask_test(**kw).cpu(), kw
+
+
+def scatter_near(torch, flat, near, L):
+    """[B, L] bool: True at the flat positions ``flat`` where ``near``."""
+    out = torch.zeros((flat.shape[0], L + 1), dtype=torch.bool)
+    idx = torch.where(near, flat, torch.full_like(flat, L)).reshape(
+        flat.shape[0], -1)
+    return out.scatter_(1, idx, True)[:, :L]
+
+
+def softargmax_near(torch, conf, hw, window, temperature, stride):
+    """The positions a soft-argmax window may vote for when its expected
+    position (float64 here) lies within NEAR_TOL of a rounding boundary:
+    its rounding of the expectation moved by -NEAR_TOL and +NEAR_TOL in
+    each coordinate."""
+    import torch.nn.functional as F
+    B = conf.shape[0]
+    h, w = hw
+    c = conf.double().reshape(B, h, w)
+    if stride == 1:
+        pad = window // 2
+        win = F.pad(c, (pad,) * 4).unfold(1, window, 1).unfold(2, window, 1)
+        base_y = torch.arange(h, dtype=torch.float64)[:, None] - pad
+        base_x = torch.arange(w, dtype=torch.float64)[None, :] - pad
+    else:
+        hT, wT = h // window, w // window
+        win = c[:, :hT * window, :wT * window].reshape(
+            B, hT, window, wT, window).transpose(2, 3)
+        base_y = torch.arange(hT, dtype=torch.float64)[:, None] * window
+        base_x = torch.arange(wT, dtype=torch.float64)[None, :] * window
+    p = torch.softmax(win.reshape(*win.shape[:3], -1) / temperature, -1
+                      ).reshape(win.shape)               # [B, y, x, ky, kx]
+    off = torch.arange(window, dtype=torch.float64)
+    ey = (p.sum(-1) * off).sum(-1) + base_y
+    ex = (p.sum(-2) * off).sum(-1) + base_x
+    near = ((torch.round(ey - NEAR_TOL) != torch.round(ey + NEAR_TOL))
+            | (torch.round(ex - NEAR_TOL) != torch.round(ex + NEAR_TOL)))
+    out = torch.zeros((B, h * w), dtype=torch.bool)
+    for sy in (-NEAR_TOL, NEAR_TOL):
+        for sx in (-NEAR_TOL, NEAR_TOL):
+            ty = torch.round(ey + sy).clamp(0, h - 1).long()
+            tx = torch.round(ex + sx).clamp(0, w - 1).long()
+            out |= scatter_near(torch, ty * w + tx, near, h * w)
+    return out
+
+
+def d2d_near(torch, conf, hw, window, s_d2d, d2d_w):
+    """The d2d placements whose saliency lies within NEAR_TOL of the last
+    one kept or the first one dropped (the maxpool count's boundary)."""
+    from casmtr_tpu_torch.ops import nms
+    B, L = conf.shape
+    num = nms.maxpool_nms_mask(conf, hw, window).sum(1)
+    srt = s_d2d.sort(dim=1, descending=True).values
+    n = srt.shape[1]
+    c_in = srt.gather(1, (num - 1).clamp(0, n - 1)[:, None])
+    c_out = srt.gather(1, num.clamp(max=n - 1)[:, None])
+    near = (((s_d2d - c_in).abs() <= NEAR_TOL)
+            | ((s_d2d - c_out).abs() <= NEAR_TOL))
+    pos = torch.arange(n)
+    flat = (pos // d2d_w * 4 * (d2d_w * 4) + pos % d2d_w * 4).expand(B, n)
+    return scatter_near(torch, flat, near & (flat < L), L)
+
+
+def sift_near(torch, image0, hw_c, stride, valid_mask, max_kpts=4096,
+              resp_thr=1e-5):
+    """The coarse cells of the detector's candidates (ops/sift.py on the
+    CPU) whose response lies within NEAR_TOL x its magnitude of a
+    boundary: its largest neighbour, the response threshold, or the
+    global top-4096's last value."""
+    from casmtr_tpu_torch.ops import sift
+    gray = (0.299 * image0[..., 0] + 0.587 * image0[..., 1]
+            + 0.114 * image0[..., 2])
+    img = sift._upsample2(gray)
+    vm = (sift._upsample2(valid_mask.float()) > 0.5 if valid_mask is not None
+          else torch.ones_like(img, dtype=torch.bool))
+    sigmas = [1.6 * 2.0 ** (i / 3) for i in range(5)]
+    octaves, flat, scale = [], [], 0.5
+    while min(img.shape[1], img.shape[2]) >= 64:
+        mid, neigh = sift.octave_responses(img, sigmas)
+        ok = torch.zeros(img.shape[1:], dtype=torch.bool)
+        ok[1:-1, 1:-1] = True
+        ok = ok & vm[:, None]
+        flat.append(torch.where((mid > neigh) & (mid > resp_thr) & ok, mid,
+                                torch.full_like(mid, float("-inf"))
+                                ).reshape(mid.shape[0], -1))
+        octaves.append((mid, neigh, ok, scale))
+        img, vm, scale = img[:, ::2, ::2], vm[:, ::2, ::2], scale * 2
+    allr = torch.cat(flat, 1)
+    cut = allr.topk(min(max_kpts, allr.shape[1]), dim=1).values[:, -1]
+    h0, w0 = hw_c
+    out = torch.zeros((gray.shape[0], h0 * w0), dtype=torch.bool)
+    for mid, neigh, ok, s_o in octaves:
+        tol = NEAR_TOL * mid.abs()
+        kept = (mid > neigh) & (mid > resp_thr)
+        near = ok & ((((mid - neigh).abs() <= tol) & (mid > resp_thr - tol))
+                     | (((mid - resp_thr).abs() <= tol) & (mid > neigh - tol))
+                     | (kept & ((mid - cut[:, None, None, None]).abs()
+                                <= tol)))
+        Ho, Wo = mid.shape[2:]
+        y = torch.arange(Ho, dtype=torch.float32)[:, None] * s_o
+        x = torch.arange(Wo, dtype=torch.float32)[None, :] * s_o
+        cell = torch.round((y / stride * w0 + x / stride).clamp(
+            0, h0 * w0 - 1)).long().expand_as(mid)
+        out |= scatter_near(torch, cell, near, h0 * w0)
+    return out
+
+
+def near_positions(torch, kw):
+    """The positions of a captured level (its arguments ``kw`` on the CPU)
+    where its filter's decision lies within NEAR_TOL of its boundary."""
+    conf, hw = kw["ws"].next_conf_c01, kw["hw0"]
+    method = kw["post_method"]
+    if method == "softargmax_nms":
+        return softargmax_near(torch, conf, hw, kw["post_window"],
+                               kw["post_temperature"], kw["post_stride"])
+    if method == "d2d":
+        return d2d_near(torch, conf, hw, kw["post_window"], kw["s_d2d"],
+                        kw["d2d_w"])
+    if method == "sift":
+        return sift_near(torch, kw["image0"], hw,
+                         kw["image0"].shape[1] // hw[0], kw["image0_mask"])
+    return torch.zeros_like(conf, dtype=torch.bool)
+
+
+def filter_masks_check(torch, name, levels):
+    """Each captured level's keep masks, card against CPU from the same
+    tensors: bit-equal for the discrete filters (DISCRETE_FILTERS); for
+    the others the differing positions counted, each within NEAR_TOL of
+    its boundary (near_positions), at most MAX_FLIP_SHARE of the
+    positions, and the whole chain differing nowhere else."""
+    f = FILTERED[name]
+    for i, level in enumerate(levels):
+        with torch.inference_mode():   # the captured tensors are so
+            filt_g, full_g, _ = level_masks(torch, level, "cuda")
+            filt_c, full_c, kw = level_masks(torch, level, "cpu")
+            near = near_positions(torch, kw)
+        diff = filt_g != filt_c
+        n_diff, total = int(diff.sum()), diff.numel()
+        outside = int(((full_g != full_c) & ~diff).sum())
+        unexplained = int((diff & ~near).sum())
+        log(f"filters: {name} level {i} ({kw['hw0'][0]}^2): kept "
+            f"{int(filt_c.sum())} of {total} by the filter, "
+            f"{int(full_c.sum())} by the chain (thresholds 0) on the CPU; "
+            f"card differs at {n_diff} ({n_diff / total:.2e}; max "
+            f"{MAX_FLIP_SHARE:g}), {unexplained} of them not within "
+            f"{NEAR_TOL:g} of a boundary ({int(near.sum())} positions "
+            f"are); the chain elsewhere at {outside}")
+        if f in DISCRETE_FILTERS:
+            check(n_diff == 0 and outside == 0,
+                  f"filters: {name} level {i}: masks not bit-equal")
+        check(unexplained == 0 and outside == 0,
+              f"filters: {name} level {i}: masks differ away from a "
+              "boundary")
+        check(n_diff <= MAX_FLIP_SHARE * total,
+              f"filters: {name} level {i}: too many flips")
+        if f == "F5":
+            m = kw["image0_mask"]
+            check(m is not None and not bool(m.all()),
+                  f"filters: {name}: the canvas's valid mask did not reach "
+                  "the detector")
+
+
+def filter_reference(torch, name):
+    """Phase 6's f32 serving reference of a filtered model at bucket 256,
+    thresholds at 0."""
+    img0, img1 = reference_pair()
+    with precision("f32"):
+        card = reference_forward(torch, name, "cuda", img0, img1)
+        cpu = reference_forward(torch, name, "cpu", img0, img1)
+    conf, window, st = compare_outputs(torch, card, cpu)
+    log(f"filters: {name} reference, bucket 256, thresholds 0, card f32 vs "
+        f"CPU f32: {describe(conf, window, st)}")
+    check_f32_reference(conf, window, st)
+
+
+def synthetic_level(torch, gen, g, C, hw8=(104, 104)):
+    """A level's filter-chain inputs at g x g under the 1/8 grid hw8 (and a
+    1/4 grid for g = 416): random confidences and second bests, targets,
+    the coarse targets of rd, tokens of width C, an all-valid grid."""
+    from casmtr_tpu_torch.ops import cascade_matching as cm
+    L = g * g
+    dev = "cuda"
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ids(n, *shape):
+        return torch.randint(0, n, shape, generator=gen, device=dev)
+
+    conf = rand(1, L)
+    ws = cm.WindowSoftmaxResult(None, None, ids(L, 1, L), ids(L, 1, L), conf,
+                                conf, None, conf * rand(1, L), ids(L, 1, L))
+    pre_hws = [hw8] + ([(g // 2, g // 2)] if g > 208 else [])
+    pre = [rand(1, h * w) for h, w in pre_hws]
+    grid = torch.ones((1, g, g), dtype=torch.bool, device=dev)
+    return dict(ws=ws, hw0=(g, g), hw1=(g, g), bd=1, pre_confs=pre,
+                pre_hws=pre_hws, pre_thrs=[0.2] * len(pre),
+                mask0_2d=grid, mask1_2d=grid,
+                pre_confs_s=[p * rand(*p.shape) for p in pre],
+                rd_coarse=(ids(hw8[0] * hw8[1], 1, hw8[0] * hw8[1]),
+                           ids(hw8[0] * hw8[1], 1, hw8[0] * hw8[1]), hw8),
+                tokens=torch.randn((1, L, C), generator=gen, device=dev))
+
+
+def filter_times(torch):
+    """Each filter's own time on the card: the level's whole filter chain
+    (cascade_match_mask_test, thresholds 0.2, border 1, the double check;
+    d2d with its saliency from C-wide tokens) at 208^2 (4c's 1/4 level at
+    bucket 832, C 128) and 416^2 (2c's 1/2 level, C 64), sift on an 832^2
+    image; beside the chain without a filter (method None) and with the
+    recipes' maxpool_nms.  CUDA events, median of 25."""
+    from casmtr_tpu_torch.ops import cascade_matching as cm
+    from casmtr_tpu_torch.ops import nms
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    image0 = (torch.from_numpy(texture(np.random.default_rng(2), 832, 832))
+              .float().div(255).cuda()[None])
+    mask0 = torch.ones((1, 832, 832), dtype=torch.bool, device="cuda")
+    configs = dict(FILTERS, none={"method": None},
+                   maxpool={"method": "maxpool_nms", "window_size": 5})
+    out = {}
+    for g, C in ((208, 128), (416, 64)):
+        lv = synthetic_level(torch, gen, g, C)
+        tokens = lv.pop("tokens")
+        for f, pc in configs.items():
+            method = pc["method"]
+
+            def chain():
+                s_d2d = d2d_w = None
+                if method == "d2d":
+                    s_d2d = nms.d2d_saliency(tokens / C ** 0.5, (g, g))
+                    d2d_w = g // 4
+                sift = method == "sift"
+                return cm.cascade_match_mask_test(
+                    test_thr=0.2, post_method=method,
+                    post_window=pc.get("window_size"),
+                    post_topk=pc.get("topk"), double_check=True,
+                    s_d2d=s_d2d, d2d_w=d2d_w,
+                    post_temperature=pc.get("temperature", 1.0),
+                    post_stride=pc.get("stride", 1), rt=pc.get("rt"),
+                    rd=pc.get("rd"), image0=image0 if sift else None,
+                    image0_mask=mask0 if sift else None, **lv)
+            chain()
+            out[f, g] = time_ms(torch, chain)
+        log(f"filters: own time at {g}^2 (cascade_match_mask_test, ms): "
+            + ", ".join(f"{f} {out[f, g]:.4f}" for f in configs))
+    return out
+
+
+def filter_phase(torch):
+    """Phase 12(a): each filtered model (FILTERED) at full width with phase
+    4's seeded weights: three requests at bucket 832 in the card's default
+    held to the recipe's per-pair launch counts (serve: steady latency,
+    peak memory); one more request, the padded non-square one, captured
+    and its levels' keep masks held card against CPU
+    (filter_masks_check); phase 6's f32 reference at bucket 256
+    (filter_reference); then each filter's own time (filter_times).
+    Returns the serving runs by model."""
+    reqs = requests(np.random.default_rng(0))
+    runs = {}
+    for name in FILTERED:
+        t0 = time.perf_counter()
+        matcher = matcher_for(name, bucket=BUCKET[name], seed=0)
+        log(f"filters: Matcher('{name}') built in "
+            f"{time.perf_counter() - t0:.1f} s, post_config "
+            f"{FILTERS[FILTERED[name]]}")
+        with precision("bf16"):
+            runs[name] = {"bf16": serve(torch, matcher, name, reqs, "bf16")}
+            levels = capture_levels(torch, matcher, *reqs[2][1:])
+        del matcher
+        torch.cuda.empty_cache()
+        filter_masks_check(torch, name, levels)
+        del levels
+        filter_reference(torch, name)
+    filter_times(torch)
+    return runs
+
+
+def rodrigues(axis, angle):
+    a = np.asarray(axis, np.float64) / np.linalg.norm(axis)
+    K = np.array([[0, -a[2], a[1]], [a[2], 0, -a[0]], [-a[1], a[0], 0]])
+    return np.eye(3) + np.sin(angle) * K + (1 - np.cos(angle)) * K @ K
+
+
+def pose_scenes(rng, B, M, outlier_share, noise_px, f=800.0, c=416.0):
+    """B two-view scenes of M matches each: points 4-10 in front of camera
+    0, a random rotation of 0.1-0.3 rad and unit translation, pixel noise,
+    and a share of uniform outlier matches.  Returns (kpts0, kpts1, valid,
+    K) float32 and the true (R, t) per pair."""
+    n_out = int(round(M * outlier_share))
+    n = M - n_out
+    K = np.array([[f, 0, c], [0, f, c], [0, 0, 1.0]])
+    k0s, k1s, truth = [], [], []
+    for _ in range(B):
+        R = rodrigues(rng.standard_normal(3), rng.uniform(0.1, 0.3))
+        t = rng.standard_normal(3)
+        t /= np.linalg.norm(t)
+        X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                      rng.uniform(4, 10, n)], 1)
+        X1 = X @ R.T + t
+        k0 = ((X / X[:, 2:]) @ K.T)[:, :2] + rng.normal(0, noise_px, (n, 2))
+        k1 = ((X1 / X1[:, 2:]) @ K.T)[:, :2] + rng.normal(0, noise_px,
+                                                          (n, 2))
+        k0s.append(np.concatenate([k0, rng.uniform(0, 2 * c, (n_out, 2))]))
+        k1s.append(np.concatenate([k1, rng.uniform(0, 2 * c, (n_out, 2))]))
+        truth.append((R, t))
+    return (np.stack(k0s).astype(np.float32), np.stack(k1s).astype(np.float32),
+            np.ones((B, M), bool), np.repeat(K[None], B, 0).astype(np.float32),
+            truth)
+
+
+def rot_angle_deg(Ra, Rb):
+    """The angle of Ra^T Rb in degrees, from the chord (exact near 0)."""
+    return np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(
+        np.asarray(Ra, np.float64) - Rb) / (2 * 2 ** 0.5))))
+
+
+def dir_angle_deg(a, b):
+    a = np.asarray(a, np.float64) / np.linalg.norm(a)
+    b = np.asarray(b, np.float64) / np.linalg.norm(b)
+    return np.degrees(2 * np.arcsin(min(1.0, np.linalg.norm(a - b) / 2)))
+
+
+def pose_phase(torch):
+    """Phase 12(b): sfm.pose.estimate_pose_batch on the card at POSE_B
+    pairs of POSE_M matches with POSE_HYP hypotheses, on pose_scenes with
+    POSE_OUTLIERS outliers: ms per batch (CUDA events, median of 5), and
+    apart the hypotheses' batched 8-point SVDs and their stable top-8
+    draw; every pair ok, the CPU on the same draw within
+    POSE_CARD_CPU_DEG of the card; the supported poses (POSE_SUPPORT)
+    within POSE_R_DEG / POSE_T_DEG of the truth."""
+    from casmtr_tpu_torch.ops.quadtree import topk_lowest_first
+    from casmtr_tpu_torch.sfm import pose
+    k0, k1, v, K, truth = pose_scenes(np.random.default_rng(5), POSE_B,
+                                      POSE_M, POSE_OUTLIERS, POSE_NOISE_PX)
+    args = [torch.from_numpy(a) for a in (k0, k1, v, K, K)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    noise = pose.pose_noise(POSE_B, POSE_HYP, POSE_M, gen, "cuda")
+    card_args = [a.cuda() for a in args]
+
+    def solve():
+        return pose.estimate_pose_batch(*card_args, n_hyp=POSE_HYP,
+                                        noise=noise)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    ms = time_ms(torch, solve, reps=5, warmup=1)
+    A = torch.randn((POSE_B, POSE_HYP, 8, 9), generator=gen, device="cuda")
+    svd_ms = time_ms(torch, lambda: torch.linalg.svd(A, full_matrices=True),
+                     reps=5, warmup=1)
+    scores = torch.rand((POSE_B, POSE_HYP, POSE_M), generator=gen,
+                        device="cuda")
+    topk_ms = time_ms(torch, lambda: topk_lowest_first(scores, 8, 2),
+                      reps=5, warmup=1)
+    t0 = time.perf_counter()
+    cpu = pose.estimate_pose_batch(*args, n_hyp=POSE_HYP, noise=noise.cpu())
+    cpu_s = time.perf_counter() - t0
+    errs, card_cpu = [], []
+    for b, (R, t) in enumerate(truth):
+        Rg, tg = res.R[b].cpu().numpy(), res.t[b].cpu().numpy()
+        errs.append((rot_angle_deg(Rg, R), dir_angle_deg(tg, t)))
+        card_cpu.append(max(rot_angle_deg(Rg, cpu.R[b].numpy()),
+                            dir_angle_deg(tg, cpu.t[b].numpy())))
+    log(f"pose: estimate_pose_batch B {POSE_B}, M {POSE_M}, {POSE_HYP} "
+        f"hypotheses, {POSE_OUTLIERS:.0%} outliers, {POSE_NOISE_PX} px: "
+        f"{ms:.3f} ms per batch on the card (first call {first * 1e3:.1f} "
+        f"ms; the hypotheses' [{POSE_B}, {POSE_HYP}, 8, 9] SVDs "
+        f"{svd_ms:.3f} ms, their stable top-8 {topk_ms:.3f} ms); CPU "
+        f"{cpu_s:.2f} s; inliers {res.n_inliers.tolist()}; R / t error "
+        "from the truth (deg) "
+        + ", ".join(f"{r:.3f} / {t:.3f}" for r, t in errs)
+        + f"; card vs CPU max {max(card_cpu):.2e} deg (tol "
+        f"{POSE_CARD_CPU_DEG}); ok card {res.ok.tolist()}, CPU "
+        f"{cpu.ok.tolist()}")
+    n_true = POSE_M - int(round(POSE_M * POSE_OUTLIERS))
+    supported = [int(n) >= POSE_SUPPORT * n_true for n in res.n_inliers]
+    log(f"pose: supported (inliers >= {POSE_SUPPORT:g} x {n_true} true "
+        f"matches): {supported}")
+    check(bool(res.ok.all()), "pose: a pair not ok")
+    check(max(card_cpu) <= POSE_CARD_CPU_DEG, "pose: card and CPU disagree")
+    check(2 * sum(supported) >= POSE_B, "pose: too few supported poses")
+    check(all(r <= POSE_R_DEG and t <= POSE_T_DEG
+              for (r, t), sup in zip(errs, supported) if sup),
+          "pose: a supported pose off the truth")
+    return ms
+
+
+def plane_pair(rng, size, K, R, t, normal=(0.1, -0.05, 1.0), depth=4.0):
+    """image0 of a textured plane (n . X = depth in camera 0) and image1 of
+    it from the pose (R, t), float32 [size, size, 3] in [0, 1]: image1 at
+    p shows the texture at H^-1 p, H = K (R + t n^T / depth) K^-1."""
+    n = np.asarray(normal) / np.linalg.norm(normal)
+    H = K @ (R + np.outer(t, n) / depth) @ np.linalg.inv(K)
+    f = rng.uniform(0.03, 0.2, (3, 3, 2))
+    ph = rng.uniform(0, 6, (3, 3))
+
+    def tex(x, y):
+        return np.stack([sum(np.sin(f[c, i, 0] * x + f[c, i, 1] * y
+                                    + ph[c, i]) for i in range(3))
+                         for c in range(3)], -1) / 6 + 0.5
+
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    p = np.stack([xx, yy, np.ones_like(xx)], -1) @ np.linalg.inv(H).T
+    img1 = tex(p[..., 0] / p[..., 2], p[..., 1] / p[..., 2])
+    return tex(xx, yy).astype(np.float32), img1.astype(np.float32)
+
+
+def plane_dataset(rng, n_pairs, size):
+    """n_pairs samples of run_eval's dataset (plane_pair at a focal length
+    of 0.9 size, a rotation of 0.05-0.15 rad, a mostly sideways
+    translation): image0/1, K0/1, T_0to1."""
+    K = np.array([[0.9 * size, 0, size / 2], [0, 0.9 * size, size / 2],
+                  [0, 0, 1]])
+    out = []
+    for _ in range(n_pairs):
+        R = rodrigues(rng.standard_normal(3), rng.uniform(0.05, 0.15))
+        t = rng.standard_normal(3) * [0.3, 0.3, 0.1]
+        img0, img1 = plane_pair(rng, size, K, R, t)
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3], T[:3, 3] = R, t
+        out.append({"image0": img0, "image1": img1,
+                    "K0": K.astype(np.float32), "K1": K.astype(np.float32),
+                    "T_0to1": T})
+    return out
+
+
+def evaluate_phase(torch):
+    """Phase 12(c): cli.evaluate.run_eval of outdoor_casmtr_4c (phase 4's
+    seeded weights, the card's default) on EVAL_PAIRS pairs of a textured
+    plane at EVAL_SIZE^2 (plane_pair: a known K, R, t) through the port's
+    DataLoader, after a one-pair warm-up; the launch counts zeroed just
+    before and held to EVAL_PAIRS x 4c's per-pair counts after; the AUC
+    and precision finite; pairs/s.  Returns its serving run."""
+    from casmtr_tpu_torch.cli.evaluate import run_eval
+    from casmtr_tpu_torch.configs import build_config
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.weights import init_random_
+    t0 = time.perf_counter()
+    s = EVAL_SIZE
+    data = plane_dataset(np.random.default_rng(6), EVAL_PAIRS, s)
+    cfg = build_config("outdoor_casmtr_4c")
+    model = build_model(cfg.loftr)
+    init_random_(model, torch.Generator().manual_seed(0))
+    log(f"evaluate: {EVAL_PAIRS} pairs of {s}^2 made and the model built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    with precision("bf16"):
+        run_eval(cfg, model, data[:1])
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_eval(cfg, model, data, profiler_name="inference")
+        wall = time.perf_counter() - t0
+    totals = dict(kernels.LAUNCHES)
+    per_pair = LAUNCHES_PER_PAIR[EVAL_NAME]
+    log(f"evaluate: run_eval {EVAL_PAIRS} pairs in {wall:.2f} s, "
+        f"{EVAL_PAIRS / wall:.2f} pairs/s; "
+        + ", ".join(f"{k} {float(v):.4f}" for k, v in res.items())
+        + f" (random weights: printed, not gated); launches {totals}")
+    check(set(res) == {"auc@5", "auc@10", "auc@20", "prec@5e-04"},
+          "evaluate: result keys")
+    check(all(np.isfinite(float(v)) for v in res.values()),
+          "evaluate: a non-finite result")
+    check(totals == {k: v * EVAL_PAIRS for k, v in per_pair.items()},
+          f"evaluate: launches {totals}, expected {EVAL_PAIRS} x {per_pair}")
+    return {"bf16": (totals, per_pair, [])}
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -3516,7 +4136,7 @@ def main(argv):
         check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-        f"python {sys.version.split()[0]}, device "
+        f"python {sys.version.split()[0]}, numpy {np.__version__}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
     t0 = time.perf_counter()
     kernels.lib(fresh=True)
@@ -3575,6 +4195,9 @@ def main(argv):
     train_rows += zoo_train_rows
     for name in ZOO:
         serve_runs[name], train_runs[name, "bf16"] = zoo_phase(torch, name)
+    serve_runs.update(timed("filters", filter_phase, torch))
+    timed("pose", pose_phase, torch)
+    serve_runs[EVAL_NAME] = timed("evaluate", evaluate_phase, torch)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

@@ -1,0 +1,291 @@
+"""The port's evaluation core against the JAX package's, on the CPU:
+
+* ``utils/metrics.py``: the epipolar errors, the relative pose error, the
+  AUC, the epipolar precision and the aggregation (the last of duplicate
+  identifiers counts) on the same inputs, within 1e-12 (both numpy,
+  float64); OpenCV's pose refused with a pointer to the device solver;
+* ``sfm/pose.estimate_pose_batch`` against the JAX package's at B = 3,
+  M = 260, 64 hypotheses, JAX's own draw passed in as ``noise``: the same
+  ``ok`` flags; where a pose is ok, R and t within 1e-3 rad; the inlier
+  masks equal but for rows whose squared Sampson distance under the JAX
+  pose lies within 5% of the threshold.  The scenes are
+  test_pose_solver's with 10% outliers.  At its 23%, 64 hypotheses leave
+  one of its three poses 4 and 23 degrees off the truth in JAX itself,
+  and there the two float32 implementations part by 0.7 degrees: an
+  inlier decision near the threshold goes the other way and the
+  refinement builds on it (at 512 hypotheses one such row, 1.3e-4 of the
+  threshold off it, moved a pose by 0.016 degrees);
+* test_pose_solver's own checks on the port: the ground truth recovered
+  (512 hypotheses, 23% outliers), the validity mask respected and too few
+  matches flagged;
+* ``cli.evaluate.run_eval`` of a tiny 4c on two synthetic pairs
+  (chip_smoke.plane_dataset: a textured plane seen from a known K, R, t)
+  against the JAX package's
+  ``run_eval(pose_solver="device")`` from the same weights, the port fed
+  JAX's draws: the same identifiers, epipolar errors within 1e-5
+  (squared normalized distances, 1e-8 to 1 here), rotation and
+  translation errors within 1e-3 degrees (or infinite in both), the
+  result dict within 1e-6; and ``pose_solver="cv2"`` refused.  With
+  random weights the poses are tens of degrees off, so the AUCs are 0 in
+  both; the errors and the precision carry the comparison.
+
+The tolerances were fixed before the first run but two: the inlier
+margin, set at 5% after a first run showed a flip at 2% at 512
+hypotheses, and the epipolar errors, first held at 1e-5 relative, which
+the errors near 0 (1e-8) cannot meet in float32 keypoints."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from chip_smoke import plane_dataset  # noqa: E402
+from tests.test_pose_solver import _rotmat, _scene  # noqa: E402
+from tests.torch_parity import (configs, fast_jit,  # noqa: E402
+                                port_variables, tiny_4c_overrides)
+
+POSE_RAD = 1e-3
+INLIER_MARGIN = 0.05
+EPI_ATOL = 1e-5
+ERR_DEG = 1e-3
+AUC_ATOL = 1e-6
+POSES = [(_rotmat([0, 1, 0], 0.15), np.array([1.0, 0.1, 0.2])),
+         (_rotmat([1, 0.5, 0], -0.1), np.array([-0.5, 0.8, 0.1])),
+         (_rotmat([0, 0, 1], 0.25), np.array([0.3, -1.0, 0.4]))]
+
+
+def _rot_angle(Ra, Rb):
+    """Angle (rad) of Ra^T Rb, from the chord (well conditioned at 0)."""
+    return 2 * np.arcsin(min(1.0, np.linalg.norm(Ra - Rb) / (2 * 2 ** 0.5)))
+
+
+def _dir_angle(a, b):
+    a, b = a / np.linalg.norm(a), b / np.linalg.norm(b)
+    return 2 * np.arcsin(min(1.0, np.linalg.norm(a - b) / 2))
+
+
+def _gt_angles(R, t, R_gt, t_gt):
+    """Degrees from the ground truth (the sign of t included)."""
+    return (np.degrees(_rot_angle(R, R_gt)),
+            np.degrees(_dir_angle(t, t_gt)))
+
+
+def jax_noise(B, n_hyp, M, key=None):
+    """The JAX package's draw: per pair jax.random.uniform over
+    jax.random.split(key, B), in [1e-6, 1)."""
+    key = jax.random.PRNGKey(0) if key is None else key
+    return np.stack([np.asarray(jax.random.uniform(
+        k, (n_hyp, M), minval=1e-6, maxval=1.0))
+        for k in jax.random.split(key, B)])
+
+
+def _batch(scenes):
+    return [np.stack(x) for x in zip(*scenes)]
+
+
+# ---------------------------------------------------------------- metrics
+
+def test_metrics_match_jax():
+    from casmtr_tpu.utils import metrics as J
+    from casmtr_tpu_torch.utils import metrics as T
+    rng = np.random.default_rng(0)
+    K0 = np.array([[500.0, 0, 320], [0, 480.0, 240], [0, 0, 1]])
+    K1 = np.array([[450.0, 0, 300], [0, 460.0, 250], [0, 0, 1]])
+    Tm = np.eye(4)
+    Tm[:3, :3] = _rotmat([0.3, 1, 0.2], 0.2)
+    Tm[:3, 3] = [0.4, -0.1, 0.2]
+    p0, p1 = rng.uniform(0, 640, (2, 50, 2))
+    for name in ("cross_product_matrix",):
+        np.testing.assert_array_equal(getattr(T, name)(Tm[:3, 3]),
+                                      getattr(J, name)(Tm[:3, 3]))
+    np.testing.assert_allclose(
+        T.compute_epipolar_errors(p0, p1, Tm, K0, K1),
+        J.compute_epipolar_errors(p0, p1, Tm, K0, K1), rtol=1e-12, atol=0)
+    E = rng.standard_normal((3, 3))
+    np.testing.assert_allclose(
+        T.symmetric_epipolar_distance(p0, p1, E, K0, K1),
+        J.symmetric_epipolar_distance(p0, p1, E, K0, K1), rtol=1e-12)
+    R, t = _rotmat([1, 0, 0.3], 0.21), np.array([0.3, 0.2, -0.1])
+    for thr in (0.0, 10.0):
+        np.testing.assert_allclose(
+            T.relative_pose_error(Tm, R, t, thr),
+            J.relative_pose_error(Tm, R, t, thr), rtol=1e-12)
+    errs = list(rng.uniform(0, 30, 40)) + [np.inf, 0.0, 5.0, 20.0]
+    assert T.error_auc(errs) == pytest.approx(J.error_auc(errs), abs=1e-12)
+    epi = [rng.uniform(0, 1e-3, n) for n in (5, 0, 12)]
+    assert T.epidist_prec(epi, [5e-4, 1e-4]) == J.epidist_prec(
+        epi, [5e-4, 1e-4])
+    m = {"identifiers": ["a", "b", "a", "c"],
+         "R_errs": [1.0, 2.0, 50.0, np.inf], "t_errs": [1.0, 3.0, 4.0, 1.0],
+         "epi_errs": epi + [np.array([1e-5])]}
+    got = T.aggregate_metrics(m, epi_err_thr=1e-4)
+    assert got == pytest.approx(J.aggregate_metrics(m, epi_err_thr=1e-4),
+                                abs=1e-12)
+    assert T.gather_metrics(m) is m
+
+
+def test_cv2_pose_is_refused_with_the_device_solver_named():
+    from casmtr_tpu_torch.utils import metrics as T
+    for fn in (T.estimate_pose, T.compute_pose_errors):
+        with pytest.raises(NotImplementedError, match="estimate_pose_batch"):
+            fn(np.zeros((8, 2)), np.zeros((8, 2)), np.eye(3), np.eye(3),
+               0.5)
+
+
+# ------------------------------------------------------------ pose solver
+
+def _pose_inputs(rng, n, n_out):
+    k0, k1, v, K = _batch([_scene(rng, R, t, n=n, n_out=n_out)
+                           for R, t in POSES])
+    return k0, k1, v, K
+
+
+def test_estimate_pose_batch_matches_jax():
+    from casmtr_tpu.sfm import pose as jp
+    from casmtr_tpu_torch.sfm import pose as tp
+    k0, k1, v, K = _pose_inputs(np.random.default_rng(0), 234, 26)
+    B, M = v.shape
+    n_hyp = 64
+    noise = jax_noise(B, n_hyp, M)
+    arrays = (k0, k1, v, K, K)
+    want = fast_jit(lambda *a: jp.estimate_pose_batch(*a, n_hyp=n_hyp))(
+        *map(jnp.asarray, arrays))
+    got = tp.estimate_pose_batch(*map(torch.from_numpy, arrays),
+                                 n_hyp=n_hyp, noise=torch.from_numpy(noise))
+    np.testing.assert_array_equal(got.ok.numpy(), np.asarray(want.ok))
+    assert got.ok.sum() >= 2
+    thr2 = (0.5 / K[:, 0, 0]) ** 2
+    for b in range(B):
+        if not bool(want.ok[b]):
+            continue
+        Rw, tw = np.asarray(want.R[b], np.float64), np.asarray(want.t[b],
+                                                               np.float64)
+        Rg, tg = got.R[b].double().numpy(), got.t[b].double().numpy()
+        assert _rot_angle(Rg, Rw) <= POSE_RAD, b
+        assert _dir_angle(tg, tw) <= POSE_RAD, b
+        # the JAX pose's squared Sampson distances of the differing rows
+        x0 = tp._normalize(torch.from_numpy(k0[b]), torch.from_numpy(K[b]))
+        x1 = tp._normalize(torch.from_numpy(k1[b]), torch.from_numpy(K[b]))
+        E = tp._skew(torch.from_numpy(tw)) @ torch.from_numpy(Rw)
+        d2 = tp._sampson(E, x0.double(), x1.double()).numpy()
+        diff = np.asarray(want.inliers[b]) != got.inliers[b].numpy()
+        assert (np.abs(d2[diff] / thr2[b] - 1) <= INLIER_MARGIN).all(), b
+
+
+def test_estimate_pose_batch_recovers_gt():
+    """test_pose_solver's scenes (23% outliers, 0.3 px), 512 hypotheses
+    from the default generator: within 1 degree of R and 2 of t (its
+    sign resolved), inliers the true correspondences."""
+    from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
+    k0, k1, v, K = _pose_inputs(np.random.default_rng(0), 200, 60)
+    res = estimate_pose_batch(*map(torch.from_numpy, (k0, k1, v, K, K)),
+                              n_hyp=512)
+    assert bool(res.ok.all())
+    for b, (R_gt, t_gt) in enumerate(POSES):
+        r_err, t_err = _gt_angles(res.R[b].double().numpy(),
+                                  res.t[b].double().numpy(), R_gt, t_gt)
+        assert r_err < 1.0 and t_err < 2.0, (b, r_err, t_err)
+        assert 150 <= int(res.n_inliers[b]) <= 230
+        assert int(res.inliers[b, 200:].sum()) <= 15
+
+
+def test_estimate_pose_batch_masks_and_degenerate():
+    """test_pose_solver's scene of 80 matches plus 40 masked junk rows, on
+    its draw (JAX's key 0): the junk never an inlier and the pose within
+    1 degree of R and 2 of t; 6 valid matches flagged.  (At 80 matches
+    those bounds hold for about 55-60% of draws, in either package: the
+    draw is part of the check.)"""
+    from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
+    rng = np.random.default_rng(0)
+    R_gt, t_gt = _rotmat([0, 1, 0], 0.2), np.array([1.0, 0.0, 0.2])
+    k0, k1, v, K = _scene(rng, R_gt, t_gt, n=80, n_out=0)
+    M = k0.shape[0]
+    junk = rng.uniform(0, 640, (2, 40, 2)).astype(np.float32)
+    k0p, k1p = np.concatenate([k0, junk[0]]), np.concatenate([k1, junk[1]])
+    vp = np.concatenate([v, np.zeros(40, bool)])
+    few = np.zeros_like(vp)
+    few[:6] = True                      # under the 8-point minimum
+    noise = torch.from_numpy(jax_noise(1, 512, len(vp)))
+
+    def solve(valid):
+        return estimate_pose_batch(
+            *[torch.from_numpy(a[None]) for a in (k0p, k1p, valid, K, K)],
+            noise=noise)
+
+    res = solve(vp)
+    assert bool(res.ok[0])
+    assert int(res.inliers[0, M:].sum()) == 0
+    r_err, t_err = _gt_angles(res.R[0].double().numpy(),
+                              res.t[0].double().numpy(), R_gt, t_gt)
+    assert r_err < 1.0 and t_err < 2.0
+    assert not bool(solve(few).ok[0])
+
+
+# --------------------------------------------------------------- run_eval
+
+def test_run_eval_matches_jax(monkeypatch, tmp_path):
+    from casmtr_tpu.cli import evaluate as jev
+    from casmtr_tpu.models.casmtr import CasMTR as JaxCasMTR
+    from casmtr_tpu.utils import metrics as jmetrics
+    from casmtr_tpu_torch.cli import evaluate as tev
+    from casmtr_tpu_torch.models.casmtr import CasMTR
+    from casmtr_tpu_torch.utils import metrics as tmetrics
+    from casmtr_tpu_torch.weights import load_jax_variables
+    from tests.test_torch_filters import RESNET
+    size = 64
+    ov = tiny_4c_overrides(zero_thresholds=True)
+    ov["loftr"]["backbone"] = dict(RESNET)
+    # every position of the 1/4 grid a match (a random model's cycle check
+    # keeps almost none, NMS a tenth), and a RANSAC threshold its matches
+    # can meet
+    ov["loftr"]["match_cascade"].update(double_check=[False],
+                                        max_matches=[(size // 4) ** 2])
+    ov["loftr"]["coarse2"]["post_config"] = {"method": None}
+    ov["trainer"] = {"ransac_pixel_thr": 4.0}
+    jcfg, tcfg = configs(ov)
+    data = plane_dataset(np.random.default_rng(0), 2, size)
+    jm = JaxCasMTR(jcfg.loftr)
+    model = CasMTR(tcfg.loftr)
+    variables = port_variables(model, lambda: jm.init(
+        jax.random.PRNGKey(0), {k: jnp.zeros((1, size, size, 3))
+                                for k in ("image0", "image1")}, train=False))
+    load_jax_variables(model, variables)
+
+    seen = {}
+    for name, mod in (("jax", jmetrics), ("port", tmetrics)):
+        def record(metrics, name=name):
+            seen[name] = metrics
+            return metrics
+        monkeypatch.setattr(mod, "gather_metrics", record)
+    pose = tev.estimate_pose_batch
+
+    def jax_draw(k0, k1, valid, K0, K1, **kw):
+        B, M = valid.shape
+        return pose(k0, k1, valid, K0, K1, noise=torch.from_numpy(
+            jax_noise(B, 512, M)), **kw)
+
+    monkeypatch.setattr(tev, "estimate_pose_batch", jax_draw)
+    with monkeypatch.context() as patch:
+        patch.setattr(jev.jax, "jit", fast_jit)
+        want = jev.run_eval(jcfg, variables, data, pose_solver="device")
+    got = tev.run_eval(tcfg, model, data, device="cpu",
+                       dump_dir=str(tmp_path))
+    assert got.keys() == want.keys()
+    for k in want:
+        assert got[k] == pytest.approx(float(want[k]), abs=AUC_ATOL), k
+    g, w = seen["port"], seen["jax"]
+    assert g["identifiers"] == w["identifiers"] == ["r0pair0", "r0pair1"]
+    for a, b in zip(g["epi_errs"], w["epi_errs"]):
+        assert len(a) == len(b) > 0
+        np.testing.assert_allclose(np.sort(a), np.sort(b), rtol=0,
+                                   atol=EPI_ATOL)
+    for key in ("R_errs", "t_errs"):
+        np.testing.assert_allclose(g[key], w[key], rtol=0, atol=ERR_DEG)
+    dumped = np.load(tmp_path / "pred_eval.npy", allow_pickle=True)
+    assert len(dumped) == 2 and "mkpts0" in dumped[0]
+    with pytest.raises(ValueError, match="device"):
+        tev.run_eval(tcfg, model, data, device="cpu", pose_solver="cv2")

@@ -258,3 +258,37 @@ def flax_to_torch_sd(tree, shapes, prefix="matcher."):
 
     walk(tree, ())
     return sd
+
+
+# the test-time filters of the filter tests at tiny size (chip_smoke's F1-F6
+# at full size): F6's gates are looser than chip_smoke's rt 0.8 / rd 0.05,
+# which on a tiny random model's 16^2 coarse grid keep almost nothing
+FILTERS = {
+    "F1": {"method": "local_window_nms", "window_size": 4, "topk": 2},
+    "F2": {"method": "softargmax_nms", "window_size": 5, "stride": 1},
+    "F3": {"method": "softargmax_nms", "window_size": 4, "stride": 4},
+    "F4": {"method": "d2d", "window_size": 5},
+    "F5": {"method": "sift"},
+    "F6": {"method": "maxpool_nms", "window_size": 5, "rt": 0.97,
+           "rd": 0.7},
+}
+
+# compile options of fast_jit: XLA's CPU backend without its expensive
+# LLVM passes, which take most of a tiny model's compile time
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+_JIT = jax.jit
+
+
+def fast_jit(fn, **kw):
+    """``jax.jit`` compiling with FAST_COMPILE (it may stand in for
+    ``jax.jit`` itself)."""
+    return _JIT(fn, compiler_options=FAST_COMPILE, **kw)
+
+
+def jax_eval(module, variables, batch):
+    """The flax ``module``'s eval forward on ``batch`` (fast_jit)."""
+    return fast_jit(lambda v, b: module.apply(v, b, train=False))(
+        variables, batch)
