@@ -1,21 +1,29 @@
 """Pose evaluation of a matcher over a dataset of pairs (counterpart of
-``run_eval`` in casmtr_tpu/cli/evaluate.py): the served forward on each
-batch, the batched device pose solver on its final matches, then pose AUC
-@5/10/20 and epipolar precision over the dataset.
+casmtr_tpu/cli/evaluate.py): the served forward on each batch, the batched
+device pose solver on its final matches, then pose AUC @5/10/20 and
+epipolar precision over the dataset.
+
+    python -m casmtr_tpu_torch.cli.evaluate --model outdoor_casmtr_4c \
+        --data megadepth_test_1500 --ckpt CKPT
+
+reads the test split of the data recipe from disk (``data/module.
+MultiSceneDataModule``; point it elsewhere with ``--overrides-json '{"dataset":
+{"test_data_root": ..., "test_npz_root": ..., "test_list_path": ...}}'``).
 
 The port's only pose solver is the device one (``sfm.pose.
-estimate_pose_batch``, the JAX package's ``--pose-solver device``): the JAX
-package's default, OpenCV's RANSAC, is not ported, so ``pose_solver="cv2"``
-raises.  The command-line ``main`` waits for the port's data layer (image
-decoding and the MegaDepth / ScanNet datasets); until then a caller passes
-its own ``dataset``, whose samples are dicts of numpy arrays: image0 and
-image1 [H, W, 3] in [0, 1], K0 and K1 [3, 3], T_0to1 [4, 4], optionally
-mask0/mask1, scale0/scale1 and ``pair_names``.
+estimate_pose_batch``, the JAX package's ``--pose-solver device``), so
+``--pose-solver`` defaults to ``device`` here: the JAX command's default,
+OpenCV's RANSAC, is not ported, and ``cv2`` raises.  ``run_eval`` also
+takes a caller's own ``dataset``, whose samples are dicts of numpy arrays:
+image0 and image1 [H, W, 3] in [0, 1], K0 and K1 [3, 3], T_0to1 [4, 4],
+optionally mask0/mask1, scale0/scale1 and ``pair_names``.
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import json
 import os
 from typing import Dict, Optional
 
@@ -23,11 +31,16 @@ import numpy as np
 import torch
 
 from casmtr_tpu_torch.config import Config
+from casmtr_tpu_torch.config import override as cfg_override
+from casmtr_tpu_torch.configs import build_config
 from casmtr_tpu_torch.data.loader import DataLoader
+from casmtr_tpu_torch.data.module import MultiSceneDataModule
+from casmtr_tpu_torch.models import build_model
 from casmtr_tpu_torch.serving import configure_card, resolve_device
 from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
 from casmtr_tpu_torch.utils import metrics as M
 from casmtr_tpu_torch.utils.profiler import build_profiler
+from casmtr_tpu_torch.weights import init_random_
 
 MODEL_KEYS = ("image0", "image1", "mask0", "mask1", "scale0", "scale1")
 
@@ -92,18 +105,23 @@ def _model_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     return out
 
 
-def run_eval(cfg: Config, model: torch.nn.Module, dataset,
+def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
              max_pairs: Optional[int] = None,
              profiler_name: Optional[str] = None,
              dump_dir: Optional[str] = None,
-             pose_solver: str = "device", device=None) -> Dict:
-    """Evaluate ``model`` (a port model of ``cfg.loftr``) on ``dataset``,
-    one pair per batch, at most ``max_pairs`` pairs: {"auc@5", "auc@10",
-    "auc@20", "prec@5e-04" (cfg.trainer.epi_err_thr)}.  Runs on the card
+             pose_solver: str = "device", device=None,
+             loader=None) -> Dict:
+    """Evaluate ``model`` (a port model of ``cfg.loftr``) on ``dataset``
+    (None: the test split of ``cfg.dataset`` read from disk), one pair per
+    batch, or on the batches of ``loader`` when given (the training
+    command's validation loader), at most ``max_pairs`` pairs: {"auc@5",
+    "auc@10", "auc@20", "prec@5e-04" (cfg.trainer.epi_err_thr)}, or {}
+    without pairs.  Runs on the card
     (``device`` None, with the Matcher's process-wide flags,
     ``serving.configure_card``) or on ``device``; the model is moved there
     and put in eval mode.  ``profiler_name`` "inference" prints the time
-    of the matching and of the pose per region; ``dump_dir`` receives the
+    of the matching, of the pose and of the wait for the loader's next
+    batch ("Data loading") per region; ``dump_dir`` receives the
     final matches of every batch (pred_eval.npy)."""
     if pose_solver == "cv2":
         raise ValueError("pose_solver 'cv2' (OpenCV RANSAC) is not ported; "
@@ -111,10 +129,11 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset,
                          "(sfm.pose.estimate_pose_batch)")
     if pose_solver != "device":
         raise ValueError(f"unknown pose solver: {pose_solver!r}")
-    if dataset is None:
-        raise NotImplementedError(
-            "the port has no dataset layer yet (image decoding, MegaDepth, "
-            "ScanNet): pass a dataset of numpy pairs")
+    if loader is None:
+        if dataset is None:
+            dataset = MultiSceneDataModule(cfg).test_dataset()
+        loader = DataLoader(dataset, None, batch_size=1, num_workers=4,
+                            drop_last=False)
     device = resolve_device(device)
     if device.type == "cuda":
         configure_card()
@@ -122,13 +141,16 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset,
     profiler = build_profiler(profiler_name)
     pose_fn = functools.partial(estimate_pose_batch,
                                 thr_px=cfg.trainer.ransac_pixel_thr)
-    loader = DataLoader(dataset, None, batch_size=1, num_workers=4,
-                        drop_last=False)
     metrics = {"identifiers": [], "epi_errs": [], "R_errs": [], "t_errs": [],
                "inliers": []}
     n = 0
     dumps = []
-    for batch in loader:
+    batches = iter(loader)
+    while True:
+        with profiler.profile("Data loading"):
+            batch = next(batches, None)
+        if batch is None:
+            break
         with profiler.profile("Model Matching"):
             with torch.inference_mode():
                 fm = model(_model_batch(batch, device)).final_matches
@@ -145,6 +167,8 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset,
             break
 
     metrics = M.gather_metrics(metrics)
+    if not metrics["identifiers"]:
+        return {}
     results = M.aggregate_metrics(metrics, epi_err_thr=cfg.trainer.epi_err_thr)
     if dump_dir is not None:
         os.makedirs(dump_dir, exist_ok=True)
@@ -154,3 +178,62 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset,
     if summary:
         print(summary)
     return results
+
+
+def main(argv=None) -> Dict:
+    """The evaluation command: build ``--model`` with ``--data``'s test
+    split, load ``--ckpt`` (else seeded random weights), run ``run_eval``
+    and print its results as JSON (also returned)."""
+    p = argparse.ArgumentParser(
+        description="CasMTR pose evaluation on a test split, in PyTorch")
+    p.add_argument("--model", default="outdoor_casmtr_4c")
+    p.add_argument("--data", default="megadepth_test_1500")
+    p.add_argument("--ckpt", default=None,
+                   help="a reference .ckpt/.pth or a port checkpoint "
+                        "directory (train.checkpoints."
+                        "load_checkpoint_variables)")
+    p.add_argument("--max-pairs", type=int, default=None)
+    p.add_argument("--profiler", default=None,
+                   help="'inference': seconds per region (loading, "
+                        "matching, pose)")
+    p.add_argument("--dump-dir", default=None)
+    p.add_argument("--thr", type=float, default=None,
+                   help="override the coarse matching threshold")
+    p.add_argument("--img-size", type=int, default=None,
+                   help="override the test image resize")
+    p.add_argument("--overrides-json", default=None,
+                   help="inline JSON config overrides (applied last)")
+    p.add_argument("--pose-solver", default="device",
+                   choices=("cv2", "device"),
+                   help="device (the default here) = batched essential-"
+                        "matrix RANSAC on the card (sfm/pose.py); cv2, the "
+                        "JAX command's default, is not ported and raises")
+    p.add_argument("--device", default=None,
+                   help="where the model runs (default: the card, 'cuda'; "
+                        "'cpu' for the CPU)")
+    args = p.parse_args(argv)
+
+    overrides = {}
+    if args.thr is not None:
+        overrides.setdefault("loftr", {}).setdefault(
+            "match_coarse", {})["thr"] = args.thr
+    if args.img_size is not None:
+        overrides["dataset"] = {"mgdpt_img_resize": args.img_size}
+    cfg = build_config(args.model, args.data, overrides or None)
+    if args.overrides_json:
+        cfg = cfg_override(cfg, json.loads(args.overrides_json))
+    model = build_model(cfg.loftr)
+    init_random_(model, torch.Generator().manual_seed(0))
+    if args.ckpt:
+        from casmtr_tpu_torch.train.checkpoints import \
+            load_checkpoint_variables
+        load_checkpoint_variables(args.ckpt, model)
+    results = run_eval(cfg, model, max_pairs=args.max_pairs,
+                       profiler_name=args.profiler, dump_dir=args.dump_dir,
+                       pose_solver=args.pose_solver, device=args.device)
+    print(json.dumps({k: float(v) for k, v in results.items()}, indent=2))
+    return results
+
+
+if __name__ == "__main__":
+    main()

@@ -1,28 +1,59 @@
-"""Training entry point of the port (counterpart of casmtr_tpu/cli/train.py).
-It holds the stage-aware resume for now; the command itself comes with the
-data layer.
+"""The training command of the port (counterpart of casmtr_tpu/cli/train.py)
+on one card:
+
+    python -m casmtr_tpu_torch.cli.train --model outdoor_casmtr_4c \
+        --data megadepth_trainval_704 --run-dir runs/x
+
+reads the data recipe's train and val splits from disk (``data/module.
+MultiSceneDataModule``; point them elsewhere with ``--overrides-json``),
+scales the learning rate and warmup to the batch, runs a sanity
+validation, trains with a validation per ``--val-every-epochs`` epochs,
+keeps the best checkpoints by auc@10 and always the newest (``run-dir/
+ckpts``), and resumes (``--resume``, stage-aware through ``resume_state``).
 
 A run starts with ``train_step.init_train_state`` and saves
 ``train.checkpoints.checkpoint_state`` of its state through a
 ``CheckpointManager``; a later run (the same stage, or the next stage of a
 staged recipe) builds its own fresh state and passes it with the restored
 checkpoint to ``resume_state``.
+
+Deviations from the JAX command: validation poses with the batched device
+solver (``sfm.pose``; OpenCV's RANSAC is not ported) and draws no figures;
+there is no TensorBoard writer (it needs TensorFlow), so the scalars go to
+the console; one process on one card, so ``--dist*`` raise (ROADMAP queue
+A item 6).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import os
+import time
 from typing import Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
-from casmtr_tpu_torch.config import Config
-from casmtr_tpu_torch.train.checkpoints import load_into_state
+from casmtr_tpu_torch.cli.evaluate import run_eval
+from casmtr_tpu_torch.config import Config, dump, override
+from casmtr_tpu_torch.configs import build_config
+from casmtr_tpu_torch.data.loader import _ARRAY_KEYS
+from casmtr_tpu_torch.data.module import MultiSceneDataModule
+from casmtr_tpu_torch.models import build_model
+from casmtr_tpu_torch.serving import resolve_device
+from casmtr_tpu_torch.train.checkpoints import (CheckpointManager,
+                                                checkpoint_state,
+                                                load_into_state)
 from casmtr_tpu_torch.train.optim import (AdamW, OptState, build_lr_schedule,
                                           build_optimizer, new_stage_labels,
-                                          scaled_lr, set_schedule_step)
-from casmtr_tpu_torch.train.train_step import TrainState
+                                          scaled_lr, scaled_warmup_step,
+                                          set_schedule_step)
+from casmtr_tpu_torch.train.train_step import (TrainState, init_train_state,
+                                               make_train_step)
+from casmtr_tpu_torch.utils.logging import get_logger
+from casmtr_tpu_torch.weights import init_random_
 
 
 def _fits(saved: Dict, fresh: OptState) -> bool:
@@ -106,3 +137,234 @@ def resume_state(cfg: Config, state: TrainState, restored: Dict,
                     ema[n].copy_(t)
     schedule = build_lr_schedule(tcfg, base_lr, steps_per_epoch)
     return TrainState(rstep, model, opt_state, ema), tx, schedule
+
+
+def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
+    """The training step's inputs of a loader batch on ``device``: its
+    numpy arrays among the loader's stacked keys (names and ids stay
+    behind)."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()
+            if k in _ARRAY_KEYS and isinstance(v, np.ndarray)}
+
+
+def run_validation(cfg: Config, model: torch.nn.Module, val_loader,
+                   max_pairs: int = 200, device=None) -> Dict:
+    """One validation pass of ``model`` over at most ``max_pairs`` pairs of
+    ``val_loader``: ``evaluate.run_eval`` on the loader (the batched device
+    pose solver; the JAX command poses with OpenCV's RANSAC, which is not
+    ported), or {} without pairs.  The model is left in eval mode (the
+    training step puts it back in train mode)."""
+    return run_eval(cfg, model, max_pairs=max_pairs, device=device,
+                    loader=val_loader)
+
+
+def _validate(cfg, state: TrainState, val_loader, max_pairs, device):
+    """``run_validation`` of the state's model, with the EMA parameters in
+    place of the raw ones when ``trainer.test_ema`` (the raw ones come
+    back after it)."""
+    if not (cfg.trainer.test_ema and state.ema_params is not None):
+        return run_validation(cfg, state.model, val_loader, max_pairs, device)
+    params = dict(state.model.named_parameters())
+    raw = {n: p.detach().clone() for n, p in params.items()}
+    print("validation uses EMA params (trainer.test_ema=True)")
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(state.ema_params[n])
+    results = run_validation(cfg, state.model, val_loader, max_pairs, device)
+    with torch.no_grad():
+        for n, p in params.items():
+            p.copy_(raw[n])
+    return results
+
+
+def main(argv=None) -> Dict:
+    """The training command.  Returns {"step", "run_dir", "val"} (the
+    final step, the run directory and the last validation's results)."""
+    p = argparse.ArgumentParser(
+        description="CasMTR training on one card, in PyTorch",
+        epilog="Unlike the JAX command, validation poses with the batched "
+               "device solver (OpenCV's RANSAC is not ported), draws no "
+               "figures and logs to the console (no TensorBoard), and "
+               "--dist* raise: the port trains on one card.")
+    p.add_argument("--model", default="outdoor_casmtr_4c")
+    p.add_argument("--data", default="megadepth_trainval_704")
+    p.add_argument("--run-dir", default="runs/default")
+    p.add_argument("--batch-size", type=int, default=1,
+                   help="batch size (one card)")
+    p.add_argument("--epochs", type=int, default=30)
+    p.add_argument("--stage", type=int, default=None,
+                   help="training stage override (1 = coarse only, "
+                        "2 = + cascade)")
+    p.add_argument("--resume", default=None,
+                   help="checkpoint directory to resume from (non-strict "
+                        "for new stages)")
+    p.add_argument("--reset-lr", action="store_true")
+    p.add_argument("--refine", action="store_true",
+                   help="PMT refine: frozen quadtree trunk + ladder + cas_ "
+                        "heads")
+    p.add_argument("--quadtree-ckpt", default=None,
+                   help="pretrained quadtree checkpoint for --refine (a "
+                        "reference .ckpt/.pth or a port checkpoint "
+                        "directory)")
+    p.add_argument("--num-workers", type=int, default=4)
+    p.add_argument("--log-every", type=int, default=50)
+    p.add_argument("--val-every-epochs", type=int, default=1)
+    p.add_argument("--max-val-pairs", type=int, default=200)
+    p.add_argument("--sanity-val-steps", type=int, default=2,
+                   help="val pairs to run before training")
+    p.add_argument("--seed", type=int, default=66)
+    p.add_argument("--overrides-json", default=None,
+                   help="inline JSON config overrides (applied last)")
+    p.add_argument("--device", default=None,
+                   help="where the model trains (default: the card, "
+                        "'cuda'; 'cpu' for the CPU)")
+    p.add_argument("--dist", action="store_true",
+                   help="not ported: the port trains on one card "
+                        "(ROADMAP queue A item 6); raises")
+    p.add_argument("--dist-coordinator", default=None,
+                   help="not ported (see --dist); raises")
+    p.add_argument("--dist-num-processes", type=int, default=None,
+                   help="not ported (see --dist); raises")
+    p.add_argument("--dist-process-id", type=int, default=None,
+                   help="not ported (see --dist); raises")
+    args = p.parse_args(argv)
+    if (args.dist or args.dist_coordinator or args.dist_num_processes
+            is not None or args.dist_process_id is not None):
+        raise NotImplementedError(
+            "--dist*: multi-process training is not ported; the port trains "
+            "on one card (ROADMAP.md queue A item 6)")
+
+    device = resolve_device(args.device)
+    overrides = {"trainer": {"seed": args.seed}}
+    if args.stage is not None:
+        overrides["loftr"] = {"training_stage": args.stage}
+    cfg = build_config(args.model, args.data, overrides)
+    if args.overrides_json:
+        cfg = override(cfg, json.loads(args.overrides_json))
+    global_bs = args.batch_size
+    base_lr = scaled_lr(cfg.trainer, global_bs,
+                        cfg.dataset.trainval_data_source)
+    # warmup steps scale inversely with the batch; the dumped config holds
+    # the scaled value, so a resume reuses it as it is
+    cfg = override(cfg, {"trainer": {"warmup_step": scaled_warmup_step(
+        cfg.trainer, global_bs, cfg.dataset.trainval_data_source)}})
+    print(f"device={device} global_bs={global_bs} lr={base_lr:.2e} "
+          f"warmup={cfg.trainer.warmup_step}")
+    os.makedirs(args.run_dir, exist_ok=True)
+    dump(cfg, os.path.join(args.run_dir, "config.json"))
+    log = get_logger()
+
+    dm = MultiSceneDataModule(cfg)
+    train_loader = dm.train_loader(args.batch_size,
+                                   num_workers=args.num_workers)
+    val_loader = dm.eval_loader(dm.val_dataset(), batch_size=1,
+                                num_workers=args.num_workers)
+    steps_per_epoch = max(1, len(train_loader))
+
+    frozen_fn = None
+    if args.refine:
+        from casmtr_tpu_torch.models.casmtr_refine import frozen_param_label
+        frozen_fn = frozen_param_label
+    model = build_model(cfg.loftr, refine=args.refine)
+    init_random_(model, torch.Generator().manual_seed(cfg.trainer.seed))
+    if args.refine and args.quadtree_ckpt:
+        # non-strict trunk load: the ladder and cas_ heads keep their init
+        if args.quadtree_ckpt.endswith((".ckpt", ".pth")):
+            from casmtr_tpu_torch.utils.convert import (convert_state_dict,
+                                                        load_torch_checkpoint)
+            report = convert_state_dict(
+                load_torch_checkpoint(args.quadtree_ckpt), model,
+                strict=False)
+            print(f"quadtree trunk loaded: {len(report['missing'])} fresh, "
+                  f"{len(report['unused'])} unused")
+        else:
+            restored = CheckpointManager(args.quadtree_ckpt).restore()
+            if restored is not None:
+                load_into_state(restored["state_dict"], model)
+    state, tx = init_train_state(model, cfg, steps_per_epoch, base_lr,
+                                 frozen_label_fn=frozen_fn, device=device)
+    ckpt_mgr = CheckpointManager(os.path.join(args.run_dir, "ckpts"),
+                                 metric_name="auc@10")
+    # the NaN dump has its own manager: beside the real checkpoints it
+    # would be dropped as a low-metric entry
+    nan_mgr = None
+    lr_sched = build_lr_schedule(cfg.trainer, base_lr, steps_per_epoch)
+    if args.resume:
+        restored = CheckpointManager(args.resume).restore()
+        if restored is not None:
+            state, tx, lr_sched = resume_state(
+                cfg, state, restored, base_lr, steps_per_epoch,
+                reset_lr=args.reset_lr, resume_dir=args.resume,
+                frozen_label_fn=frozen_fn, global_bs=global_bs)
+            print(f"resumed from {args.resume} at step {state.step}")
+    step_fn = make_train_step(model, cfg, tx, device=device)
+
+    if args.sanity_val_steps > 0:
+        # catches a broken validation path before a training epoch
+        run_validation(cfg, model, val_loader,
+                       max_pairs=args.sanity_val_steps, device=device)
+        print(f"sanity validation ok ({args.sanity_val_steps} pairs)")
+
+    results: Dict = {}
+    for epoch in range(args.epochs):
+        # data_s: host time blocked on the loader; step_s: the rest of the
+        # step (its scalars are read at each log line, which waits for the
+        # card).  A loader-bound run shows data_s well above 0.  The first
+        # window is labelled compile_s, as in the JAX command: PyTorch
+        # compiles nothing, but the first step builds the kernels and pays
+        # cuDNN's autotuning.
+        t0 = time.time()
+        t_data = 0.0
+        t_mark = time.time()
+        win_t0, win_data, win_n = time.time(), 0.0, 0
+        for i, batch in enumerate(train_loader):
+            dt_data = time.time() - t_mark
+            t_data += dt_data
+            win_data += dt_data
+            state, scalars = step_fn(state, device_batch(batch, device))
+            win_n += 1
+            if i % args.log_every == 0:
+                s = {k: float(v) for k, v in scalars.items()}
+                now = time.time()
+                s["lr"] = float(lr_sched(state.step))
+                win_step = (now - win_t0 - win_data) / win_n
+                cum_step = (now - t0 - t_data) / (i + 1)
+                step_tag = "compile_s" if i == 0 and epoch == 0 else "step_s"
+                rate = win_n / (now - win_t0 + 1e-9)
+                print(f"epoch {epoch} step {i}/{steps_per_epoch} "
+                      f"loss={s['loss']:.4f} {rate:.2f} it/s "
+                      f"data_s={win_data / win_n:.3f} "
+                      f"{step_tag}={win_step:.3f} avg_step_s={cum_step:.3f} "
+                      + " ".join(
+                          f"{k}={v:.2e}" if k == "lr" else f"{k}={v:.3f}"
+                          for k, v in s.items() if k != "loss"), flush=True)
+                win_t0, win_data, win_n = time.time(), 0.0, 0
+                if not np.isfinite(s["loss"]):
+                    # the step skips its update on a non-finite loss, so
+                    # the dump holds the last good state
+                    if nan_mgr is None:
+                        nan_mgr = CheckpointManager(
+                            os.path.join(args.run_dir, "nan_dump"),
+                            max_to_keep=1, keep_last=False)
+                    nan_mgr.save(state.step, checkpoint_state(state))
+                    raise RuntimeError(f"NaN loss at step {state.step}")
+            t_mark = time.time()
+
+        if (epoch + 1) % args.val_every_epochs == 0:
+            results = _validate(cfg, state, val_loader, args.max_val_pairs,
+                                device)
+            log.info("epoch %d val: %s", epoch, json.dumps(
+                {k: round(float(v), 4) for k, v in results.items()}))
+            ckpt_mgr.save(state.step, checkpoint_state(state),
+                          {k: float(v) for k, v in results.items()})
+
+    # the final save: epochs past the last validation would be lost
+    if ckpt_mgr.latest_step() != state.step:
+        ckpt_mgr.save(state.step, checkpoint_state(state), {"auc@10": -1.0})
+        print(f"final checkpoint saved at step {state.step}")
+    return {"step": state.step, "run_dir": args.run_dir, "val": results}
+
+
+if __name__ == "__main__":
+    main()

@@ -8,12 +8,13 @@ reference ``.ckpt``/``.pth`` or a port checkpoint directory,
 ``train.checkpoints.load_checkpoint_variables``), else random from a seed;
 the JAX package's variables load afterwards with
 ``casmtr_tpu_torch.weights.load_jax_variables(matcher.model, ...)``.  Inputs
-are arrays: image paths are not ported yet (they need an image decoder
-without cv2; ROADMAP queue A, data).
+are arrays or image paths (JPEG or PNG, read by ``data/codecs`` as
+``cv2.imread`` reads them, without cv2).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -24,6 +25,8 @@ from casmtr_tpu_torch.config import Config, override
 from casmtr_tpu_torch.configs import build_config
 from casmtr_tpu_torch.models import build_model
 from casmtr_tpu_torch.weights import init_random_
+
+ImageLike = Union[str, os.PathLike, np.ndarray]
 
 
 class MatchResult(NamedTuple):
@@ -53,9 +56,13 @@ def configure_card() -> None:
     torch.backends.cudnn.benchmark = True
 
 
-def _to_rgb_array(img: np.ndarray) -> np.ndarray:
-    """[H, W] gray, [H, W, 3] RGB or [H, W, 4] RGBA (alpha dropped); uint8 in
+def _to_rgb_array(img: ImageLike) -> np.ndarray:
+    """A path (``data/io._imread`` in colour, / 255) or an array: [H, W]
+    gray, [H, W, 3] RGB or [H, W, 4] RGBA (alpha dropped); uint8 in
     [0, 255] or float (rescaled if it looks like a 0-255 range)."""
+    if isinstance(img, (str, os.PathLike)):
+        from casmtr_tpu_torch.data.io import _imread
+        return _imread(img, gray=False).astype(np.float32) / 255.0
     arr = np.asarray(img)
     if arr.ndim == 2:
         arr = np.repeat(arr[:, :, None], 3, axis=2)
@@ -131,7 +138,7 @@ class Matcher:
             load_checkpoint_variables(ckpt, self.model)
         self.model.to(self.device).eval()
 
-    def _preprocess(self, img: np.ndarray):
+    def _preprocess(self, img: ImageLike):
         """Resize the long side into the bucket (df-divisible), pad
         bottom-right.  Returns (canvas [S, S, 3], mask [S, S] bool, scale [2]
         original px per model px).  The resize, when one is needed, is
@@ -155,7 +162,7 @@ class Matcher:
         mask[:h_new, :w_new] = True
         return canvas, mask, np.array([w / w_new, h / h_new], np.float32)
 
-    def _pack(self, pairs: Sequence[Tuple[np.ndarray, np.ndarray]]):
+    def _pack(self, pairs: Sequence[Tuple[ImageLike, ImageLike]]):
         cols: Dict[str, List[np.ndarray]] = {
             k: [] for k in ("image0", "image1", "mask0", "mask1", "scale0",
                             "scale1")}
@@ -168,11 +175,11 @@ class Matcher:
         return {k: torch.from_numpy(np.stack(v)).to(self.device)
                 for k, v in cols.items()}
 
-    def match(self, img0: np.ndarray, img1: np.ndarray) -> MatchResult:
-        """Match one pair of any sizes."""
+    def match(self, img0: ImageLike, img1: ImageLike) -> MatchResult:
+        """Match one pair of any sizes (arrays or image paths)."""
         return self.match_batch([(img0, img1)])[0]
 
-    def match_batch(self, pairs: Sequence[Tuple[np.ndarray, np.ndarray]]
+    def match_batch(self, pairs: Sequence[Tuple[ImageLike, ImageLike]]
                     ) -> List[MatchResult]:
         """Match B pairs in one forward.  Selection is one top-(B*M) by
         confidence across the batch (every capacity scaled by B), so per-pair

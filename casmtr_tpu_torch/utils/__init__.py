@@ -1,3 +1,4 @@
 """Utilities of the port (counterpart of casmtr_tpu/utils/): the loading
 of reference checkpoints (``convert``), the evaluation metrics
-(``metrics``) and region timers (``profiler``)."""
+(``metrics``), region timers (``profiler``) and the commands' logger
+(``logging``)."""

@@ -239,6 +239,32 @@ lines and its seconds:
    cli.evaluate.run_eval of 4c on 8 pairs of a textured plane at 832^2
    (known K, R, t) through the port's DataLoader: launches 8 x 4c's per
    pair, the AUC and precision finite (printed: random weights), pairs/s.
+13. Files (the committed fixtures of scripts/make_port_io_fixtures.py under
+   tests/data/port_io: small decode cases, a MegaDepth-layout scene of 4
+   views at 1200x800 with h5 depth, a ScanNet-layout scene of 3 frames at
+   1296x968 with 16-bit PNG depth).  (a) The host library built from
+   csrc/host/ with c++; every manifest entry decoded by data/codecs and
+   held bit-equal to cv2.imread's or h5py's result (sha256), the
+   progressive JPEG refused; median ms per image of the decodes (the depth
+   h5 also as h5py writes it by default, contiguous) and of the two
+   resizes.  (b) cli.evaluate.main of 4c with megadepth_test_1500 on the
+   MegaDepth-layout scene listed 4 times (24 pairs) in the card's default
+   after a one-pair warm-up: its JSON, pairs/s beside phase 12's run_eval
+   on arrays, the loader's share of the steady state (the pairs after its
+   workers and prefetch have run out), launches 24 x 4c's per pair.  (c)
+   cli.train.main of 4c with megadepth_trainval_704 on that scene, its
+   depth files rewritten as h5py writes them by default (contiguous, as
+   the real ones): 32 steps with 4 loader threads, a sanity validation of
+   1 pair and a validation of 2 (launches 32 x per step + 3 x per pair),
+   finite losses, ground-truth coarse matches at every step, the
+   checkpoints and config.json written, step_s and data_s over steps 9-32
+   beside phase 7's bf16 step, the loader alone in samples/s at 1 and 4
+   threads on both depth layouts; then --resume on the committed files
+   for 4 more steps (the step count continues to 36); then 2
+   steps of the indoor recipe with scannet_trainval on the ScanNet-layout
+   scene.  (d) Matcher.match on two image paths bit-identical to
+   Matcher.match on the arrays data/io._imread gives for them (thresholds
+   at 0).
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -452,6 +478,34 @@ for _recipe, _names in FILTER_RUNS.items():
 EVAL_NAME = "outdoor_casmtr_4c run_eval"
 MODELS[EVAL_NAME] = MODELS["outdoor_casmtr_4c"]
 LAYOUT[EVAL_NAME] = LAYOUT["outdoor_casmtr_4c"]
+# phase 13: the commands on the committed file fixtures
+# (scripts/make_port_io_fixtures.py): evaluate on the MegaDepth-layout scene,
+# train 4c on it (with a sanity validation and a validation), resume, and
+# train the indoor recipe on the ScanNet-layout scene
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "data", "port_io")
+IO_EVAL = "outdoor_casmtr_4c evaluate"
+IO_TRAIN = "outdoor_casmtr_4c train"
+IO_RESUME = "outdoor_casmtr_4c train --resume"
+IO_INDOOR = "indoor_casmtr_4c_runnable train"
+for _name, _base in ((IO_EVAL, "outdoor_casmtr_4c"),
+                     (IO_TRAIN, "outdoor_casmtr_4c"),
+                     (IO_RESUME, "outdoor_casmtr_4c"), (IO_INDOOR, INDOOR)):
+    MODELS[_name] = MODELS[_base]
+    LAYOUT[_name] = LAYOUT[_base]
+# evaluate reads the scene IO_EVAL_REPEATS times over (its list file names
+# it so often): IO_PAIRS pairs, enough that the loader's head start (its
+# workers and prefetch) is spent well before the last pair
+IO_SCENE_PAIRS, IO_EVAL_REPEATS = 6, 4
+IO_PAIRS = IO_SCENE_PAIRS * IO_EVAL_REPEATS
+# train: IO_STEPS samples drawn with replacement from the scene's pairs,
+# the steady-state medians over the steps after the loader's head start;
+# the resumed run takes IO_RESUME_STEPS more
+IO_WORKERS = 4
+IO_STEPS, IO_RESUME_STEPS, IO_SANITY, IO_VAL = 32, 4, 1, 2
+IO_INDOOR_STEPS = 2
+IO_LOADER_SAMPLES = 16   # the training loader timed alone, at 1 and 4 threads
+IO_REPS = 10          # decode and resize timings: median of this many
 # phase 10: the checkpointed serving recipe and the staged recipe, whose
 # stages 1 and 2 run the 1/8 stack alone and with the 1/4 level
 CKPT_RECIPE = "outdoor_casmtr_4c"
@@ -4067,7 +4121,8 @@ def evaluate_phase(torch):
     plane at EVAL_SIZE^2 (plane_pair: a known K, R, t) through the port's
     DataLoader, after a one-pair warm-up; the launch counts zeroed just
     before and held to EVAL_PAIRS x 4c's per-pair counts after; the AUC
-    and precision finite; pairs/s.  Returns its serving run."""
+    and precision finite; pairs/s.  Returns its serving run and its
+    pairs/s."""
     from casmtr_tpu_torch.cli.evaluate import run_eval
     from casmtr_tpu_torch.configs import build_config
     from casmtr_tpu_torch.models import build_model
@@ -4100,7 +4155,492 @@ def evaluate_phase(torch):
           "evaluate: a non-finite result")
     check(totals == {k: v * EVAL_PAIRS for k, v in per_pair.items()},
           f"evaluate: launches {totals}, expected {EVAL_PAIRS} x {per_pair}")
+    return {"bf16": (totals, per_pair, [])}, EVAL_PAIRS / wall
+
+
+# --------------------------------------------------------------------------
+# phase 13: files
+# --------------------------------------------------------------------------
+
+def raised(fn, *args):
+    """The exception ``fn(*args)`` raises, or None."""
+    try:
+        fn(*args)
+    except Exception as e:  # noqa: BLE001 - the caller checks what it is
+        return e
+    return None
+
+
+def digest(arr):
+    """The manifest's entry of an array (native byte order)."""
+    import hashlib
+    arr = np.ascontiguousarray(arr)
+    arr = arr.astype(arr.dtype.newbyteorder("="))
+    return {"shape": list(arr.shape), "dtype": str(arr.dtype),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest()}
+
+
+def contiguous_h5(template, name, arr, path):
+    """Write ``arr`` to ``path`` as the file h5py writes by default
+    (version-0 superblock, one contiguous dataset ``name``), grown from
+    ``template``: such a file of the same name, dtype and rank whose data
+    ends it.  Its dims and max dims, its layout's size and its end-of-file
+    address are rewritten and its data replaced (the card's machine has no
+    h5py, and a full-size depth file is too large to commit)."""
+    import struct
+    from casmtr_tpu_torch.data import codecs
+    raw = open(template, "rb").read()
+    old = codecs.read_h5_dataset(template, name)
+    addr = len(raw) - old.nbytes
+    dims = [struct.pack(f"<{old.ndim}Q", *a.shape) for a in (old, arr)]
+    layout = [struct.pack("<2Q", addr, a.nbytes) for a in (old, arr)]
+    eof = struct.pack("<Q", len(raw))
+    check(old.dtype == arr.dtype and old.ndim == arr.ndim
+          and raw[:8] == b"\x89HDF\r\n\x1a\n" and raw[8] == 0
+          and raw[40:48] == eof and raw.count(dims[0]) == 2
+          and raw.count(layout[0]) == 1, f"{template}: not a version-0 "
+          "file of one contiguous dataset that ends it")
+    head = raw[:addr].replace(dims[0], dims[1]).replace(layout[0], layout[1])
+    head = head[:40] + struct.pack("<Q", addr + arr.nbytes) + head[48:]
+    with open(path, "wb") as f:
+        f.write(head + np.ascontiguousarray(arr).tobytes())
+
+
+def contiguous_scene(tmp):
+    """The fixtures' MegaDepth-layout scene under ``tmp`` with its depth
+    files as h5py writes them by default (contiguous, the layout of the
+    real MegaDepth depth files; the committed ones are chunked and
+    deflated to keep them small): the images linked, each depth file
+    rewritten.  Returns the data root (the scene's index stays the
+    fixtures')."""
+    from casmtr_tpu_torch.data import codecs
+    src = os.path.join(FIXTURES, "megadepth")
+    root = os.path.join(tmp, "megadepth_contiguous")
+    os.makedirs(root)
+    os.symlink(os.path.join(src, "Undistorted_SfM"),
+               os.path.join(root, "Undistorted_SfM"))
+    info = np.load(os.path.join(src, "index", "scene_info", "0000.npz"),
+                   allow_pickle=True)
+    for rel in info["depth_paths"]:
+        os.makedirs(os.path.dirname(os.path.join(root, rel)), exist_ok=True)
+        contiguous_h5(os.path.join(FIXTURES, "decode", "h5_contiguous.h5"),
+                      "depth", codecs.read_h5_dataset(
+                          os.path.join(src, rel), "depth"),
+                      os.path.join(root, rel))
+    return root
+
+
+def median_ms(fn, *args, reps=IO_REPS):
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn(*args)
+        ts.append(time.perf_counter() - t0)
+    return 1e3 * statistics.median(ts)
+
+
+def decode_phase(torch, tmp):
+    """Phase 13(a): the host library built from csrc/host/ with c++ (its
+    seconds printed); every entry of the fixtures' manifest decoded and
+    held bit-equal to cv2.imread's or h5py's result (its sha256), the
+    progressive JPEG refused with an error naming the file and SOF2; the
+    median ms per image of the MegaDepth-size JPEG (colour and gray), the
+    640x480 16-bit depth PNG, one depth h5 as the fixtures hold it
+    (chunked) and as h5py writes it by default (contiguous, written under
+    ``tmp``), the padding resize to 832 and the uint8 resize of a 1296x968
+    frame to 640x480."""
+    from casmtr_tpu_torch.data import codecs, host
+    from casmtr_tpu_torch.data import io as dio
+    t0 = time.perf_counter()
+    host.lib(fresh=True)
+    log(f"decode: host library {host.CXX_FLAGS} built in "
+        f"{host.build_seconds:.1f} s (load {time.perf_counter() - t0:.1f} s)"
+        f" into {host.library_path().parent.name}")
+    with open(os.path.join(FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    modes = {"color": codecs.IMREAD_COLOR, "gray": codecs.IMREAD_GRAYSCALE,
+             "unchanged": codecs.IMREAD_UNCHANGED}
+    n = 0
+    for rel, want in sorted(manifest.items()):
+        path = os.path.join(FIXTURES, rel)
+        if "refused" in want:
+            e = raised(codecs.imread, path)
+            check(isinstance(e, ValueError) and want["refused"] in str(e)
+                  and path in str(e), f"decode: {rel} not refused ({e!r})")
+            log(f"decode: {rel} refused: {e}")
+            continue
+        for mode, entry in want.items():
+            arr = (codecs.read_h5_dataset(path, mode) if rel.endswith(".h5")
+                   else codecs.imread(path, modes[mode]))
+            check(digest(arr) == entry, f"decode: {rel} {mode}: "
+                  f"{digest(arr)} != {entry}")
+            n += 1
+    log(f"decode: {n} reads of {len(manifest) - 1} files bit-equal to the "
+        "manifest (cv2.imread / h5py)")
+    md = os.path.join(FIXTURES, "megadepth")
+    sn = os.path.join(FIXTURES, "scannet", "scans", "scene0000_00")
+    jpg = os.path.join(md, "Undistorted_SfM/0000/images/0000.jpg")
+    h5 = os.path.join(md, "phoenix/S6/zl548/MegaDepth_v1/0000/dense0/"
+                          "depths/0000.h5")
+    png = os.path.join(sn, "depth", "0.png")
+    frame = codecs.imread(os.path.join(sn, "color", "0.jpg"))
+    img = codecs.imread(jpg)
+    # the same depth as h5py writes it by default, the layout of the real
+    # MegaDepth depth files (the fixtures' are chunked and deflated to keep
+    # them small)
+    depth = codecs.read_h5_dataset(h5, "depth")
+    flat = os.path.join(tmp, "depth_contiguous.h5")
+    contiguous_h5(os.path.join(FIXTURES, "decode", "h5_contiguous.h5"),
+                  "depth", depth, flat)
+    check(np.array_equal(codecs.read_h5_dataset(flat, "depth"), depth),
+          "decode: the contiguous depth file reads back differently")
+    times = {
+        "jpeg 1200x800 color": median_ms(codecs.imread, jpg),
+        "jpeg 1200x800 gray": median_ms(codecs.imread, jpg,
+                                        codecs.IMREAD_GRAYSCALE),
+        "png 640x480 uint16": median_ms(codecs.imread, png,
+                                        codecs.IMREAD_UNCHANGED),
+        "h5 depth 1200x800 chunked": median_ms(codecs.read_h5_dataset, h5,
+                                               "depth"),
+        "h5 depth 1200x800 contiguous": median_ms(codecs.read_h5_dataset,
+                                                  flat, "depth"),
+        "resize_pad_normalize 1200x800 -> 832": median_ms(
+            dio.resize_pad_normalize, img, 512, 832, 832),
+        "resize_u8 1296x968 -> 640x480": median_ms(dio.resize_u8, frame,
+                                                   (640, 480)),
+    }
+    log("decode: median ms per image (one host thread): " + ", ".join(
+        f"{k} {v:.2f}" for k, v in times.items()))
+    return times
+
+
+class Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def text(self):
+        return "".join(self.parts)
+
+
+def captured(fn, *args):
+    """(fn(*args), what it printed), the printing passed through."""
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        out = fn(*args)
+    return out, tee.text()
+
+
+def fixture_overrides(split, dataset):
+    """The data recipe's ``split`` ("test", "train", "val") pointed at the
+    fixtures' MegaDepth- or ScanNet-layout scene."""
+    if dataset == "MegaDepth":
+        root = os.path.join(FIXTURES, "megadepth")
+        index = os.path.join(root, "index")
+        out = {f"{split}_npz_root": os.path.join(index, "scene_info")}
+    else:
+        root = os.path.join(FIXTURES, "scannet", "scans")
+        index = os.path.join(FIXTURES, "scannet", "index")
+        out = {f"{split}_npz_root": index, f"{split}_intrinsic_path":
+               os.path.join(index, "intrinsics.npz")}
+    return dict(out, **{f"{split}_data_root": root, f"{split}_list_path":
+                        os.path.join(index, "list.txt")})
+
+
+def io_evaluate_phase(torch, tmp, earlier):
+    """Phase 13(b): python -m casmtr_tpu_torch.cli.evaluate (its main) of
+    outdoor_casmtr_4c with megadepth_test_1500 pointed at the fixtures'
+    MegaDepth-layout scene, listed IO_EVAL_REPEATS times (a list file
+    under ``tmp``: IO_PAIRS pairs), in the card's default (bf16), after a
+    one-pair warm-up: the printed JSON; pairs/s over the wall (the model
+    build included) and in the steady state, beside phase 12's run_eval on
+    arrays when ``earlier`` holds it; the loader's share of the steady
+    state (the "Data loading" region, the wait for the next batch, over
+    the three regions of the pairs after the loader's workers and prefetch
+    have run out); the launches held to IO_PAIRS x 4c's per pair."""
+    from casmtr_tpu_torch.cli import evaluate
+    from casmtr_tpu_torch.data.loader import DataLoader
+    from casmtr_tpu_torch.ops import kernels
+    listing = os.path.join(tmp, "test_list.txt")
+    with open(listing, "w") as f:
+        f.write("0000\n" * IO_EVAL_REPEATS)
+    ov = {"dataset": dict(fixture_overrides("test", "MegaDepth"),
+                          test_list_path=listing)}
+    argv = ["--model", "outdoor_casmtr_4c", "--data", "megadepth_test_1500",
+            "--overrides-json", json.dumps(ov)]
+    profilers = []
+    build = evaluate.build_profiler
+
+    def keeping(name):
+        profilers.append(build(name))
+        return profilers[-1]
+
+    evaluate.build_profiler = keeping
+    try:
+        with precision("bf16"):
+            evaluate.main(argv + ["--max-pairs", "1"])
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = evaluate.main(argv + ["--profiler", "inference"])
+            wall = time.perf_counter() - t0
+    finally:
+        evaluate.build_profiler = build
+    totals = dict(kernels.LAUNCHES)
+    per_pair = LAUNCHES_PER_PAIR[IO_EVAL]
+    # run_eval's loader: 4 workers and the default prefetch
+    head = 4 + DataLoader(None).prefetch
+    times = profilers[-1].times
+    steady = {k: times[k][head:IO_PAIRS]
+              for k in ("Data loading", "Model Matching", "RANSAC")}
+    n = len(steady["Model Matching"])
+    total = sum(sum(v) for v in steady.values())
+    share = sum(steady["Data loading"]) / total
+    beside = (f" (phase 12's run_eval on arrays: "
+              f"{earlier['run_eval pairs/s']:.2f} pairs/s)"
+              if "run_eval pairs/s" in earlier else "")
+    log(f"evaluate main: {IO_PAIRS} pairs from files in {wall:.2f} s, "
+        f"{IO_PAIRS / wall:.2f} pairs/s with the model build{beside}; "
+        f"pairs {head + 1}-{IO_PAIRS} ({n}): {n / total:.2f} pairs/s, "
+        "seconds per pair "
+        + ", ".join(f"{k} {statistics.median(v):.4f}"
+                    for k, v in steady.items())
+        + f" (medians), loader share {share:.4f} of their time "
+        f"(the wait for a batch at most "
+        f"{max(steady['Data loading']):.4f} s); launches {totals}")
+    check(set(res) == {"auc@5", "auc@10", "auc@20", "prec@1e-04"},
+          f"evaluate main: result keys {sorted(res)}")
+    check(all(np.isfinite(float(v)) for v in res.values()),
+          "evaluate main: a non-finite result")
+    check(n == IO_PAIRS - head and len(times["Data loading"]) == IO_PAIRS + 1,
+          f"evaluate main: {len(times['Model Matching'])} pairs timed, "
+          f"expected {IO_PAIRS}")
+    check(totals == {k: v * IO_PAIRS for k, v in per_pair.items()},
+          f"evaluate main: launches {totals}, expected {IO_PAIRS} x "
+          f"{per_pair}")
     return {"bf16": (totals, per_pair, [])}
+
+
+def window_times(text):
+    """The (data_s, step_s) of each log line of the training command (its
+    first window, compile_s, as step_s)."""
+    import re
+    out = []
+    for m in re.finditer(r"data_s=([0-9.]+) (?:compile_s|step_s)=([0-9.]+)",
+                         text):
+        out.append((float(m.group(1)), float(m.group(2))))
+    return out
+
+
+def io_train_run(torch, name, argv, steps, val_pairs):
+    """One run of the training command (its main) in the card's default:
+    the launch counts zeroed before and held to steps x the recipe's per
+    step plus val_pairs x its per pair after; every step's losses finite
+    and its ground-truth coarse matches (conf_matrix_gt_8c) above 0.
+    Returns (main's result, its output, the launches, the per-step
+    scalars, the gt counts, peak GiB)."""
+    from casmtr_tpu_torch.cli import train
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.train import supervision as spv
+    gts, scalars = [], []
+    compute, make = spv.compute_supervision, train.make_train_step
+
+    def counting(batch, lcfg):
+        gt = compute(batch, lcfg)
+        gts.append(int(gt["conf_matrix_gt_8c"].sum()))
+        return gt
+
+    def recording(*a, **kw):
+        step = make(*a, **kw)
+
+        def fn(state, batch):
+            state, s = step(state, batch)
+            scalars.append({k: float(v) for k, v in s.items()})
+            return state, s
+        return fn
+
+    spv.compute_supervision, train.make_train_step = counting, recording
+    torch.cuda.reset_peak_memory_stats()
+    with precision("bf16"):
+        kernels.reset_launch_counts()
+        try:
+            out, text = captured(train.main, argv)
+        finally:
+            spv.compute_supervision, train.make_train_step = compute, make
+    totals = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: steps * v + val_pairs * LAUNCHES_PER_PAIR[name][k]
+            for k, v in LAUNCHES_PER_TRAIN_STEP[name].items()}
+    check(len(scalars) == steps and len(gts) == steps,
+          f"{name}: {len(scalars)} steps, expected {steps}")
+    check(all(np.isfinite(v) for s in scalars for v in s.values()),
+          f"{name}: a non-finite loss or gradient norm {scalars}")
+    check(all(g > 0 for g in gts), f"{name}: a step without ground-truth "
+          f"coarse matches {gts}")
+    check(totals == want, f"{name}: launches {totals}, expected {want} "
+          f"({steps} steps, {val_pairs} validation pairs)")
+    log(f"{name}: {steps} steps, losses "
+        f"{[round(s['loss'], 4) for s in scalars]}, gt coarse matches "
+        f"{gts}, peak {peak:.2f} GiB; launches {totals}")
+    return out, text, totals, scalars, peak
+
+
+def loader_rate(cfg, workers):
+    """Samples per second of the training split's loader of ``cfg`` alone
+    (no model), at ``workers`` threads, from its start to its last batch."""
+    from casmtr_tpu_torch.data.module import MultiSceneDataModule
+    loader = MultiSceneDataModule(cfg).train_loader(1, num_workers=workers)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def io_train_phase(torch, tmp, earlier):
+    """Phase 13(c): python -m casmtr_tpu_torch.cli.train (its main) of
+    outdoor_casmtr_4c with megadepth_trainval_704 on the fixtures'
+    MegaDepth-layout scene with its depth files rewritten contiguous, as
+    h5py writes them by default (contiguous_scene): one epoch of IO_STEPS
+    steps (samples drawn with replacement from its pairs) with IO_WORKERS
+    loader threads, a sanity validation of IO_SANITY pairs and a
+    validation of IO_VAL; the checkpoints and config.json written; step_s
+    and data_s (medians over the steps after the loader's workers and
+    prefetch have run out) and peak memory, beside phase 7's bf16 step
+    when ``earlier`` holds it; the loader alone in samples/s at 1 and
+    IO_WORKERS threads, on those depth files and on the committed chunked
+    ones, against steps/s.  Then --resume from its checkpoint directory for
+    an epoch of IO_RESUME_STEPS on the committed files (the step count
+    continues), and IO_INDOOR_STEPS steps of indoor_casmtr_4c_runnable
+    with scannet_trainval on the ScanNet-layout scene (640x480 frames), no
+    validation.  Runs go under ``tmp``."""
+    from casmtr_tpu_torch.config import override
+    from casmtr_tpu_torch.configs import build_config
+    from casmtr_tpu_torch.data.loader import DataLoader
+    runs = {}
+    data = {"train": fixture_overrides("train", "MegaDepth"),
+            "val": fixture_overrides("val", "MegaDepth")}
+    flat = contiguous_scene(tmp)
+
+    def overrides(samples, contiguous):
+        ov = {"dataset": dict(**data["train"], **data["val"]),
+              "trainer": {"n_samples_per_subset": samples}}
+        if contiguous:
+            ov["dataset"].update(train_data_root=flat, val_data_root=flat)
+        return ov
+
+    run1, run2 = os.path.join(tmp, "run1"), os.path.join(tmp, "run2")
+    common = ["--model", "outdoor_casmtr_4c", "--data",
+              "megadepth_trainval_704", "--epochs", "1",
+              "--num-workers", str(IO_WORKERS), "--log-every", "1",
+              "--max-val-pairs", str(IO_VAL)]
+    out, text, totals, _, peak = io_train_run(
+        torch, IO_TRAIN, common + [
+            "--run-dir", run1, "--sanity-val-steps", str(IO_SANITY),
+            "--overrides-json", json.dumps(overrides(IO_STEPS, True))],
+        IO_STEPS, IO_SANITY + IO_VAL)
+    runs[IO_TRAIN, "bf16"] = (totals, LAUNCHES_PER_TRAIN_STEP[IO_TRAIN])
+    for f in ("config.json", f"ckpts/{IO_STEPS}.pt",
+              f"ckpts_last/{IO_STEPS}.pt", "ckpts/metrics.json"):
+        check(os.path.exists(os.path.join(run1, f)), f"train: no {f}")
+    check(out["step"] == IO_STEPS and "auc@10" in out["val"],
+          f"train: {out}")
+    head = IO_WORKERS + DataLoader(None).prefetch
+    times = window_times(text)[head:]
+    check(len(times) == IO_STEPS - head, f"train: {len(times)} steady "
+          f"steps logged, expected {IO_STEPS - head}")
+    data_s = statistics.median(t[0] for t in times)
+    step_s = statistics.median(t[1] for t in times)
+    beside = (f" (phase 7's 4c bf16 step, no loader: "
+              f"{earlier['4c bf16 step_s']:.4f} s)"
+              if "4c bf16 step_s" in earlier else "")
+    log(f"train main 704^2, steps {head + 1}-{IO_STEPS} ({len(times)}): "
+        f"step_s {step_s:.4f} s{beside}, data_s {data_s:.4f} s (at most "
+        f"{max(t[0] for t in times):.4f}; {data_s / (data_s + step_s):.4f} "
+        f"of the wall) with {IO_WORKERS} loader threads, peak {peak:.2f} GiB")
+    base = build_config("outdoor_casmtr_4c", "megadepth_trainval_704")
+    rates = {}
+    for layout, contiguous in (("contiguous", True), ("chunked", False)):
+        cfg = override(base, overrides(IO_LOADER_SAMPLES, contiguous))
+        rates[layout] = {w: loader_rate(cfg, w) for w in (1, IO_WORKERS)}
+        log(f"train loader alone, {IO_LOADER_SAMPLES} samples, depth h5 "
+            f"{layout}: " + ", ".join(
+                f"{w} threads {r:.2f} samples/s"
+                for w, r in rates[layout].items())
+            + f"; the training command's steps take {1 / step_s:.2f} "
+            "samples/s")
+    out, _, totals, _, _ = io_train_run(
+        torch, IO_RESUME, common + [
+            "--run-dir", run2, "--resume", os.path.join(run1, "ckpts"),
+            "--sanity-val-steps", "0",
+            "--overrides-json",
+            json.dumps(overrides(IO_RESUME_STEPS, False))],
+        IO_RESUME_STEPS, IO_VAL)
+    runs[IO_RESUME, "bf16"] = (totals, LAUNCHES_PER_TRAIN_STEP[IO_RESUME])
+    end = IO_STEPS + IO_RESUME_STEPS
+    check(out["step"] == end, f"train --resume: step {out['step']}, "
+          f"expected {end}")
+    check(os.path.exists(os.path.join(run2, f"ckpts/{end}.pt")),
+          "train --resume: no checkpoint")
+    ov = {"dataset": dict(**fixture_overrides("train", "ScanNet"),
+                          **fixture_overrides("val", "ScanNet")),
+          "trainer": {"n_samples_per_subset": IO_INDOOR_STEPS}}
+    out, _, totals, _, _ = io_train_run(
+        torch, IO_INDOOR, ["--model", INDOOR, "--data",
+                           "scannet_trainval", "--epochs", "1",
+                           "--num-workers", str(IO_WORKERS),
+                           "--log-every", "1", "--sanity-val-steps", "0",
+                           "--val-every-epochs", "2",
+                           "--run-dir", os.path.join(tmp, "run3"),
+                           "--overrides-json", json.dumps(ov)],
+        IO_INDOOR_STEPS, 0)
+    runs[IO_INDOOR, "bf16"] = (totals, LAUNCHES_PER_TRAIN_STEP[IO_INDOOR])
+    return runs, {"step_s": step_s, "data_s": data_s, "peak_gib": peak,
+                  "loader samples/s": rates}
+
+
+def io_matcher_phase(torch):
+    """Phase 13(d): Matcher.match on two paths of the MegaDepth-layout
+    scene against Matcher.match on the arrays data/io._imread returns for
+    them (4c, bucket 832, thresholds at 0 so that every stage matches, the
+    card's default): bit-identical outputs."""
+    from casmtr_tpu_torch.data.io import _imread
+    p0, p1 = (os.path.join(FIXTURES, "megadepth", "Undistorted_SfM", "0000",
+                           "images", f"000{i}.jpg") for i in (0, 1))
+    with precision("bf16"):
+        m = matcher_for("outdoor_casmtr_4c", thr=0.0, overrides=
+                        zero_threshold_overrides("outdoor_casmtr_4c"))
+        a = m.match(p0, p1)
+        b = m.match(_imread(p0, gray=False), _imread(p1, gray=False))
+    same = all(np.array_equal(x, y) for x, y in zip(a, b))
+    log(f"matcher: paths against arrays, {len(a.mconf)} matches, "
+        f"bit-identical: {same}")
+    check(same and len(a.mconf) > 0, "matcher: paths differ from arrays")
+
+
+def files_phase(torch, earlier=None):
+    """Phase 13: decoding, the evaluate and train commands, the Matcher's
+    paths.  ``earlier`` holds this run's readings of phases 7 and 12
+    ("4c bf16 step_s", "run_eval pairs/s") to print beside phase 13's;
+    without them (phase 13 run alone) nothing is printed beside."""
+    import tempfile
+    earlier = earlier or {}
+    with tempfile.TemporaryDirectory() as tmp:
+        times = timed("files: decode", decode_phase, torch, tmp)
+        serve = timed("files: evaluate", io_evaluate_phase, torch, tmp,
+                      earlier)
+        torch.cuda.empty_cache()
+        train_runs, train_times = timed("files: train", io_train_phase,
+                                        torch, tmp, earlier)
+    torch.cuda.empty_cache()
+    timed("files: matcher", io_matcher_phase, torch)
+    return times, serve, train_runs, train_times
 
 
 def timed(name, fn, *args):
@@ -4171,6 +4711,7 @@ def main(argv):
         if recipe != RESNET:
             timed(f"reference {recipe}", reference_phase, torch, recipe)
     train_runs = {}
+    earlier = {}    # readings of phases 7 and 12 that phase 13 prints beside
     for recipe in BASE_MODELS:
         for prec in ("bf16", "f32"):
             with precision(prec):
@@ -4178,6 +4719,8 @@ def main(argv):
                     f"training {recipe} {prec}", training_phase, torch,
                     recipe, prec)
                 train_runs[recipe, prec] = (totals, counts)
+                if (recipe, prec) == ("outdoor_casmtr_4c", "bf16"):
+                    earlier["4c bf16 step_s"] = statistics.median(times)
                 if prec == "bf16" or recipe not in (BASELINE, INDOOR,
                                                     REFINE):
                     timed(f"training profile {recipe} {prec}",
@@ -4197,7 +4740,11 @@ def main(argv):
         serve_runs[name], train_runs[name, "bf16"] = zoo_phase(torch, name)
     serve_runs.update(timed("filters", filter_phase, torch))
     timed("pose", pose_phase, torch)
-    serve_runs[EVAL_NAME] = timed("evaluate", evaluate_phase, torch)
+    serve_runs[EVAL_NAME], earlier["run_eval pairs/s"] = timed(
+        "evaluate", evaluate_phase, torch)
+    _, serve_runs[IO_EVAL], io_train_runs, _ = timed("files", files_phase,
+                                                     torch, earlier)
+    train_runs.update(io_train_runs)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

@@ -1,6 +1,8 @@
 """Boundaries of the PyTorch port: it imports neither JAX nor anything of
-the JAX package, its entry points run on the card unless asked for the CPU,
-and its kernel wrappers take the plain version only for CPU tensors."""
+the JAX package, nor cv2, h5py, PIL, imageio, matplotlib, tensorflow or
+torchvision (the card's machine has none of them), builds nothing at
+import, its entry points run on the card unless asked for the CPU, and its
+kernel wrappers take the plain version only for CPU tensors."""
 
 import ast
 import os
@@ -33,20 +35,39 @@ def _sources():
     return sorted(out)
 
 
+FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "cv2", "casmtr_tpu",
+                     "h5py", "PIL", "imageio", "matplotlib", "tensorflow",
+                     "torchvision")
+IMPORTED = ("casmtr_tpu_torch", "casmtr_tpu_torch.serving",
+            "casmtr_tpu_torch.models.casmtr", "casmtr_tpu_torch.data.io",
+            "casmtr_tpu_torch.data.module", "casmtr_tpu_torch.cli.evaluate",
+            "casmtr_tpu_torch.cli.train", "casmtr_tpu_torch.cli.match_pair")
+
+
+def _build_tree():
+    root = os.path.join(PKG, "_build")
+    return sorted(os.path.relpath(os.path.join(r, f), root)
+                  for r, _, fs in os.walk(root) for f in fs)
+
+
 def test_import_pulls_in_no_jax_and_no_jax_package():
-    code = ("import sys, casmtr_tpu_torch, casmtr_tpu_torch.serving, "
-            "casmtr_tpu_torch.models.casmtr\n"
+    """Importing the port, its data layer and its commands loads none of
+    the forbidden modules and builds nothing (``_build/`` unchanged)."""
+    before = _build_tree()
+    code = (f"import sys, {', '.join(IMPORTED)}\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'casmtr_tpu')]\n"
+            f"{FORBIDDEN_MODULES!r}]\n"
             "print(bad)\n"
             "sys.exit(1 if bad else 0)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+    assert _build_tree() == before
 
 
 _FORBIDDEN = [
-    re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|cv2)\b", re.M),
+    re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|cv2|h5py|PIL|"
+               r"imageio|matplotlib|tensorflow|torchvision)\b", re.M),
     re.compile(r"casmtr_tpu\."),
     re.compile(r"\bimport\s+casmtr_tpu(?!_torch)\b"),
     re.compile(r"\bfrom\s+casmtr_tpu\s+import\b"),
