@@ -100,10 +100,14 @@ def epidist_prec(errors: Sequence[np.ndarray], thresholds) -> Dict:
 
 
 def gather_metrics(metrics: Dict) -> Dict:
-    """The per-pair metric lists of every process, concatenated; in one
-    process the identity (multi-process evaluation waits for the port's
-    multi-GPU layer)."""
-    return metrics
+    """The per-pair metric lists of every process (``parallel.comm.
+    all_gather``), concatenated; in one process the identity.  Duplicate
+    pairs are dropped later, in ``aggregate_metrics``."""
+    from casmtr_tpu_torch.parallel import comm
+    gathered = comm.all_gather(metrics)
+    if len(gathered) == 1:
+        return metrics
+    return {k: [x for g in gathered for x in g[k]] for k in metrics}
 
 
 def aggregate_metrics(metrics: Dict, epi_err_thr: float = 5e-4) -> Dict:

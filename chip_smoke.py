@@ -265,6 +265,33 @@ lines and its seconds:
    scene.  (d) Matcher.match on two image paths bit-identical to
    Matcher.match on the arrays data/io._imread gives for them (thresholds
    at 0).
+14. Structure from motion (sfm/, cli/reconstruct.py).  (a) The card
+   against the CPU: bundle adjustment, dense and CG, on
+   tests/test_sfm.make_problem (C 4, P 60; numpy copies of the JAX tests'
+   generators, projected in float64) within 1e-3 (the final cost
+   relative, rotations, translations over their norm: the monocular scale
+   is a near-null direction); reconstruct_sequence on
+   tests/test_sfm_pipeline.synth_sequence (5 frames at 0.3 px, PGO) on one
+   draw of the pose solver made on the CPU: keyframes, pairs and tracks
+   identical, final rotations, similarity-aligned centres and cost within
+   1e-3.  (b) scripts/sfm_scale_bench.py --big's 200-frame, 64000-point
+   sequence (SFM_SEQ: fx 900, a pure lateral track, 0.3 px, every frame a
+   keyframe, overlaps (1, 2), the device solver, PGO, quant 0.25, 25 BA
+   iterations) on the card under the script's gate (rms < 2 px, ATE < 0.05
+   x 200 x 0.35): rms, ATE and the chain init's, points and observations,
+   the wall split by stage (matching, pose, chain, PGO, tracks, problem,
+   BA), BA ms per LM iteration, the host's waits for the device, peak
+   memory.  (c) bench_sharded_cg's problem on one card (C 240, P 56000,
+   tracks of 8, 12 LM iterations of at most 60 CG steps) under its gate
+   (rms < 1 px, ATE under half the init's), and one more LM iteration
+   under torch.profiler (device time against wall, top operators).  (d) cli.reconstruct.main on
+   the fixture's four MegaDepth-layout frames with their intrinsics, 4c
+   at 640 in the card's default with seeded random weights and zero
+   thresholds: the report (the JAX command's keys) and the PLY, the launch
+   counts held to (matched pairs) x 4c's per pair, every kernel launch of
+   the first matched pair (its non-square, masked 1/8 and 1/4 grids)
+   held against its plain version on the captured inputs within 1e-4, s
+   per pair, the ATE against the fixture's poses printed.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -371,6 +398,25 @@ POSE_R_DEG, POSE_T_DEG, POSE_CARD_CPU_DEG = 1.0, 2.0, 0.1
 POSE_SUPPORT = 0.5
 # run_eval: pairs of a textured plane at the bucket's size
 EVAL_PAIRS, EVAL_SIZE = 8, 832
+# phase 14: card against CPU on the JAX tests' scenes (final BA cost
+# relative, rotations and gauge-free translations / aligned centres)
+SFM_COST_RTOL, SFM_POSE_ATOL = 1e-3, 1e-3
+# (b) scripts/sfm_scale_bench.py --big's sequence (bench_sequence(200,
+# P=64000, fx=900, full_span, overlaps (1, 2), ba_iters 25, pan_rate 0,
+# y_half 2, y_rate 0, the device solver, quant 0.25), noise 0.3 px, with the
+# script's gate (rms < 2 px, ATE < 0.05 x frames x 0.35); (c) its
+# bench_sharded_cg problem on one device (C 240, P 56000, tracks of 8, 12
+# LM iterations of at most 60 CG steps), gate rms < 1 px and ATE under
+# half the init's
+SFM_SEQ = dict(n_frames=200, P=64000, fx=900.0, full_span=True,
+               pan_rate=0.0, y_half=2.0, y_rate=0.0, noise=0.3)
+SFM_SEQ_RUN = dict(overlaps=(1, 2), ba_iters=25, quant=0.25, pgo=True)
+SFM_BA = dict(C=240, P=56000, track_len=8)
+SFM_BA_RUN = dict(iters=12, solver="cg", cg_iters=60)
+SFM_RESIZE = 640
+SFM_REPORT_KEYS = ("n_frames", "keyframes", "n_pairs", "n_matches",
+                   "n_tracks", "n_obs", "ba_cost", "rms_reproj_px_rho",
+                   "poses")
 # phase 11's training reference: a loss term may also differ by up to this
 # many times its largest response on the CPU to two nudges of NUDGE of the
 # images (a random model's discrete choices flip under float32 rounding)
@@ -493,6 +539,11 @@ for _name, _base in ((IO_EVAL, "outdoor_casmtr_4c"),
                      (IO_RESUME, "outdoor_casmtr_4c"), (IO_INDOOR, INDOOR)):
     MODELS[_name] = MODELS[_base]
     LAYOUT[_name] = LAYOUT[_base]
+# phase 14: the SfM engine (sfm/) and the reconstruct command, whose matcher
+# is 4c at bf16 on the fixture's MegaDepth-layout frames
+SFM_NAME = "outdoor_casmtr_4c reconstruct"
+MODELS[SFM_NAME] = MODELS["outdoor_casmtr_4c"]
+LAYOUT[SFM_NAME] = LAYOUT["outdoor_casmtr_4c"]
 # evaluate reads the scene IO_EVAL_REPEATS times over (its list file names
 # it so often): IO_PAIRS pairs, enough that the loader's head start (its
 # workers and prefetch) is spent well before the last pair
@@ -4643,6 +4694,569 @@ def files_phase(torch, earlier=None):
     return times, serve, train_runs, train_times
 
 
+# --------------------------------------------------------------------------
+# phase 14: SfM
+# --------------------------------------------------------------------------
+
+def rvec_matrix(rv):
+    """Axis-angle [3] -> rotation [3, 3] in float64."""
+    rv = np.asarray(rv, np.float64)
+    theta = float(np.linalg.norm(rv))
+    return np.eye(3) if theta < 1e-12 else rodrigues(rv, theta)
+
+
+def project_np(rv, tv, X, K):
+    """Pixels [N, 2] of world points X [N, 3] in the camera (rv, tv)."""
+    uv = (X @ rvec_matrix(rv).T + tv) @ K.T
+    return uv[:, :2] / np.maximum(uv[:, 2:3], 1e-9)
+
+
+def sfm_problem(torch, rng, noise=0.5, perturb=0.02, C=4, P=60):
+    """tests/test_sfm.make_problem (its synth_scene, projected in float64
+    here) as the port's BAProblem on the CPU."""
+    from casmtr_tpu_torch.sfm.ba import BAProblem
+    K = np.array([[400.0, 0, 160], [0, 400.0, 120], [0, 0, 1]])
+    pts = np.stack([rng.uniform(-2, 2, P), rng.uniform(-1.5, 1.5, P),
+                    rng.uniform(5, 9, P)], -1)
+    rvecs = np.stack([[0.0, 0.04 * c, 0.0] for c in range(C)])
+    tvecs = np.stack([[-0.4 * c, 0.02 * c, 0.0] for c in range(C)])
+    obs = []
+    for rv, tv in zip(rvecs, tvecs):
+        uv = project_np(rv, tv, pts, K)
+        obs.append(uv + rng.normal(0, noise, uv.shape) if noise else uv)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    return BAProblem(
+        f32(rvecs + rng.normal(0, perturb, rvecs.shape)),
+        f32(tvecs + rng.normal(0, perturb, tvecs.shape)),
+        f32(pts + rng.normal(0, perturb * 5, pts.shape)), f32(K),
+        torch.from_numpy(np.repeat(np.arange(C), P)),
+        torch.from_numpy(np.tile(np.arange(P), C)), f32(np.concatenate(obs)),
+        torch.ones(C * P, dtype=torch.bool))
+
+
+def sequence_views(rng, pts, rvecs, tvecs, K, noise):
+    """The synthetic matcher of a camera path over a point cloud: every
+    point seen (5 px inside a 640x480 frame) by both frames is a match.
+    Returns (match_fn, K, true camera centres)."""
+    uvs, vis = [], []
+    for rv, tv in zip(rvecs, tvecs):
+        uv = project_np(rv, tv, pts, K)
+        if noise:
+            uv = uv + rng.normal(0, noise, uv.shape)
+        uvs.append(uv)
+        vis.append((uv[:, 0] > 5) & (uv[:, 0] < 635) & (uv[:, 1] > 5)
+                   & (uv[:, 1] < 475))
+
+    def match_fn(i, j):
+        m = vis[i] & vis[j]
+        return uvs[i][m], uvs[j][m], np.ones(int(m.sum()))
+
+    centers = np.stack([-rvec_matrix(rv).T @ tv
+                        for rv, tv in zip(rvecs, tvecs)])
+    return match_fn, K, centers
+
+
+def sfm_sequence(rng, n_frames=5, P=120, noise=0.0, baseline=0.35):
+    """tests/test_sfm_pipeline.synth_sequence: a textured wall, a
+    translating and slowly turning camera."""
+    K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+    pts = np.stack([rng.uniform(-4, 4, P), rng.uniform(-3, 3, P),
+                    rng.uniform(6, 10, P)], -1)
+    rvecs = np.stack([[0.0, 0.035 * c, 0.0] for c in range(n_frames)])
+    tvecs = np.stack([[-baseline * c, 0.01 * c, 0.0]
+                      for c in range(n_frames)])
+    return sequence_views(rng, pts, rvecs, tvecs, K, noise)
+
+
+def scale_sequence(rng, n_frames, P=400, noise=0.3, baseline=0.35,
+                   fx=400.0, full_span=False, pan_rate=0.002, y_half=3.0,
+                   y_rate=0.01):
+    """scripts/sfm_scale_bench.synth_sequence: the wall spread over the
+    camera's travel."""
+    K = np.array([[fx, 0, 320], [0, fx, 240], [0, 0, 1]])
+    span = baseline * n_frames * (1.0 if full_span else 0.6) + 8
+    pts = np.stack([rng.uniform(-span, 4, P), rng.uniform(-y_half, y_half, P),
+                    rng.uniform(6, 10, P)], -1)
+    rvecs = np.stack([[0.0, pan_rate * c, 0.0] for c in range(n_frames)])
+    tvecs = np.stack([[baseline * c, y_rate * c, 0.0]
+                      for c in range(n_frames)])
+    return sequence_views(rng, pts, rvecs, tvecs, K, noise)
+
+
+def big_problem(torch, rng, C, P, track_len=5):
+    """scripts/sfm_scale_bench.make_big_problem: cameras along x with a
+    slow pan, each point anchored near the frustums of its track_len
+    consecutive cameras, 0.5 px noise, a perturbed init.  Returns ((rv,
+    tv) true, the port's BAProblem on the CPU)."""
+    from casmtr_tpu_torch.sfm.ba import BAProblem
+    K = np.array([[400.0, 0, 320], [0, 400.0, 240], [0, 0, 1]])
+    rv = np.stack([[0.0, 0.25 * c / max(C - 1, 1), 0.0] for c in range(C)])
+    tv = np.stack([[0.1 * c, 0.0, 0.0] for c in range(C)])
+    u = rng.uniform(0, C - track_len, P)
+    first = np.floor(u).astype(np.int64)
+    x_anchor = -0.1 * (u + track_len / 2)
+    pts = np.stack([x_anchor + rng.uniform(-1.5, 1.5, P),
+                    rng.uniform(-4, 4, P), rng.uniform(8, 14, P)], -1)
+    obs_cam = (first[:, None] + np.arange(track_len)[None]).reshape(-1)
+    obs_pt = np.repeat(np.arange(P), track_len)
+    R = np.stack([rvec_matrix(r) for r in rv])
+    uv = (np.einsum("nij,nj->ni", R[obs_cam], pts[obs_pt])
+          + tv[obs_cam]) @ K.T
+    uv = uv[:, :2] / np.maximum(uv[:, 2:3], 1e-9)
+    uv = uv + rng.normal(0, 0.5, uv.shape)
+    rv_n = rv + rng.normal(0, 0.005, rv.shape)
+    tv_n = tv + rng.normal(0, 0.1, tv.shape)
+    pts_n = pts + rng.normal(0, 0.1, pts.shape)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    return (rv, tv), BAProblem(
+        f32(rv_n), f32(tv_n), f32(pts_n), f32(K), torch.from_numpy(obs_cam),
+        torch.from_numpy(obs_pt), f32(uv),
+        torch.ones(len(obs_cam), dtype=torch.bool))
+
+
+def gauge_free(torch, q):
+    """(rotations, translations over their norm) of a BA problem, numpy:
+    the monocular scale is a near-null direction of bundle adjustment."""
+    t = q.cam_tvec.cpu().numpy()
+    return q.cam_rvec.cpu().numpy(), t / np.linalg.norm(t)
+
+
+def sfm_card_cpu_phase(torch, dev="cuda"):
+    """Phase 14(a): the port on ``dev`` against the CPU.  BA (dense and
+    CG, tests/test_sfm.make_problem, C 4, P 60, 10 iterations): final cost
+    within SFM_COST_RTOL relative, rotations and gauge-free translations
+    within SFM_POSE_ATOL.  The pipeline (tests/test_sfm_pipeline.
+    synth_sequence, 5 frames at 0.3 px, overlaps (1, 2), PGO, 15 BA
+    iterations) on one draw of the pose solver made on the CPU: keyframes,
+    pairs and tracks identical, the final rotations within SFM_POSE_ATOL,
+    the camera centres within it after similarity alignment, the cost
+    within SFM_COST_RTOL."""
+    from casmtr_tpu_torch.sfm import ba, pose
+    from casmtr_tpu_torch.sfm import pipeline as pl
+    from casmtr_tpu_torch.sfm import reconstruct as Rc
+    prob = sfm_problem(torch, np.random.default_rng(0))
+    for solver in ("dense", "cg"):
+        out = {}
+        for d in (dev, "cpu"):
+            q, c = ba.run_ba(ba.to_device(prob, d), iters=10, solver=solver)
+            out[d] = (gauge_free(torch, q), float(c))
+        (rv_a, t_a), c_a = out[dev]
+        (rv_b, t_b), c_b = out["cpu"]
+        rel = abs(c_a - c_b) / c_b
+        d_rv, d_t = np.abs(rv_a - rv_b).max(), np.abs(t_a - t_b).max()
+        log(f"sfm: BA {solver} {dev} against CPU: cost {c_a:.6f} / "
+            f"{c_b:.6f} (relative {rel:.2e}), rotations {d_rv:.2e}, "
+            f"gauge-free translations {d_t:.2e}")
+        check(rel <= SFM_COST_RTOL, f"sfm: BA {solver} cost")
+        check(max(d_rv, d_t) <= SFM_POSE_ATOL, f"sfm: BA {solver} cameras")
+
+    match_fn, K, _ = sfm_sequence(np.random.default_rng(0), noise=0.3)
+    kfs = list(range(5))
+    pairs = pl.pair_graph(kfs, (1, 2))
+    M = pl._bucket([len(match_fn(i, j)[0]) for i, j in pairs])
+    noise = pose.pose_noise(len(pairs), pl.N_HYP, M,
+                            torch.Generator().manual_seed(0), "cpu")
+    res = {d: pl.reconstruct_sequence(match_fn, 5, K, keyframes=kfs,
+                                      overlaps=(1, 2), ba_iters=15, pgo=True,
+                                      device=d, noise=noise)
+           for d in (dev, "cpu")}
+    a, b = res[dev], res["cpu"]
+    same_tracks = (list(a.tracks) == list(b.tracks) and all(
+        [f for f, _ in a.tracks[k]] == [f for f, _ in b.tracks[k]]
+        and all(np.array_equal(u, v) for (_, u), (_, v)
+                in zip(a.tracks[k], b.tracks[k])) for k in a.tracks))
+    d_rv = float(np.abs(a.problem.cam_rvec.cpu().numpy()
+                        - b.problem.cam_rvec.numpy()).max())
+    d_c = Rc.ate_rmse(Rc.camera_centers(a.problem),
+                      Rc.camera_centers(b.problem))
+    rel = abs(a.cost - b.cost) / b.cost
+    log(f"sfm: pipeline {dev} against CPU (5 frames, PGO): keyframes "
+        f"{a.keyframes} / {b.keyframes}, pairs {len(a.matches)}, tracks "
+        f"{len(a.tracks)} / {len(b.tracks)} identical {same_tracks}; chain "
+        f"init rotations {np.abs(a.init_Rs - b.init_Rs).max():.2e}, "
+        f"translations {np.abs(a.init_ts - b.init_ts).max():.2e}; final "
+        f"rotations {d_rv:.2e}, aligned centres {d_c:.2e}, cost "
+        f"{a.cost:.6f} / {b.cost:.6f} (relative {rel:.2e})")
+    check(a.keyframes == b.keyframes and list(a.matches) == list(b.matches),
+          "sfm: pipeline keyframes or pairs differ")
+    check(same_tracks, "sfm: pipeline tracks differ")
+    check(max(d_rv, d_c) <= SFM_POSE_ATOL, "sfm: pipeline poses differ")
+    check(rel <= SFM_COST_RTOL, "sfm: pipeline cost differs")
+
+
+@contextlib.contextmanager
+def stage_clock(torch, targets, dev):
+    """Each (module, attribute, stage) of ``targets`` wrapped in a timer
+    that waits for the device after the call; yields the seconds per
+    stage (summed over calls)."""
+    secs, saved = {}, []
+    for mod, attr, stage in targets:
+        fn = getattr(mod, attr)
+
+        def clocked(*a, _fn=fn, _stage=stage, **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            secs[_stage] = secs.get(_stage, 0.0) + time.perf_counter() - t0
+            return out
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, clocked)
+    try:
+        yield secs
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def peak_gib(torch, dev):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30 if dev == "cuda"
+            else float("nan"))
+
+
+def reset_peak(torch, dev):
+    if dev == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def sfm_sequence_phase(torch, dev="cuda", seq=SFM_SEQ, run=SFM_SEQ_RUN):
+    """Phase 14(b): reconstruct_sequence on ``dev`` over scripts/
+    sfm_scale_bench.py --big's sequence (SFM_SEQ, SFM_SEQ_RUN; every frame
+    a keyframe, the device solver, PGO): rms, ATE of the result and of the
+    chain init, points and observations, the wall split by stage
+    (matching, pose, chain, PGO, tracks, problem assembly, BA), BA per LM
+    iteration, the host's waits for the device, peak memory; the script's
+    gate (rms < 2 px, ATE < 0.05 x frames x 0.35)."""
+    from casmtr_tpu_torch.sfm import ba
+    from casmtr_tpu_torch.sfm import pipeline as pl
+    from casmtr_tpu_torch.sfm import reconstruct as Rc
+    n = seq["n_frames"]
+    t0 = time.perf_counter()
+    match_fn, K, gt = scale_sequence(np.random.default_rng(0), **seq)
+    made = time.perf_counter() - t0
+    targets = ((pl, "match_pairs", "matching"),
+               (pl, "pair_relative_poses", "pose"),
+               (pl, "chain_with_scale", "chain"),
+               (pl, "refine_with_pose_graph", "PGO"),
+               (pl, "build_tracks", "tracks"),
+               (pl.Rc, "build_problem", "problem"),
+               (pl.ba_mod, "run_ba", "BA"))
+    syncs = dict(pl.HOST_SYNCS, pcg=ba.HOST_SYNCS["pcg"])
+    reset_peak(torch, dev)
+    with stage_clock(torch, targets, dev) as secs:
+        t0 = time.perf_counter()
+        res = pl.reconstruct_sequence(match_fn, n, K,
+                                      keyframes=list(range(n)), device=dev,
+                                      **run)
+        wall = time.perf_counter() - t0
+    waits = {k: v - syncs[k] for k, v in
+             dict(pl.HOST_SYNCS, pcg=ba.HOST_SYNCS["pcg"]).items()}
+    n_obs = int(res.problem.obs_valid.sum())
+    rms = float(np.sqrt(res.cost / max(n_obs, 1) / 2))
+    ate = Rc.ate_rmse(Rc.camera_centers(res.problem), gt[res.keyframes])
+    init = np.stack([-R.T @ t for R, t in zip(res.init_Rs, res.init_ts)])
+    ate_init = Rc.ate_rmse(init, gt[res.keyframes])
+    bound = 0.05 * n * 0.35
+    log(f"sfm: sequence {n} frames, {seq['P']} points, {len(res.matches)} "
+        f"pairs (made in {made:.1f} s): {res.problem.points.shape[0]} "
+        f"points, {n_obs} observations, rms {rms:.4f} px (gate < 2), ATE "
+        f"{ate:.5f} (gate < {bound:.3f}), chain init ATE {ate_init:.5f}; "
+        f"wall {wall:.2f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items())
+        + f" s; BA {secs['BA'] / run['ba_iters'] * 1e3:.1f} ms per LM "
+        f"iteration; the host waited on the device {waits}; peak "
+        f"{peak_gib(torch, dev):.2f} GiB")
+    check(rms < 2.0 and ate < bound, "sfm: the sequence misses its gate")
+    return wall, secs
+
+
+def sfm_big_ba_phase(torch, dev="cuda", shape=SFM_BA, run=SFM_BA_RUN):
+    """Phase 14(c): run_ba with the CG solver on ``dev`` on
+    bench_sharded_cg's problem (SFM_BA, SFM_BA_RUN) from its perturbed
+    init, after one warm-up iteration: rms and ATE before and after, wall
+    per LM iteration, CG's host waits, peak memory; the script's gate
+    (rms < 1 px, ATE under half the init's)."""
+    from casmtr_tpu_torch.sfm import ba
+    from casmtr_tpu_torch.sfm import reconstruct as Rc
+    (rv_gt, tv_gt), p = big_problem(torch, np.random.default_rng(2), **shape)
+    p = ba.to_device(p, dev)
+    gt = np.stack([-rvec_matrix(r).T @ t for r, t in zip(rv_gt, tv_gt)])
+    n_obs = int(p.obs_valid.sum())
+    rms0 = float(np.sqrt(float(ba.robust_cost(p, None)) / n_obs / 2))
+    ate0 = Rc.ate_rmse(Rc.camera_centers(p), gt)
+    ba.run_ba(p, iters=1, solver=run["solver"], cg_iters=run["cg_iters"])
+    before = ba.HOST_SYNCS["pcg"]
+    reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    q, c = ba.run_ba(p, **run)
+    cost = float(c)                                # waits for the device
+    wall = time.perf_counter() - t0
+    rms1 = float(np.sqrt(cost / n_obs / 2))
+    ate1 = Rc.ate_rmse(Rc.camera_centers(q), gt)
+    log(f"sfm: CG BA C {shape['C']}, P {shape['P']}, N {n_obs}, "
+        f"{run['iters']} LM iterations of at most {run['cg_iters']} CG "
+        f"steps: rms {rms0:.3f} -> {rms1:.3f} px (gate < 1), ATE "
+        f"{ate0:.5f} -> {ate1:.5f} (gate < {0.5 * ate0:.5f}); {wall:.2f} s, "
+        f"{wall / run['iters'] * 1e3:.1f} ms per LM iteration, "
+        f"{ba.HOST_SYNCS['pcg'] - before} CG steps read on the host; peak "
+        f"{peak_gib(torch, dev):.2f} GiB")
+    check(rms1 < 1.0 and ate1 < 0.5 * ate0, "sfm: the CG BA misses its gate")
+    if dev == "cuda":
+        sfm_ba_profile(torch, p, run)
+    return wall
+
+
+def sfm_ba_profile(torch, p, run):
+    """One more LM iteration of ``p`` under torch.profiler: the device time
+    summed over its kernels against its wall (the idle share, with the
+    profiler's own host cost in the wall), and the operators with the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from casmtr_tpu_torch.sfm import ba
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ba.run_ba(p, iters=1, solver=run["solver"], cg_iters=run["cg_iters"])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    avgs = prof.key_averages()
+    _, busy = top(avgs, lambda e: e.device_type == DeviceType.CUDA, 1)
+    if busy == 0:
+        log("sfm: BA profile: the profiler recorded no device time (not "
+            "measured)")
+        return
+    ops, _ = top(avgs, lambda e: e.key.startswith("aten::")
+                 and e.self_device_time_total > 0, 8)
+    log(f"sfm: BA profile, one LM iteration: wall {wall:.1f} ms under the "
+        f"profiler, device time summed over kernels {busy:.1f} ms, idle "
+        f"share {1 - busy / wall:.3f}")
+    for ms, n, key, _ in ops:
+        log(f"sfm: BA profile: op {ms:8.3f} ms {n:5d}x {key}")
+
+
+def sfm_command_phase(torch):
+    """Phase 14(d): python -m casmtr_tpu_torch.cli.reconstruct (its main)
+    on the fixture's four MegaDepth-layout frames (1200x800) with their
+    intrinsics, 4c at SFM_RESIZE in the card's default (bf16) with seeded
+    random weights and every match threshold at 0 (--thr -1: random weights
+    match nothing at 0.2), --min-matches 100000 (every frame a keyframe)
+    and --pgo: the report with the JAX command's keys and the PLY written;
+    the launch counts, zeroed just before, held to (match_fn calls) x 4c's
+    per-pair counts; seconds per matched pair; the poses' ATE against the
+    fixture's poses, printed (random weights)."""
+    import tempfile
+    import warnings
+    from casmtr_tpu_torch.cli import reconstruct as cli
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    from casmtr_tpu_torch.sfm import pipeline as pl
+    from casmtr_tpu_torch.sfm import reconstruct as Rc
+    scene = os.path.join(FIXTURES, "megadepth")
+    frames = os.path.join(scene, "Undistorted_SfM", "0000", "images")
+    info = np.load(os.path.join(scene, "index", "scene_info", "0000.npz"),
+                   allow_pickle=True)
+    K = info["intrinsics"][0]
+    gt = np.stack([-T[:3, :3].T @ T[:3, 3] for T in info["poses"]])
+    calls = []
+    make = pl.model_match_fn
+    seen = []          # (launcher, inputs, outputs) of the first matched pair
+    launchers = ((qk_, "_launch_fwd"), (wk, "_launch_score_fwd"),
+                 (wk, "_launch_wca_fwd"))
+    saved = [getattr(m, a) for m, a in launchers]
+
+    def copied(x):
+        if isinstance(x, tuple):
+            return tuple(copied(t) for t in x)
+        return x.clone() if torch.is_tensor(x) else x
+
+    def recording(attr, fn):
+        def rec(*args):
+            out = fn(*args)
+            if not calls:
+                seen.append((attr, copied(args), copied(out)))
+            return out
+        return rec
+
+    def counting(*a, **k):
+        fn = make(*a, **k)
+
+        def timed_fn(i, j):
+            t0 = time.perf_counter()
+            out = fn(i, j)                   # numpy back: the card is done
+            calls.append(time.perf_counter() - t0)
+            return out
+        return timed_fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out, ply = os.path.join(tmp, "recon.json"), os.path.join(tmp, "r.ply")
+        argv = [frames, "--fx", str(K[0, 0]), "--fy", str(K[1, 1]),
+                "--cx", str(K[0, 2]), "--cy", str(K[1, 2]),
+                "--resize", str(SFM_RESIZE), "--thr", "-1",
+                "--min-matches", "100000", "--pgo", "--overrides-json",
+                json.dumps(zero_threshold_overrides("outdoor_casmtr_4c")),
+                "--out", out, "--ply", ply]
+        pl.model_match_fn = counting
+        for (m, a), fn in zip(launchers, saved):
+            setattr(m, a, recording(a, fn))
+        try:
+            with precision("bf16"), warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always", RuntimeWarning)
+                kernels.reset_launch_counts()
+                t0 = time.perf_counter()
+                report = cli.main(argv)
+                wall = time.perf_counter() - t0
+        finally:
+            pl.model_match_fn = make
+            for (m, a), fn in zip(launchers, saved):
+                setattr(m, a, fn)
+        totals = dict(kernels.LAUNCHES)
+        with open(out) as f:
+            written = json.load(f)
+        with open(ply) as f:
+            header, body = f.read().split("end_header\n")
+    per_pair = LAUNCHES_PER_PAIR[SFM_NAME]
+    n = len(calls)
+    kfs = report["keyframes"]
+    centers = np.array([p["center"] for p in report["poses"]])
+    ate = Rc.ate_rmse(centers, gt[kfs]) if len(kfs) > 2 else float("nan")
+    n_vertex = int(header.split("element vertex ")[1].split()[0])
+    log(f"sfm: reconstruct main, 4 frames at {SFM_RESIZE}: {wall:.2f} s, "
+        f"{n} matched pairs (first {calls[0]:.3f} s, median of the others "
+        f"{statistics.median(calls[1:]):.3f} s per pair), keyframes {kfs}, "
+        f"matches {report['n_matches']}, {report['n_tracks']} tracks, "
+        f"{report['n_obs']} observations, cost {report['ba_cost']:.3f}; "
+        f"ATE against the fixture's poses {ate:.4f} (random weights: "
+        f"printed, not gated); {len(w)} RuntimeWarnings "
+        f"({'; '.join(sorted({str(x.message)[:60] for x in w}))}); PLY "
+        f"{n_vertex} vertices; launches {totals}")
+    check(tuple(written) == SFM_REPORT_KEYS and written == json.loads(
+        json.dumps(report)), f"sfm: report keys {sorted(written)}")
+    check(n_vertex == report["n_tracks"] == len(body.splitlines()),
+          "sfm: the PLY does not hold the points")
+    check(totals == {k: v * n for k, v in per_pair.items()},
+          f"sfm: launches {totals}, expected {n} x {per_pair}")
+    reconstruct_kernels_check(torch, seen, per_pair)
+    return {"bf16": (totals, per_pair, [])}
+
+
+def reconstruct_kernels_check(torch, seen, per_pair):
+    """14(d)'s own kernel shapes: every launch of the first matched pair
+    (A and A′ on the 1/8 pyramid of the padded, masked non-square canvas, B
+    and C on its 1/4 grid), its output as the main path got it held
+    against the plain version on the same captured inputs.  A's, B's and
+    C's outputs and A′'s message within KERNEL_TOL; A′'s sorted scores
+    within SCORE_TOL and its index sets equal except on near ties
+    (TIE_GAP).  Each kernel of the pair held as often as it launches.  All
+    are logged before the first failure is raised."""
+    from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
+    from casmtr_tpu_torch.ops.kernels import window_kernels as wk
+    stats = {}
+    for launcher, args, out in seen:
+        extra = {}
+        if launcher == "_launch_fwd":
+            q, k, v, ids, hw_q, hw_k = args[:6]
+            topk = args[7] if len(args) > 7 else 0
+            name = "quadtree_fine_topk" if topk else "quadtree_fine_attention"
+            shape = f"{hw_q[0]}x{hw_q[1]} K {ids.shape[2]}"
+            if topk:
+                p_msg, p_score, p_idx, _ = qk_.quadtree_fine_topk_plain(
+                    q, k, v, ids, hw_q, hw_k, topk + 1, with_lse=True)
+                pairs = [(out[0], p_msg)]
+                rows = torch.ones(q.shape[:3], dtype=torch.bool,
+                                  device=q.device)
+                s_err, bad, near, _, _ = selection_errors(
+                    torch, out[2], out[3], p_score, p_idx, topk, rows)
+                extra = {"score": s_err, "bad": bad, "near": near}
+            else:
+                pairs = [(out[0], qk_.quadtree_fine_attention_plain(
+                    q, k, v, ids, hw_q, hw_k))]
+        elif launcher == "_launch_score_fwd":
+            q_blk, feat1, corners, w = args
+            q = q_blk
+            name = "window_patch_score"
+            shape = f"{feat1.shape[1]}x{feat1.shape[2]} C {feat1.shape[3]}"
+            pairs = [(out, wk.window_patch_score_plain(q_blk, feat1, corners,
+                                                       w))]
+        else:
+            q, k, v, corners, hw_q, hw_k, w = args[:7]
+            name = "window_cross_attention"
+            shape = f"{hw_q[0]}x{hw_q[1]} H {q.shape[2]}"
+            pairs = [(out[0], wk.window_cross_attention_plain(
+                q, k, v, corners, hw_q, hw_k, w))]
+        if name != "window_patch_score" and q.dtype == torch.bfloat16:
+            name += "_bf16"
+        st = stats.setdefault(name, {"n": 0, "shapes": set(), "err": 0.0,
+                                     "scale": 0.0, "score": 0.0, "bad": 0,
+                                     "near": 0})
+        st["n"] += 1
+        st["shapes"].add(shape)
+        for a, b in pairs:
+            ok = a.shape == b.shape and bool(torch.isfinite(a).all())
+            err = float((a - b).abs().max()) if ok else float("inf")
+            st["err"] = max(st["err"], err)
+            st["scale"] = max(st["scale"], float(b.abs().max()))
+        if extra:
+            st["score"] = max(st["score"], extra["score"])
+            st["bad"] += extra["bad"]
+            st["near"] += extra["near"]
+    for name, st in sorted(stats.items()):
+        log(f"sfm: kernel {name} on the first matched pair: {st['n']} "
+            f"launches at {sorted(st['shapes'])}, max_abs_err "
+            f"{st['err']:.3e} (tol {KERNEL_TOL:g}; max |plain| "
+            f"{st['scale']:.3g})"
+            + (f", sorted scores {st['score']:.3e} (tol {SCORE_TOL:g}), "
+               f"{st['bad']} rows select other indices, {st['near']} near "
+               "ties excluded" if name.startswith("quadtree_fine_topk")
+               else ""))
+    for name, st in sorted(stats.items()):
+        check(st["err"] <= KERNEL_TOL, f"sfm: {name} on the first matched "
+              f"pair: max abs error {st['err']:.3e} (or a shape or a "
+              "non-finite value)")
+        check(st["score"] <= SCORE_TOL and st["bad"] == 0,
+              f"sfm: {name} on the first matched pair: scores "
+              f"{st['score']:.3e}, {st['bad']} rows select other indices")
+    held = {name: st["n"] for name, st in stats.items()}
+    check(held == {k: v for k, v in per_pair.items() if v},
+          f"sfm: held {held} on the first pair, it launches {per_pair}")
+
+
+def sfm_ate_witness(torch, seeds=(0, 1, 2)):
+    """14(b)'s sequence on the card with the pose solver's draw seeded
+    with each of ``seeds``, then on the CPU (draw seeded 0): rms and ATE of
+    each, the spread that the draw and the device make.  Not part of the
+    default run (the CPU run takes minutes); run it as python -c 'import
+    torch, chip_smoke as c; c.sfm_ate_witness(torch)'."""
+    for dev, seed in [("cuda", s) for s in seeds] + [("cpu", 0)]:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        timed(f"sfm: sequence on {dev}, draw seeded {seed}",
+              sfm_sequence_phase, torch, dev, SFM_SEQ,
+              dict(SFM_SEQ_RUN, generator=gen))
+
+
+def sfm_phase(torch):
+    """Phase 14: (a) card against CPU, (b) the 200-frame sequence, (c) the
+    C 240 CG bundle adjustment, (d) the reconstruct command.  Returns (d)'s
+    serving run."""
+    timed("sfm: card against CPU", sfm_card_cpu_phase, torch)
+    torch.cuda.empty_cache()
+    timed("sfm: sequence", sfm_sequence_phase, torch)
+    torch.cuda.empty_cache()
+    timed("sfm: CG BA", sfm_big_ba_phase, torch)
+    torch.cuda.empty_cache()
+    return timed("sfm: command", sfm_command_phase, torch)
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -4745,6 +5359,7 @@ def main(argv):
     _, serve_runs[IO_EVAL], io_train_runs, _ = timed("files", files_phase,
                                                      torch, earlier)
     train_runs.update(io_train_runs)
+    serve_runs[SFM_NAME] = timed("sfm", sfm_phase, torch)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

@@ -41,7 +41,9 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "optax", "cv2", "casmtr_tpu",
 IMPORTED = ("casmtr_tpu_torch", "casmtr_tpu_torch.serving",
             "casmtr_tpu_torch.models.casmtr", "casmtr_tpu_torch.data.io",
             "casmtr_tpu_torch.data.module", "casmtr_tpu_torch.cli.evaluate",
-            "casmtr_tpu_torch.cli.train", "casmtr_tpu_torch.cli.match_pair")
+            "casmtr_tpu_torch.cli.train", "casmtr_tpu_torch.cli.match_pair",
+            "casmtr_tpu_torch.cli.reconstruct", "casmtr_tpu_torch.sfm.pipeline",
+            "casmtr_tpu_torch.parallel.comm")
 
 
 def _build_tree():
