@@ -1,8 +1,13 @@
-"""The training command of the port (counterpart of casmtr_tpu/cli/train.py)
-on one card:
+"""The training command of the port (counterpart of casmtr_tpu/cli/train.py):
 
     python -m casmtr_tpu_torch.cli.train --model outdoor_casmtr_4c \
         --data megadepth_trainval_704 --run-dir runs/x
+
+and data-parallel over processes, one device each, launched by torchrun
+(``--dist``) or by hand (``--dist-coordinator host:port
+--dist-num-processes N --dist-process-id I`` in each process):
+
+    torchrun --nproc-per-node 4 -m casmtr_tpu_torch.cli.train --dist ...
 
 reads the data recipe's train and val splits from disk (``data/module.
 MultiSceneDataModule``; point them elsewhere with ``--overrides-json``),
@@ -17,11 +22,18 @@ A run starts with ``train_step.init_train_state`` and saves
 staged recipe) builds its own fresh state and passes it with the restored
 checkpoint to ``resume_state``.
 
+Under a group (``parallel.mesh``) the batch size is per process: the
+global batch is ``--batch-size`` x the processes, the learning rate and
+warmup scale by it, each process reads its own training scenes, every
+step is the JAX step over the global batch (``train_step.
+make_train_step``), validation gathers its metrics from every process,
+and only process 0 writes ``config.json``, the checkpoints and the NaN
+dump; the other processes log errors only.
+
 Deviations from the JAX command: validation poses with the batched device
 solver (``sfm.pose``; OpenCV's RANSAC is not ported) and draws no figures;
 there is no TensorBoard writer (it needs TensorFlow), so the scalars go to
-the console; one process on one card, so ``--dist*`` raise (ROADMAP queue
-A item 6).
+the console.
 """
 
 from __future__ import annotations
@@ -42,6 +54,7 @@ from casmtr_tpu_torch.configs import build_config
 from casmtr_tpu_torch.data.loader import _ARRAY_KEYS
 from casmtr_tpu_torch.data.module import MultiSceneDataModule
 from casmtr_tpu_torch.models import build_model
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.serving import resolve_device
 from casmtr_tpu_torch.train.checkpoints import (CheckpointManager,
                                                 checkpoint_state,
@@ -139,6 +152,17 @@ def resume_state(cfg: Config, state: TrainState, restored: Dict,
     return TrainState(rstep, model, opt_state, ema), tx, schedule
 
 
+def _replicated(state: TrainState):
+    """The tensors every process must hold alike, in one order: the
+    model's parameters and buffers, the optimizer's moments and the EMA
+    parameters."""
+    yield from state.model.parameters()
+    yield from state.model.buffers()
+    for moments in (state.opt_state.mu, state.opt_state.nu,
+                    state.ema_params or {}):
+        yield from (moments[n] for n in sorted(moments))
+
+
 def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
     """The training step's inputs of a loader batch on ``device``: its
     numpy arrays among the loader's stacked keys (names and ids stay
@@ -182,16 +206,16 @@ def main(argv=None) -> Dict:
     """The training command.  Returns {"step", "run_dir", "val"} (the
     final step, the run directory and the last validation's results)."""
     p = argparse.ArgumentParser(
-        description="CasMTR training on one card, in PyTorch",
+        description="CasMTR training in PyTorch, on one device or "
+                    "data-parallel over processes",
         epilog="Unlike the JAX command, validation poses with the batched "
                "device solver (OpenCV's RANSAC is not ported), draws no "
-               "figures and logs to the console (no TensorBoard), and "
-               "--dist* raise: the port trains on one card.")
+               "figures and logs to the console (no TensorBoard).")
     p.add_argument("--model", default="outdoor_casmtr_4c")
     p.add_argument("--data", default="megadepth_trainval_704")
     p.add_argument("--run-dir", default="runs/default")
     p.add_argument("--batch-size", type=int, default=1,
-                   help="batch size (one card)")
+                   help="batch size per process")
     p.add_argument("--epochs", type=int, default=30)
     p.add_argument("--stage", type=int, default=None,
                    help="training stage override (1 = coarse only, "
@@ -220,42 +244,45 @@ def main(argv=None) -> Dict:
                    help="where the model trains (default: the card, "
                         "'cuda'; 'cpu' for the CPU)")
     p.add_argument("--dist", action="store_true",
-                   help="not ported: the port trains on one card "
-                        "(ROADMAP queue A item 6); raises")
+                   help="data-parallel over the processes of a launcher "
+                        "(torchrun: RANK, WORLD_SIZE, LOCAL_RANK, "
+                        "MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--dist-coordinator", default=None,
-                   help="not ported (see --dist); raises")
-    p.add_argument("--dist-num-processes", type=int, default=None,
-                   help="not ported (see --dist); raises")
-    p.add_argument("--dist-process-id", type=int, default=None,
-                   help="not ported (see --dist); raises")
+                   help="host:port of process 0 (data-parallel, launched by "
+                        "hand; with the two below)")
+    p.add_argument("--dist-num-processes", type=int, default=None)
+    p.add_argument("--dist-process-id", type=int, default=None)
     args = p.parse_args(argv)
-    if (args.dist or args.dist_coordinator or args.dist_num_processes
-            is not None or args.dist_process_id is not None):
-        raise NotImplementedError(
-            "--dist*: multi-process training is not ported; the port trains "
-            "on one card (ROADMAP.md queue A item 6)")
 
-    device = resolve_device(args.device)
+    if args.dist or args.dist_coordinator:
+        device = mesh.init_distributed(args.dist_coordinator,
+                                       args.dist_num_processes,
+                                       args.dist_process_id, args.device)
+    else:
+        device = resolve_device(args.device)
+    world, rank = mesh.world_size(), mesh.rank()
+    main_process = rank == 0
     overrides = {"trainer": {"seed": args.seed}}
     if args.stage is not None:
         overrides["loftr"] = {"training_stage": args.stage}
     cfg = build_config(args.model, args.data, overrides)
     if args.overrides_json:
         cfg = override(cfg, json.loads(args.overrides_json))
-    global_bs = args.batch_size
+    global_bs = args.batch_size * world
     base_lr = scaled_lr(cfg.trainer, global_bs,
                         cfg.dataset.trainval_data_source)
     # warmup steps scale inversely with the batch; the dumped config holds
     # the scaled value, so a resume reuses it as it is
     cfg = override(cfg, {"trainer": {"warmup_step": scaled_warmup_step(
         cfg.trainer, global_bs, cfg.dataset.trainval_data_source)}})
-    print(f"device={device} global_bs={global_bs} lr={base_lr:.2e} "
-          f"warmup={cfg.trainer.warmup_step}")
+    print(f"device={device} processes={world} global_bs={global_bs} "
+          f"lr={base_lr:.2e} warmup={cfg.trainer.warmup_step}")
     os.makedirs(args.run_dir, exist_ok=True)
-    dump(cfg, os.path.join(args.run_dir, "config.json"))
+    if main_process:
+        dump(cfg, os.path.join(args.run_dir, "config.json"))
     log = get_logger()
 
-    dm = MultiSceneDataModule(cfg)
+    dm = MultiSceneDataModule(cfg, world_size=world, rank=rank)
     train_loader = dm.train_loader(args.batch_size,
                                    num_workers=args.num_workers)
     val_loader = dm.eval_loader(dm.val_dataset(), batch_size=1,
@@ -298,6 +325,8 @@ def main(argv=None) -> Dict:
                 reset_lr=args.reset_lr, resume_dir=args.resume,
                 frozen_label_fn=frozen_fn, global_bs=global_bs)
             print(f"resumed from {args.resume} at step {state.step}")
+    if world > 1:   # every process starts from process 0's state
+        mesh.broadcast_state(_replicated(state))
     step_fn = make_train_step(model, cfg, tx, device=device)
 
     if args.sanity_val_steps > 0:
@@ -343,6 +372,8 @@ def main(argv=None) -> Dict:
                 if not np.isfinite(s["loss"]):
                     # the step skips its update on a non-finite loss, so
                     # the dump holds the last good state
+                    if not main_process:
+                        raise RuntimeError(f"NaN loss at step {state.step}")
                     if nan_mgr is None:
                         nan_mgr = CheckpointManager(
                             os.path.join(args.run_dir, "nan_dump"),
@@ -356,11 +387,12 @@ def main(argv=None) -> Dict:
                                 device)
             log.info("epoch %d val: %s", epoch, json.dumps(
                 {k: round(float(v), 4) for k, v in results.items()}))
-            ckpt_mgr.save(state.step, checkpoint_state(state),
-                          {k: float(v) for k, v in results.items()})
+            if main_process:
+                ckpt_mgr.save(state.step, checkpoint_state(state),
+                              {k: float(v) for k, v in results.items()})
 
     # the final save: epochs past the last validation would be lost
-    if ckpt_mgr.latest_step() != state.step:
+    if main_process and ckpt_mgr.latest_step() != state.step:
         ckpt_mgr.save(state.step, checkpoint_state(state), {"auc@10": -1.0})
         print(f"final checkpoint saved at step {state.step}")
     return {"step": state.step, "run_dir": args.run_dir, "val": results}

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.ops.image_ops import resize_bilinear_align_corners
+from casmtr_tpu_torch.parallel import mesh
 
 
 def backbone_dtype(device: torch.device, train: bool) -> torch.dtype:
@@ -44,27 +45,80 @@ def conv3x3(in_planes: int, out_planes: int, stride: int = 1) -> nn.Conv2d:
                      bias=False)
 
 
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode batch normalization over the global batch of a group:
+    the mean from all-reduced sums of x and the count, the biased variance
+    from all-reduced sums of the squared deviations from it (two passes,
+    as ``torch.var_mean``); the backward all-reduces the two gradient sums
+    (of dy and of dy * x_hat), so each rank's dx carries every rank's loss
+    share.  The parameter gradients are the rank's own sums: the step sums
+    them over the group.  Returns (y, mean, var)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, grp):
+        C = x.shape[1]
+        n_local = x.numel() // C
+        s = torch.cat([x.sum(dim=(0, 2, 3)),
+                       x.new_full((1,), float(n_local))])
+        s = mesh.all_reduce_sum(s, grp)
+        n = s[C]
+        mean = s[:C] / n
+        xc = x - mean[None, :, None, None]
+        var = mesh.all_reduce_sum((xc * xc).sum(dim=(0, 2, 3)), grp) / n
+        invstd = torch.rsqrt(var + eps)
+        x_hat = xc * invstd[None, :, None, None]
+        ctx.save_for_backward(x_hat, invstd, weight, n)
+        ctx.grp = grp
+        y = x_hat * weight[None, :, None, None] + bias[None, :, None, None]
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x_hat, invstd, weight, n = ctx.saved_tensors
+        C = dy.shape[1]
+        local = torch.cat([dy.sum(dim=(0, 2, 3)),
+                           (dy * x_hat).sum(dim=(0, 2, 3))])
+        g = mesh.all_reduce_sum(local, ctx.grp)
+        dx = (weight * invstd)[None, :, None, None] * (
+            dy - (g[:C] / n)[None, :, None, None]
+            - x_hat * (g[C:] / n)[None, :, None, None])
+        return dx, local[C:], local[:C], None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm with the JAX package's (flax's) running statistics.  In
     training it normalizes with the batch statistics as torch's does, but
     moves the running variance toward the BIASED batch variance (flax's
     momentum 0.9 on the running value is torch's 0.1 on the batch value);
-    torch's own module moves it toward the unbiased one.  Eval mode is
-    torch's."""
+    torch's own module moves it toward the unbiased one.  Inside
+    ``parallel.mesh.global_batch()`` the batch is the group's global batch
+    (``_GlobalBatchNorm``), as flax's BatchNorm under the JAX step's
+    sharded jit.  Eval mode is torch's."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x in float32: ``precision.run`` widens a bf16 input first, so the
         statistics are taken in float32."""
         if not self.training:
             return super().forward(x)
+        grp = mesh.batch_group()
+        if grp is not None:
+            y, mean, var = _GlobalBatchNorm.apply(x, self.weight, self.bias,
+                                                  self.eps, grp)
+            with torch.no_grad():
+                self._track(mean, var)
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-            m = self.momentum
-            self.running_mean.mul_(1 - m).add_(mean, alpha=m)
-            self.running_var.mul_(1 - m).add_(var, alpha=m)
-            self.num_batches_tracked.add_(1)
+            self._track(mean, var)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _track(self, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+        self.running_var.mul_(1 - m).add_(var, alpha=m)
+        self.num_batches_tracked.add_(1)
 
 
 def bn(planes: int) -> BatchNorm2d:

@@ -23,6 +23,7 @@ from casmtr_tpu_torch.ops.kernels.window_kernels import window_patch_score
 from casmtr_tpu_torch.ops.matching import (grid_to_pixels, select_topm,
                                            valid_extent)
 from casmtr_tpu_torch.ops.quadtree import block_children, unblock_children
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.structs import Matches
 
 INF = 1e9
@@ -180,9 +181,15 @@ def upscale_per_position(field: torch.Tensor, hw_src, hw_dst) -> torch.Tensor:
 
 def keep_at_least_one(mask: torch.Tensor) -> torch.Tensor:
     """If the whole batch filtered to nothing, force-keep position 0 of every
-    row (guards the empty fine stage downstream)."""
+    row (guards the empty fine stage downstream).  Inside
+    ``parallel.mesh.global_batch()`` the batch is the group's global
+    batch."""
     out = mask.clone()
-    out[:, 0] |= ~mask.any()
+    grp = mesh.batch_group()
+    if grp is None:
+        out[:, 0] |= ~mask.any()
+    else:
+        out[:, 0] |= mesh.all_reduce_sum(mask.any().long()[None], grp)[0] == 0
     return out
 
 

@@ -7,6 +7,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.structs import Matches
 
 INF = 1e9
@@ -69,11 +70,33 @@ def valid_extent(mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def select_topm(mask_flat: torch.Tensor, conf_flat: torch.Tensor, m_cap: int):
     """Top-``m_cap`` valid entries by confidence of flattened [N] arrays.
-    Returns (indices [M], valid [M]); slots beyond N are invalid."""
-    n = mask_flat.shape[0]
-    k = min(m_cap, n)
+    Returns (indices [M], valid [M]); slots beyond N are invalid.
+
+    Inside ``parallel.mesh.global_batch()`` the arrays are this rank's rows
+    of a global batch: the selection is one top-``m_cap`` over every
+    rank's scores gathered in rank order (the flattened global batch, with
+    its ties), and each rank keeps the picks in its own rows, in their
+    order, as local indices packed ahead of invalid slots."""
     score = torch.where(mask_flat, conf_flat,
                         torch.full_like(conf_flat, float("-inf")))
+    grp = mesh.batch_group()
+    if grp is None:
+        return _top_scores(score, m_cap)
+    n = score.shape[0]
+    with torch.profiler.record_function("dp:select_gather"):
+        everyone = mesh.all_gather_flat(score, grp)
+    idx, valid = _top_scores(everyone, m_cap)
+    lo = mesh.rank() * n
+    mine = valid & (idx >= lo) & (idx < lo + n)
+    order = torch.argsort((~mine).to(torch.uint8), stable=True)
+    return torch.where(mine, idx - lo, 0)[order], mine[order]
+
+
+def _top_scores(score: torch.Tensor, m_cap: int):
+    """Top-``m_cap`` finite entries of ``score`` [N] (-inf: not a
+    candidate): (indices [M], valid [M])."""
+    n = score.shape[0]
+    k = min(m_cap, n)
     vals, idx = torch.topk(score, k)
     valid = torch.isfinite(vals)
     if k < m_cap:

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from casmtr_tpu_torch.ops.quadtree import topk_lowest_first
+from casmtr_tpu_torch.parallel import mesh
 
 
 def maxpool_nms_mask(conf: torch.Tensor, hw: Tuple[int, int], window: int
@@ -125,7 +126,12 @@ def d2d_saliency(feat0: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
                     k.expand(C, 1, 5, 5).contiguous(), stride=4, padding=2,
                     groups=C)
     s_rs = torch.linalg.vector_norm(resp, dim=1)             # [B, h/4, w/4]
-    s_rs = (s_rs - s_rs.min()) / (s_rs.max() - s_rs.min() + 1e-12)
+    lo, hi = s_rs.min(), s_rs.max()
+    grp = mesh.batch_group()
+    if grp is not None:    # the global batch's range
+        ends = mesh.all_gather_flat(torch.stack([lo, hi]), grp).view(-1, 2)
+        lo, hi = ends[:, 0].min(), ends[:, 1].max()
+    s_rs = (s_rs - lo) / (hi - lo + 1e-12)
     return (s_as * s_rs).reshape(B, -1)
 
 

@@ -1,4 +1,4 @@
-"""Cross-process communication of the port (counterpart of
-casmtr_tpu/parallel/): for now ``comm``, the object and metric gathers.
-The device mesh (``mesh``) waits for the multi-GPU layer (ROADMAP queue A
-item 6)."""
+"""Cross-process work of the port (counterpart of casmtr_tpu/parallel/):
+``mesh``, the data-parallel process group and the collectives of the
+global-batch step; ``comm``, the object and metric gathers; ``dryrun``,
+one data-parallel step of each graph family against the one-process step."""

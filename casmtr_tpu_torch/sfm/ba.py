@@ -1,5 +1,6 @@
 """Bundle adjustment: Levenberg-Marquardt with Schur-complement landmark
-marginalisation (counterpart of casmtr_tpu/sfm/ba.py), on one device.
+marginalisation (counterpart of casmtr_tpu/sfm/ba.py), on one device or
+landmark-sharded over a process group.
 
 Observations are fixed-size arrays with a validity mask; invalid
 observations contribute zeros.  Everything runs on the device the
@@ -20,13 +21,20 @@ Two solver formulations:
 
 Segment sums are ``index_add_``; on the card it sums with atomics, in an
 order that varies from run to run, so card and CPU results agree to
-float32 rounding, not bit for bit.  The JAX module's landmark-sharded
-variant (``axis_name``, a psum over a mesh) is not ported here (ROADMAP
-queue A item 6).
+float32 rounding, not bit for bit.
+
+Landmark-sharded (``group``, the JAX module's ``axis_name``): each process
+holds every camera and point but only the observations of its own
+landmarks (every observation of a landmark on one process), and the
+camera-sized sums cross the group, at the JAX module's psums: S and b
+(dense); Hcc, g_c, b, each PCG matvec's [C, 6] and the preconditioner's
+WVW (cg); the cost.  Each process then updates its own landmarks; the
+cameras, the cost and the accept decisions agree on every process.
 
 The PCG loop reads one device scalar per iteration (its stop rule) on the
-host; ``HOST_SYNCS["pcg"]`` counts those reads.  The LM loop itself never
-waits: accept and reject are selects on the device.
+host, summed over the group when there is one so that every process stops
+at the same iteration; ``HOST_SYNCS["pcg"]`` counts those reads.  The LM
+loop itself never waits: accept and reject are selects on the device.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 from torch.func import jacfwd, vmap
 
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.serving import configure_card, resolve_device
 from casmtr_tpu_torch.sfm.geometry import project
 
@@ -88,6 +97,12 @@ def _huber_weights(r: torch.Tensor, delta: float) -> torch.Tensor:
     1 inside the delta tube, delta/||r|| outside. [N, 1]."""
     n = torch.linalg.vector_norm(r, dim=-1, keepdim=True)
     return torch.where(n <= delta, 1.0, delta / torch.clamp(n, min=1e-12))
+
+
+def _psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group`` (the JAX module's psum); ``x`` itself
+    without one."""
+    return x if group is None else mesh.all_reduce_sum(x, group)
 
 
 def robust_cost(p: BAProblem, huber_delta: Optional[float]) -> torch.Tensor:
@@ -144,9 +159,10 @@ def _normal_blocks(p: BAProblem, lam: torch.Tensor,
 
 
 def _schur_system(p: BAProblem, lam: torch.Tensor,
-                  huber_delta: Optional[float] = None):
-    """The dense reduced camera system (S [6C, 6C], b [6C]) and the point
-    back-substitution operands (B [P, C, 6, 3], Vinv, g_p)."""
+                  huber_delta: Optional[float] = None, group=None):
+    """The dense reduced camera system (S [6C, 6C], b [6C], summed over
+    ``group`` before the damping) and the point back-substitution operands
+    (B [P, C, 6, 3], Vinv, g_p)."""
     C, P = p.cam_rvec.shape[0], p.points.shape[0]
     Hcc, g_c, g_p, W, Vinv = _normal_blocks(p, lam, huber_delta)
     # cross blocks aggregated per (point, camera)
@@ -157,49 +173,56 @@ def _schur_system(p: BAProblem, lam: torch.Tensor,
     S = (torch.einsum("cij,cd->cidj", Hcc, eyeC)
          - torch.einsum("pcik,pdlk->cidl", BV, B))
     b = g_c - torch.einsum("pcik,pk->ci", BV, g_p)
-    S = S.reshape(6 * C, 6 * C)
+    S = _psum(S.reshape(6 * C, 6 * C), group)
+    b = _psum(b.reshape(6 * C), group)
     S = S + lam * torch.eye(6 * C, dtype=S.dtype, device=S.device)
-    return S, b.reshape(6 * C), (B, Vinv, g_p)
+    return S, b, (B, Vinv, g_p)
 
 
 def _schur_operators(p: BAProblem, lam: torch.Tensor,
-                     huber_delta: Optional[float] = None):
+                     huber_delta: Optional[float] = None, group=None):
     """The sparse Schur system: matrix-free S @ x, rhs b [C, 6],
     block-Jacobi preconditioner blocks D [C, 6, 6], and the landmark
     back-substitution operands (W, Vinv, g_p).  A (point, camera) pair
     observed k times contributes k summed W_n blocks, which the two-pass
-    matvec handles exactly."""
+    matvec handles exactly.  Under ``group`` only the camera-sized sums
+    cross it: Hcc and g_c once, b, the matvec's [C, 6] and WVW."""
     C, P = p.cam_rvec.shape[0], p.points.shape[0]
     Hcc, g_c, g_p, W, Vinv = _normal_blocks(p, lam, huber_delta)
+    Hcc, g_c = _psum(Hcc, group), _psum(g_c, group)
 
     # rhs: b = g_c - B Vinv g_p, accumulated per observation
     Vg = torch.einsum("pjk,pk->pj", Vinv, g_p)                 # [P, 3]
-    b = g_c - _segment_sum(torch.einsum("nij,nj->ni", W, Vg[p.obs_pt]),
-                           p.obs_cam, C)
+    b = g_c - _psum(_segment_sum(torch.einsum("nij,nj->ni", W,
+                                              Vg[p.obs_pt]), p.obs_cam, C),
+                    group)
 
     def matvec(x):                                             # x: [C, 6]
         # (B^T x) gathered per observation, reduced per landmark
         t = _segment_sum(torch.einsum("nij,ni->nj", W, x[p.obs_cam]),
                          p.obs_pt, P)                          # [P, 3]
         y = torch.einsum("pjk,pk->pj", Vinv, t)
-        z = _segment_sum(torch.einsum("nij,nj->ni", W, y[p.obs_pt]),
-                         p.obs_cam, C)                         # [C, 6]
+        z = _psum(_segment_sum(torch.einsum("nij,nj->ni", W, y[p.obs_pt]),
+                               p.obs_cam, C), group)           # [C, 6]
         return torch.einsum("cij,cj->ci", Hcc, x) + lam * x - z
 
     # block-Jacobi preconditioner: the per-camera diagonal 6x6 of S (the
     # same-observation term of the Schur product; duplicate (p, c) cross
     # terms are dropped -- a preconditioner need not be exact)
-    WVW = _segment_sum(torch.einsum("nij,njk,nlk->nil", W, Vinv[p.obs_pt], W),
-                       p.obs_cam, C)
+    WVW = _psum(_segment_sum(torch.einsum("nij,njk,nlk->nil", W,
+                                          Vinv[p.obs_pt], W), p.obs_cam, C),
+                group)
     eye6 = torch.eye(6, dtype=Hcc.dtype, device=Hcc.device)
     D = Hcc + lam * eye6 - WVW
     return matvec, b, D, (W, Vinv, g_p)
 
 
-def _pcg(matvec, b, Dinv, iters: int, tol: float):
+def _pcg(matvec, b, Dinv, iters: int, tol: float, group=None):
     """Preconditioned conjugate gradients on the gauge-fixed reduced camera
     system; iterates are camera-sized [C, 6].  The loop runs while
-    ``(i < iters) & (rz > stop)``: one host read of rz per iteration.
+    ``(i < iters) & (rz > stop)``: one host read of rz per iteration; under
+    ``group`` the read is of the processes' votes summed, and the loop goes
+    on only while every process's rz is above its stop.
 
     Float32 note (as the JAX module's): S @ x is Hcc @ x - B Vinv B^T x,
     two large cancelling terms, so the matvec carries ~1e-3 relative
@@ -220,7 +243,10 @@ def _pcg(matvec, b, Dinv, iters: int, tol: float):
     i = 0
     while i < iters:
         HOST_SYNCS["pcg"] += 1
-        if not bool(rz > stop):                    # the host waits here
+        go = rz > stop
+        if group is not None:   # go on only while no process would stop
+            go = _psum((~go).long()[None], group)[0] == 0
+        if not bool(go):                           # the host waits here
             break
         Ap = matvec(pv)
         alpha = rz / torch.clamp(dot(pv, Ap), min=1e-30)
@@ -240,14 +266,17 @@ def lm_step(p: BAProblem, lam: torch.Tensor,
             huber_delta: Optional[float] = None,
             solver: str = "dense",
             cg_iters: int = 100,
-            cg_tol: float = 1e-6
+            cg_tol: float = 1e-6, group=None
             ) -> Tuple[BAProblem, torch.Tensor]:
     """One damped Gauss-Newton (LM) step.  Returns (updated problem, new
-    cost).  ``fix_first_cam`` pins the gauge: camera 0's update is zero."""
+    cost).  ``fix_first_cam`` pins the gauge: camera 0's update is zero.
+    Under ``group`` the problem is this process's landmarks (module
+    docstring) and the cost is the group's."""
     C = p.cam_rvec.shape[0]
     dt, dev = p.points.dtype, p.points.device
     if solver == "cg":
-        matvec, b, D, (W, Vinv, g_p) = _schur_operators(p, lam, huber_delta)
+        matvec, b, D, (W, Vinv, g_p) = _schur_operators(p, lam, huber_delta,
+                                                        group)
         m = torch.ones((C, 6), dtype=dt, device=dev)
         if fix_first_cam:
             m[0] = 0.0
@@ -258,13 +287,14 @@ def lm_step(p: BAProblem, lam: torch.Tensor,
             # gauge-projected operator: the identity on the pinned block
             return m * matvec(m * x) + (1.0 - m) * x
 
-        dc = m * _pcg(op, m * b, torch.linalg.inv(D), cg_iters, cg_tol)
+        dc = m * _pcg(op, m * b, torch.linalg.inv(D), cg_iters, cg_tol,
+                      group)
         # back-substitute landmarks: dp = Vinv (g_p - B^T dc)
         t = _segment_sum(torch.einsum("nij,ni->nj", W, dc[p.obs_cam]),
                          p.obs_pt, p.points.shape[0])
         dp = torch.einsum("pjk,pk->pj", Vinv, g_p - t)
     elif solver == "dense":
-        S, b, (B, Vinv, g_p) = _schur_system(p, lam, huber_delta)
+        S, b, (B, Vinv, g_p) = _schur_system(p, lam, huber_delta, group)
         if fix_first_cam:
             # pin the first camera: its rows and columns zeroed, identity
             mask = torch.ones(6 * C, dtype=dt, device=dev)
@@ -280,14 +310,14 @@ def lm_step(p: BAProblem, lam: torch.Tensor,
     new = p._replace(cam_rvec=p.cam_rvec + dc[:, :3],
                      cam_tvec=p.cam_tvec + dc[:, 3:],
                      points=p.points + dp)
-    return new, robust_cost(new, huber_delta)
+    return new, _psum(robust_cost(new, huber_delta), group)
 
 
 def run_ba(p: BAProblem, iters: int = 20, lam0: float = 1e-3,
            huber_delta: Optional[float] = None,
            solver: str = "dense",
            cg_iters: int = 100,
-           cg_tol: float = 1e-6
+           cg_tol: float = 1e-6, group=None
            ) -> Tuple[BAProblem, torch.Tensor]:
     """LM loop of ``iters`` steps with multiplicative damping: a step that
     lowers the cost is kept and the damping halves (down to 1e-9), else it
@@ -295,15 +325,19 @@ def run_ba(p: BAProblem, iters: int = 20, lam0: float = 1e-3,
     lives (``to_device``).  ``huber_delta`` (px) enables the Huber robust
     loss: IRLS-weighted steps, accept/reject and the returned cost in rho
     units.  ``solver="cg"`` selects the sparse matrix-free Schur path.
-    Returns (refined problem, final cost as a 0-d float32 tensor)."""
+    ``group`` (``parallel.mesh.group()``) shards the landmarks: ``p`` holds
+    this process's observations (module docstring), the cost is the
+    group's, and the returned points are right for this process's
+    landmarks.  Returns (refined problem, final cost as a 0-d float32
+    tensor)."""
     if p.points.device.type == "cuda":
         configure_card()
     q = p
     lam = torch.tensor(lam0, dtype=torch.float32, device=p.points.device)
-    cost = robust_cost(q, huber_delta).float()
+    cost = _psum(robust_cost(q, huber_delta), group).float()
     for _ in range(iters):
         q2, cost2 = lm_step(q, lam, huber_delta=huber_delta, solver=solver,
-                            cg_iters=cg_iters, cg_tol=cg_tol)
+                            cg_iters=cg_iters, cg_tol=cg_tol, group=group)
         accept = cost2 < cost
         q = q._replace(
             cam_rvec=torch.where(accept, q2.cam_rvec, q.cam_rvec),

@@ -11,13 +11,21 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from casmtr_tpu_torch.config import LoftrConfig
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.structs import MatchOutput
 
 
 def _masked_mean(x, sel, w=None):
     """``(x * w)[sel].mean()``: the optional weight scales the numerator
-    only, so weighted-out elements still count in the denominator."""
-    denom = sel.sum().to(x.dtype).clamp(min=1.0)
+    only, so weighted-out elements still count in the denominator.  Inside
+    ``parallel.mesh.global_batch()`` the count is the global batch's
+    (all-reduced, detached) and the numerator this rank's: the ranks'
+    results sum to the mean over the global batch."""
+    denom = sel.sum().to(x.dtype)
+    grp = mesh.batch_group()
+    if grp is not None:
+        denom = mesh.all_reduce_sum(denom.detach()[None], grp)[0]
+    denom = denom.clamp(min=1.0)
     xw = x * sel if w is None else x * sel * w
     return xw.sum() / denom
 
@@ -82,6 +90,9 @@ def fine_loss(expec_f, expec_f_gt, valid, loss_cfg) -> torch.Tensor:
     # loss is 0 then)
     inv = 1.0 / expec_f[:, 2].clamp(min=1e-10)
     denom = _masked_mean(inv, valid)
+    grp = mesh.batch_group()
+    if grp is not None:   # the ranks' shares of the global mean, summed
+        denom = mesh.all_reduce_sum(denom.detach()[None], grp)[0]
     w = (inv / torch.where(denom > 0, denom, torch.ones_like(denom))).detach()
     return _masked_mean(l2 * w, correct)
 

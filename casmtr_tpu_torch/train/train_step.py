@@ -19,6 +19,7 @@ import torch.nn as nn
 
 from casmtr_tpu_torch.config import Config, LoftrConfig
 from casmtr_tpu_torch.models.loftr import level_mask
+from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.serving import resolve_device
 from casmtr_tpu_torch.train import supervision as spv
 from casmtr_tpu_torch.train.loss import casmtr_loss
@@ -97,11 +98,14 @@ def detector_uniforms(lcfg: LoftrConfig, batch: Dict[str, torch.Tensor],
     g*g] uniform in [1e-9, 1) (the JAX package's range), from a generator
     on the batch's device seeded from (``seed``, ``step``).  The JAX
     package draws from its own PRNG, so the two streams differ; the model
-    takes the draw from the batch, so a test can feed both the same."""
+    takes the draw from the batch, so a test can feed both the same.
+    Inside ``parallel.mesh.global_batch()`` the draw is the global batch's
+    (``world`` times the rows) and this rank keeps its rows of it."""
     if not lcfg.cascade:
         return {}
     B, H, W = batch["image0"].shape[:3]
     dev = batch["image0"].device
+    world = 1 if mesh.batch_group() is None else mesh.world_size()
     out = {}
     for level, scfg in zip(lcfg.cascade_levels, (lcfg.coarse2, lcfg.coarse3)):
         if scfg.detector_mode != "gumbel":
@@ -109,8 +113,10 @@ def detector_uniforms(lcfg: LoftrConfig, batch: Dict[str, torch.Tensor],
         g = scfg.grid_size or 4
         gen = torch.Generator(device=dev).manual_seed(int(
             np.random.SeedSequence([seed, step, level]).generate_state(1)[0]))
-        u = torch.rand((B, (H // level // g) * (W // level // g), g * g),
-                       generator=gen, device=dev)
+        u = torch.rand((B * world, (H // level // g) * (W // level // g),
+                        g * g), generator=gen, device=dev)
+        if world > 1:
+            u = mesh.shard_rows({"u": u})["u"]
         out[f"sample_uniform_{level}c"] = 1e-9 + (1.0 - 1e-9) * u
     return out
 
@@ -138,6 +144,16 @@ def forward_loss(model: nn.Module, batch: Dict[str, torch.Tensor], gt: Dict,
     return loss, scalars
 
 
+def _summed(scalars: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The scalars summed over the group (one all-reduce in float64): the
+    loss terms' shares make the global terms, the counts the global
+    counts.  Each keeps its dtype."""
+    keys = sorted(scalars)
+    vec = torch.stack([scalars[k].detach().double() for k in keys])
+    vec = mesh.all_reduce_sum(vec)
+    return {k: v.to(scalars[k].dtype) for k, v in zip(keys, vec)}
+
+
 def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
                     ) -> Callable:
     """Returns step_fn(state, batch) -> (state, scalars), scalars being the
@@ -150,24 +166,38 @@ def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
     ``batch`` holds image0/image1 [B, H, W, 3], depth0/depth1 [B, H, W],
     K0/K1 [B, 3, 3], T_0to1/T_1to0 [B, 4, 4] and optionally mask0/mask1 and
     scale0/scale1, as tensors or numpy arrays.  ``device`` None means the
-    card, which raises without CUDA; pass "cpu" to train on the CPU."""
+    card, which raises without CUDA; pass "cpu" to train on the CPU.
+
+    Under a process group (``parallel.mesh.init_distributed``) ``batch`` is
+    this rank's rows of the global batch and the step is the JAX step over
+    the sharded global batch: the forward and loss run inside
+    ``mesh.global_batch()`` (each rank's loss is its share of the global
+    loss), the gradients and the scalars are summed over the group, and
+    the clip norm and the skip decision read the sums, so every rank takes
+    the same update."""
     dev = resolve_device(device)
     _set_precision(dev)
     lcfg = cfg.loftr
 
     def step_fn(state: TrainState, batch: Dict):
-        batch, gt = prepare_batch(batch, lcfg, dev)
-        batch.update(detector_uniforms(lcfg, batch, cfg.trainer.seed,
-                                       state.step))
+        grp = mesh.group()
         params = dict(model.named_parameters())
         # the forward moves the BatchNorm statistics; a skipped step restores
         stats = [b.clone() for b in model.buffers()]
         model.train()
         model.zero_grad(set_to_none=True)
-        loss, scalars = forward_loss(model, batch, gt, lcfg)
-        loss.backward()
+        with mesh.global_batch():
+            batch, gt = prepare_batch(batch, lcfg, dev)
+            batch.update(detector_uniforms(lcfg, batch, cfg.trainer.seed,
+                                           state.step))
+            loss, scalars = forward_loss(model, batch, gt, lcfg)
+            loss.backward()
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if grp is not None:
+            mesh.all_reduce_grads(grads.values())
+            scalars = _summed(scalars)
+            loss = scalars["loss"]
         gnorm = global_norm(grads.values())
         if bool(torch.isfinite(loss) & torch.isfinite(gnorm)):
             tx.update(params, grads, state.opt_state)

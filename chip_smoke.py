@@ -292,6 +292,29 @@ lines and its seconds:
    the first matched pair (its non-square, masked 1/8 and 1/4 grids)
    held against its plain version on the captured inputs within 1e-4, s
    per pair, the ATE against the fixture's poses printed.
+15. Data-parallel training (parallel/mesh.py).  (a) 4c in the card's
+   default (bf16) at 704^2, batch 1, from one set of seeded weights: the
+   plain one-process step, then the same over NCCL at world 1: the first
+   step in float32 at 256^2 (dp_gate: loss_8c within TRAIN_LOSS_RTOL and
+   the cosine of its gradient on the backbone and the 1/8 stack >=
+   MIN_GRAD_COS; the whole step printed: the random model's 1/4
+   candidates sit on their 1/Kw threshold, and a 1e-6 nudge of the images
+   moves them); a warm-up (its loss terms printed, world 1 against plain)
+   and DP_STEPS timed bf16 steps at 704^2 of
+   each, their launches held to the per-step count; one profiled step's
+   collectives (the gradient bucket's all-reduce, the selection gathers,
+   BatchNorm's all-reduces); the bucket's bytes.  (b) Two processes on the
+   one card (``--dp-rank``; gloo, which stages the card's tensors through
+   host memory), each with one pair of a batch of two: their float32 step
+   at 256^2 against this process's float32 step on both pairs (dp_gate;
+   the whole step printed beside this process's step on nudged images;
+   the ranks' gradients equal), whether gloo takes a card tensor as it is
+   (timed beside the staged all-reduce), each rank's bf16 s/step at 704^2
+   with its launches, and a profiled step's collectives.  (c)
+   parallel/dryrun.dryrun_multichip(2) on the card: the 4c, 2c and refine
+   steps and the eval forward of two processes against one process in
+   float32 (its module docstring's card gates).  The card's name and power
+   limit stand beside every time.  One card: nothing here measures scaling.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -5257,6 +5280,359 @@ def sfm_phase(torch):
     return timed("sfm: command", sfm_command_phase, torch)
 
 
+# --------------------------------------------------------------------------
+# phase 15: data-parallel training over a process group
+# --------------------------------------------------------------------------
+
+DP_NAME = "outdoor_casmtr_4c"
+DP_SIZE = 256     # the two-process agreement run's pairs
+DP_STEPS = 3      # timed steps of each mode, after a warm-up
+DP_TIMEOUT_S = 600
+DP_NORM_RTOL = 1e-3   # |norm ratio - 1| of loss_8c's gradient
+DP_COARSE_RTOL = 0.25  # each loss term and grad_norm, behind the selections
+DP_PICKS = 4      # each level's selected count
+DP_EVENTS = ("dp:", "nccl", "gloo", "all_reduce", "allreduce", "all_gather",
+             "allgather", "broadcast")
+
+
+def dp_batch(size):
+    """The global batch of the data-parallel runs: train_batch's pairs of
+    seeds 0 and 1, one per rank."""
+    a, b = train_batch(size, 0), train_batch(size, 1)
+    return {k: np.concatenate([a[k], b[k]]) for k in a}
+
+
+def dp_grads(torch, model):
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+            .detach().double().cpu() for n, p in model.named_parameters()}
+
+
+def dp_timed_steps(torch, step, state, batch, steps=DP_STEPS):
+    """A warm-up step, then ``steps`` steps each ended by a synchronize:
+    (state, first scalars, seconds per step, launches over the timed
+    steps)."""
+    from casmtr_tpu_torch.ops import kernels
+    state, first = step(state, batch)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return state, first, times, dict(kernels.LAUNCHES)
+
+
+def dp_profile(torch, step, state, batch):
+    """One step under torch.profiler: the collectives' events (name, calls,
+    host ms, device ms) and the step's wall ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.count, e.cpu_time_total / 1e3,
+             e.device_time_total / 1e3) for e in prof.key_averages()
+            if any(s in e.key.lower() for s in DP_EVENTS)]
+    return sorted(rows, key=lambda r: -r[2]), wall
+
+
+def dp_log_profile(label, rows, wall, smi):
+    log(f"data-parallel: {label} profiled step wall {wall:.1f} ms ({smi})")
+    for key, n, cpu, dev in rows[:12]:
+        log(f"data-parallel: {label} {n:5d}x {key[:60]}: host {cpu:.3f} ms, "
+            f"device {dev:.3f} ms")
+
+
+def dp_check_launches(label, launches, steps):
+    expected = {k: v * steps for k, v in
+                LAUNCHES_PER_TRAIN_STEP[DP_NAME].items()}
+    log(f"data-parallel: {label} launches over {steps} steps {launches}")
+    check(launches == expected, f"data-parallel: {label} launches "
+          f"{launches}, expected {expected}")
+
+
+def dp_gloo_probe(torch, dev, n):
+    """gloo and the card's tensors: an all-reduce of ``n`` float32 staged
+    through host memory (the port's way, parallel.mesh._stage) and the
+    same tensor handed to gloo as it is; ms of each and whether gloo took
+    it."""
+    import torch.distributed as dist
+    t = torch.ones(n, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = t.cpu()
+    dist.all_reduce(host)
+    t.copy_(host)
+    torch.cuda.synchronize()
+    out = {"staged_ms": (time.perf_counter() - t0) * 1e3,
+           "staged_ok": bool((t == 2).all())}
+    t = torch.ones(n, device=dev)
+    t0 = time.perf_counter()
+    try:   # a measurement: the port never hands gloo a card tensor
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        out.update(direct_ms=(time.perf_counter() - t0) * 1e3,
+                   direct_ok=bool((t == 2).all()))
+    except (RuntimeError, ValueError) as e:
+        out["direct_refused"] = str(e).splitlines()[0][:200]
+    return out
+
+
+def dp_seeded(torch, size):
+    """The 4c model at ``size`` with the seeded random weights of
+    build_trainer, on the CPU."""
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.weights import init_random_
+    model = build_model(model_config(DP_NAME, train_size=size).loftr)
+    init_random_(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def dp_coarse_gradient(torch, model, batch, dev):
+    """The gradient of loss_8c alone on every parameter it reaches (the
+    backbone, BatchNorm's backward included, and the 1/8 stack), from one
+    forward in train mode and no update, summed over the group when there
+    is one, in float64 on the CPU; the BatchNorm statistics are restored.
+    loss_8c is continuous in the inputs: no selection decides it."""
+    from casmtr_tpu_torch.parallel import mesh
+    from casmtr_tpu_torch.train.train_step import (forward_loss,
+                                                   prepare_batch)
+    stats = [b.clone() for b in model.buffers()]
+    params = {n: p for n, p in model.named_parameters()
+              if n.split(".")[0] in ("backbone", "loftr_coarse_8c")}
+    model.train()
+    with mesh.global_batch():
+        b, gt = prepare_batch(batch, model.config, torch.device(dev))
+        _, scalars = forward_loss(model, b, gt, model.config)
+        grads = torch.autograd.grad(scalars["loss_8c"], list(params.values()),
+                                    allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, params.values())]
+    if mesh.group() is not None:
+        mesh.all_reduce_grads(grads)
+    with torch.no_grad():
+        for buf, st in zip(model.buffers(), stats):
+            buf.copy_(st)
+    return {n: g.double().cpu() for n, g in zip(params, grads)}
+
+
+def dp_first_step(torch, base, batch, prec, size=TRAIN_SIZE, dev="cuda"):
+    """One step of a copy of ``base`` in precision ``prec`` on ``dev``
+    (under the group when there is one): (scalars, gradients, and
+    dp_coarse_gradient taken before the step, in float64 on the CPU)."""
+    with precision(prec):
+        model, state, step = build_trainer(torch, DP_NAME, size, device=dev,
+                                           model=copy.deepcopy(base))
+        coarse = dp_coarse_gradient(torch, model, batch, dev)
+        _, scalars = step(state, batch)
+        return ({k: float(v) for k, v in scalars.items()},
+                dp_grads(torch, model), coarse)
+
+
+def dp_rank_main(argv):
+    """One rank of the two-process run on the one card (gloo): the f32
+    agreement step at DP_SIZE, the gloo probe, then the bf16 steps at
+    TRAIN_SIZE, one profiled; its results to OUT/rank{R}.pt."""
+    import torch
+    import torch.distributed as dist
+    from casmtr_tpu_torch.parallel import mesh
+    rank, port, out = int(argv[0]), int(argv[1]), argv[2]
+    dev = mesh.init_distributed(f"localhost:{port}", 2, rank, "cuda")
+    try:
+        res = {"f32": dp_first_step(torch, dp_seeded(torch, DP_SIZE),
+                                    mesh.shard_rows(dp_batch(DP_SIZE)),
+                                    "f32", DP_SIZE, dev)}
+        with precision("bf16"):
+            model, state, step = build_trainer(torch, DP_NAME, TRAIN_SIZE,
+                                               device=dev)
+            n = sum(p.numel() for p in model.parameters())
+            res["probe"] = dp_gloo_probe(torch, dev, n)
+            batch = mesh.shard_rows(dp_batch(TRAIN_SIZE))
+            state, first, times, launches = dp_timed_steps(torch, step,
+                                                           state, batch)
+            res["bf16"] = {"times": times, "launches": launches,
+                           "loss": float(first["loss"])}
+            res["profile"] = dp_profile(torch, step, state, batch)
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dp_difference(torch, a, b):
+    """Step ``a`` against step ``b`` (dp_first_step's results): each loss
+    term's and grad_norm's relative difference, the most picks a level's
+    selected count moved, the whole gradient's cosine and its worst leaf
+    (leaf_errors), and the cosine and |norm ratio - 1| of the loss_8c
+    gradients."""
+    rel = {k: abs(a[0][k] - b[0][k]) / (abs(b[0][k]) or 1.0) for k in b[0]
+           if k.startswith("loss") or k == "grad_norm"}
+    picks = max(abs(a[0][k] - b[0][k]) for k in b[0]
+                if k.startswith("valid_n"))
+    cos, worst = leaf_errors(torch, a[1], b[1])
+    f8 = [torch.cat([g[n].flatten() for n in b[2]]) for g in (a[2], b[2])]
+    return {"rel": rel, "picks": picks, "cos": cos, "worst": worst,
+            "cos8": cosine(*f8),
+            "norm8": abs(float(f8[0].norm() / f8[1].norm()) - 1)}
+
+
+def dp_log_difference(label, a, b, diff):
+    log(f"data-parallel: {label}: relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(diff["rel"].items()))
+        + f"; valid_n_4c {a[0]['valid_n_4c']:.0f} / {b[0]['valid_n_4c']:.0f}"
+        f"; gradient cosine {diff['cos']:.8f}, worst leaf "
+        f"{diff['worst'][0]:.3e} ({diff['worst'][1]}); loss_8c's gradient "
+        f"cosine {diff['cos8']:.8f}, |norm ratio - 1| {diff['norm8']:.3e}")
+
+
+def dp_gate(label, diff):
+    """The card's float32 gates.  What no selection decides: loss_8c
+    within TRAIN_LOSS_RTOL, its gradient's cosine >= MIN_GRAD_COS and its
+    norm within DP_NORM_RTOL (cosine does not see a gradient off by a
+    factor of the world).  The terms behind the 1/4 and fine selections
+    are held coarsely, each loss term and grad_norm within DP_COARSE_RTOL
+    and each selected count within DP_PICKS: the random model's candidates
+    sit on their 1/Kw threshold, and a 1e-6 nudge of the images moves them
+    (phase 8's rule for the ResNetFPN variant).  A sum where a mean belongs
+    is off by a factor of 2 at world 2 and fails them."""
+    rel = diff["rel"]
+    check(rel["loss_8c"] <= TRAIN_LOSS_RTOL and diff["cos8"] >= MIN_GRAD_COS
+          and diff["norm8"] <= DP_NORM_RTOL
+          and max(rel.values()) <= DP_COARSE_RTOL
+          and diff["picks"] <= DP_PICKS,
+          f"data-parallel: {label} disagrees: {diff}")
+
+
+def dp_nudged(batch, seed=0):
+    """``batch`` with its images times (1 + NUDGE x a normal draw)."""
+    rng = np.random.default_rng(seed)
+    out = dict(batch)
+    for k in ("image0", "image1"):
+        out[k] = (batch[k] * (1 + NUDGE * rng.standard_normal(
+            batch[k].shape))).astype(np.float32)
+    return out
+
+
+def dp_world1(torch, smi):
+    """(a) 4c from seeded weights: the plain one-process step and the same
+    over NCCL at world 1 (``parallel.mesh``) on one pair: their first step
+    in float32 at DP_SIZE (dp_gate), then a warm-up and DP_STEPS timed
+    bf16 steps at TRAIN_SIZE of each (the warm-up steps' loss terms
+    printed against each other: at TRAIN_SIZE the random model's 1/4
+    candidates sit on their 1/Kw threshold, and any rounding moves some),
+    their launches, a profiled world-1 step's collectives, and the
+    gradient bucket's bytes."""
+    import torch.distributed as dist
+    from casmtr_tpu_torch.parallel import dryrun, mesh
+    small, base = dp_seeded(torch, DP_SIZE), dp_seeded(torch, TRAIN_SIZE)
+    n_params = sum(p.numel() for p in base.parameters())
+    batch = train_batch(TRAIN_SIZE, 0)
+    first, warm = {}, {}
+    for mode in ("plain", "world 1"):
+        if mode == "world 1":
+            mesh.init_distributed(f"localhost:{dryrun.free_port()}", 1, 0,
+                                  "cuda")
+            check(dist.get_backend() == "nccl" and mesh.world_size() == 1,
+                  "data-parallel: world 1 is not NCCL")
+        first[mode] = dp_first_step(torch, small, train_batch(DP_SIZE, 0),
+                                    "f32", DP_SIZE)
+        model, state, step = build_trainer(torch, DP_NAME, TRAIN_SIZE,
+                                           device="cuda",
+                                           model=copy.deepcopy(base))
+        state, warm[mode], times, launches = dp_timed_steps(
+            torch, step, state, batch)
+        log(f"data-parallel: 4c bf16 {TRAIN_SIZE}^2 {mode}: median "
+            f"{statistics.median(times):.4f} s/step (steps "
+            f"{', '.join(f'{t:.4f}' for t in times)}; {smi})")
+        dp_check_launches(f"4c bf16 {mode}", launches, DP_STEPS)
+        if mode == "world 1":
+            dp_log_profile("world 1 NCCL", *dp_profile(torch, step, state,
+                                                       batch), smi)
+            dist.destroy_process_group()
+        del model, state, step
+        torch.cuda.empty_cache()
+    label = f"world 1 against plain, f32 {DP_SIZE}^2"
+    diff = dp_difference(torch, first["world 1"], first["plain"])
+    dp_log_difference(f"first step, {label}", first["world 1"],
+                      first["plain"], diff)
+    dp_gate(label, diff)
+    w, p = ({k: float(v) for k, v in warm[m].items()}
+            for m in ("world 1", "plain"))
+    log(f"data-parallel: warm-up step, world 1 against plain, bf16 "
+        f"{TRAIN_SIZE}^2 (printed): loss terms " + ", ".join(
+            f"{k} {abs(w[k] - p[k]) / (abs(p[k]) or 1.0):.3e}"
+            for k in sorted(p) if k.startswith("loss"))
+        + f"; valid_n_4c {w['valid_n_4c']:.0f} / {p['valid_n_4c']:.0f}")
+    log(f"data-parallel: gradient all-reduce {n_params} float32 = "
+        f"{4 * n_params} bytes per step in one bucket (a ring moves "
+        f"2(w-1)/w of it per rank: 0 at world 1, {4 * n_params} at "
+        f"world 2)")
+
+
+def dp_two_ranks(torch, smi):
+    """(b) Two processes on the one card (gloo): their f32 step at
+    DP_SIZE on one pair each against this process's f32 step on both pairs
+    (dp_gate, beside this process's step on nudged images; the two ranks'
+    gradients equal; this process's steps run while the ranks start and
+    build), then each rank's bf16 s/step at TRAIN_SIZE, its launches and a
+    profiled step's collectives, and whether gloo takes the card's
+    tensors."""
+    from casmtr_tpu_torch.parallel import dryrun
+
+    def argv(r, port, out):
+        return [sys.executable, os.path.abspath(__file__), "--dp-rank",
+                str(r), str(port), out]
+    with dryrun.spawn_world(2, argv, DP_TIMEOUT_S) as wait:
+        # this process's steps while the ranks start and build
+        small, batch = dp_seeded(torch, DP_SIZE), dp_batch(DP_SIZE)
+        ref = dp_first_step(torch, small, batch, "f32", DP_SIZE)
+        nudged = dp_first_step(torch, small, dp_nudged(batch), "f32",
+                               DP_SIZE)
+        torch.cuda.empty_cache()
+        ranks, _ = wait()
+    dp_log_difference(f"one process on both pairs, nudged against not, f32 "
+                      f"{DP_SIZE}^2", nudged, ref,
+                      dp_difference(torch, nudged, ref))
+    for r, res in enumerate(ranks):
+        label = (f"two ranks on one card, rank {r}, f32 {DP_SIZE}^2 against "
+                 "one process on both pairs")
+        diff = dp_difference(torch, res["f32"], ref)
+        dp_log_difference(label, res["f32"], ref, diff)
+        dp_gate(label, diff)
+        b = res["bf16"]
+        log(f"data-parallel: 4c bf16 {TRAIN_SIZE}^2 two ranks on one card "
+            f"(gloo), rank {r}: median {statistics.median(b['times']):.4f} "
+            f"s/step (steps {', '.join(f'{t:.4f}' for t in b['times'])}; "
+            f"{smi})")
+        dp_check_launches(f"4c bf16 two ranks, rank {r}", b["launches"],
+                          DP_STEPS)
+        log(f"data-parallel: gloo and the card's tensors, rank {r}: "
+            f"{res['probe']}")
+        dp_log_profile(f"two ranks gloo, rank {r}", *res["profile"], smi)
+    for i in (1, 2):
+        check(all(torch.equal(ranks[0]["f32"][i][n], ranks[1]["f32"][i][n])
+                  for n in ref[i]), "data-parallel: the ranks' gradients "
+              "differ")
+
+
+def dp_phase(torch):
+    """Phase 15: (a) dp_world1, (b) dp_two_ranks, (c) dryrun_multichip(2)
+    on the card."""
+    from casmtr_tpu_torch.parallel import dryrun
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    timed("data-parallel: world 1", dp_world1, torch, smi)
+    timed("data-parallel: two ranks", dp_two_ranks, torch, smi)
+    timed("data-parallel: dryrun", dryrun.dryrun_multichip, 2, "cuda")
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -5274,6 +5650,8 @@ def main(argv):
     from casmtr_tpu_torch.ops import kernels
     if argv[:1] == ["--first-request"]:   # phase 10's fresh-process probe
         return first_request_probe(argv[1], argv[2] == "--warm")
+    if argv[:1] == ["--dp-rank"]:          # a rank of phase 15(b)
+        return dp_rank_main(argv[1:])
     if argv:
         print("usage: chip_smoke.py", file=sys.stderr)
         return 2
@@ -5360,6 +5738,7 @@ def main(argv):
                                                      torch, earlier)
     train_runs.update(io_train_runs)
     serve_runs[SFM_NAME] = timed("sfm", sfm_phase, torch)
+    timed("data-parallel", dp_phase, torch)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

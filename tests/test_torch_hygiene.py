@@ -43,7 +43,8 @@ IMPORTED = ("casmtr_tpu_torch", "casmtr_tpu_torch.serving",
             "casmtr_tpu_torch.data.module", "casmtr_tpu_torch.cli.evaluate",
             "casmtr_tpu_torch.cli.train", "casmtr_tpu_torch.cli.match_pair",
             "casmtr_tpu_torch.cli.reconstruct", "casmtr_tpu_torch.sfm.pipeline",
-            "casmtr_tpu_torch.parallel.comm")
+            "casmtr_tpu_torch.parallel.comm", "casmtr_tpu_torch.parallel.mesh",
+            "casmtr_tpu_torch.parallel.dryrun")
 
 
 def _build_tree():
