@@ -110,7 +110,7 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
              profiler_name: Optional[str] = None,
              dump_dir: Optional[str] = None,
              pose_solver: str = "device", device=None,
-             loader=None) -> Dict:
+             loader=None, on_batch=None) -> Dict:
     """Evaluate ``model`` (a port model of ``cfg.loftr``) on ``dataset``
     (None: the test split of ``cfg.dataset`` read from disk), one pair per
     batch, or on the batches of ``loader`` when given (the training
@@ -122,7 +122,9 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
     and put in eval mode.  ``profiler_name`` "inference" prints the time
     of the matching, of the pose and of the wait for the loader's next
     batch ("Data loading") per region; ``dump_dir`` receives the
-    final matches of every batch (pred_eval.npy)."""
+    final matches of every batch (pred_eval.npy); ``on_batch(n, batch,
+    out_np, metrics)`` is called after each batch is scored, with ``n``
+    the pairs before it (the training command's figures)."""
     if pose_solver == "cv2":
         raise ValueError("pose_solver 'cv2' (OpenCV RANSAC) is not ported; "
                          "the port's solver is 'device' "
@@ -162,6 +164,8 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
                                  device)
         if dump_dir is not None:
             dumps.append(out_np)
+        if on_batch is not None:
+            on_batch(n, batch, out_np, metrics)
         n += batch["K0"].shape[0]
         if max_pairs is not None and n >= max_pairs:
             break

@@ -1,11 +1,14 @@
 """Single-pair matching (counterpart of casmtr_tpu/cli/match_pair.py): load
-two images, run the matcher, print the number of matches.
+two images, run the matcher, print the number of matches and draw them
+into a figure.
 
-    python -m casmtr_tpu_torch.cli.match_pair IMG0 IMG1 --ckpt CKPT
+    python -m casmtr_tpu_torch.cli.match_pair IMG0 IMG1 --ckpt CKPT \
+        --out result.png
 
-The JAX command also draws the matches into a figure (``--out``, through
-matplotlib); the figure is not ported (ROADMAP queue A), so ``--out``
-defaults to None here and giving it raises NotImplementedError.
+The figure is ``utils/plotting.make_matching_figure``'s raster (green
+lines, alpha ``clip(mconf, 0.2, 1)``, the text "CasMTR-TPU: N matches"),
+written as a PNG whatever the extension of ``--out``; the JAX command's is
+a matplotlib figure.
 """
 
 from __future__ import annotations
@@ -13,10 +16,12 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 
 from casmtr_tpu_torch.config import override
 from casmtr_tpu_torch.configs import build_config
+from casmtr_tpu_torch.data import codecs
 from casmtr_tpu_torch.data.io import load_im_padding
 from casmtr_tpu_torch.models import build_model
 from casmtr_tpu_torch.serving import configure_card, resolve_device
@@ -69,10 +74,8 @@ def main(argv=None):
                         "directory")
     p.add_argument("--resize", type=int, default=1024)
     p.add_argument("--thr", type=float, default=0.2)
-    p.add_argument("--out", default=None,
-                   help="the JAX command's match figure: not ported (it "
-                        "needs matplotlib; ROADMAP queue A), so giving it "
-                        "raises NotImplementedError")
+    p.add_argument("--out", default="result.png",
+                   help="where the match figure goes (a PNG)")
     p.add_argument("--overrides-json", default=None,
                    help="inline JSON config overrides (e.g. to select a "
                         "post-process method)")
@@ -82,10 +85,6 @@ def main(argv=None):
                    help="where the model runs (default: the card, 'cuda'; "
                         "'cpu' for the CPU)")
     args = p.parse_args(argv)
-    if args.out is not None:
-        raise NotImplementedError(
-            "--out: the match figure is not ported (it needs matplotlib; "
-            "see ROADMAP.md queue A, utils/plotting)")
 
     cfg = build_config(args.model)
     if args.overrides_json:
@@ -103,6 +102,17 @@ def main(argv=None):
                                  resize=args.resize, thr=args.thr,
                                  device=args.device)
     print(f"{len(mk0)} matches")
+
+    from casmtr_tpu_torch.utils.plotting import make_matching_figure
+    im0 = codecs.imread(args.img0) / 255.0
+    im1 = codecs.imread(args.img1) / 255.0
+    color = np.zeros((len(mk0), 4))
+    color[:, 1] = 1.0
+    color[:, 3] = np.clip(mconf, 0.2, 1.0) if len(mconf) else 1.0
+    make_matching_figure(im0, im1, mk0, mk1, color,
+                         text=[f"CasMTR-TPU: {len(mk0)} matches"],
+                         path=args.out)
+    print(f"wrote {args.out}")
     return mk0, mk1, mconf
 
 

@@ -30,10 +30,14 @@ make_train_step``), validation gathers its metrics from every process,
 and only process 0 writes ``config.json``, the checkpoints and the NaN
 dump; the other processes log errors only.
 
-Deviations from the JAX command: validation poses with the batched device
-solver (``sfm.pose``; OpenCV's RANSAC is not ported) and draws no figures;
-there is no TensorBoard writer (it needs TensorFlow), so the scalars go to
-the console.
+Process 0 writes TensorBoard events to ``run-dir/tb`` (``utils/logging.
+TensorBoardWriter``, stdlib only): ``train/*`` and ``lr`` every
+``--log-every`` steps, ``val/*`` after each validation, and a match figure
+``val_match/pair-{n}`` every ``--plot-every`` validation pairs
+(``utils/plotting``'s raster).
+
+Deviation from the JAX command: validation poses with the batched device
+solver (``sfm.pose``; OpenCV's RANSAC is not ported).
 """
 
 from __future__ import annotations
@@ -65,7 +69,7 @@ from casmtr_tpu_torch.train.optim import (AdamW, OptState, build_lr_schedule,
                                           set_schedule_step)
 from casmtr_tpu_torch.train.train_step import (TrainState, init_train_state,
                                                make_train_step)
-from casmtr_tpu_torch.utils.logging import get_logger
+from casmtr_tpu_torch.utils.logging import TensorBoardWriter, get_logger
 from casmtr_tpu_torch.weights import init_random_
 
 
@@ -173,29 +177,52 @@ def device_batch(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 
 def run_validation(cfg: Config, model: torch.nn.Module, val_loader,
-                   max_pairs: int = 200, device=None) -> Dict:
+                   max_pairs: int = 200, device=None, tb=None, step: int = 0,
+                   plot_every: int = 32) -> Dict:
     """One validation pass of ``model`` over at most ``max_pairs`` pairs of
     ``val_loader``: ``evaluate.run_eval`` on the loader (the batched device
     pose solver; the JAX command poses with OpenCV's RANSAC, which is not
-    ported), or {} without pairs.  The model is left in eval mode (the
-    training step puts it back in train mode)."""
+    ported), or {} without pairs.  With ``tb`` (a ``TensorBoardWriter``)
+    the first pair of every ``plot_every``-th batch (by pairs seen) is
+    drawn (``make_evaluation_figure`` of its valid matches and epipolar
+    errors) as ``val_match/pair-{n}`` at ``step``, as the JAX function
+    does.  The model is left in eval mode (the training step puts it back
+    in train mode)."""
+    on_batch = None
+    if tb is not None:
+        from casmtr_tpu_torch.utils.plotting import make_evaluation_figure
+
+        def on_batch(n, batch, out_np, metrics):
+            if n % plot_every or not metrics["epi_errs"]:
+                return
+            sel = out_np["valid"] & (out_np["b_ids"] == 0)
+            fig = make_evaluation_figure(
+                np.asarray(batch["image0"][0]).mean(-1),
+                np.asarray(batch["image1"][0]).mean(-1),
+                out_np["mkpts0"][sel], out_np["mkpts1"][sel],
+                metrics["epi_errs"][-batch["K0"].shape[0]],
+                cfg.trainer.epi_err_thr)
+            tb.figure(f"val_match/pair-{n}", fig, step)
     return run_eval(cfg, model, max_pairs=max_pairs, device=device,
-                    loader=val_loader)
+                    loader=val_loader, on_batch=on_batch)
 
 
-def _validate(cfg, state: TrainState, val_loader, max_pairs, device):
-    """``run_validation`` of the state's model, with the EMA parameters in
-    place of the raw ones when ``trainer.test_ema`` (the raw ones come
-    back after it)."""
+def _validate(cfg, state: TrainState, val_loader, max_pairs, device,
+              **kw):
+    """``run_validation`` of the state's model (``kw``: its figure
+    arguments), with the EMA parameters in place of the raw ones when
+    ``trainer.test_ema`` (the raw ones come back after it)."""
     if not (cfg.trainer.test_ema and state.ema_params is not None):
-        return run_validation(cfg, state.model, val_loader, max_pairs, device)
+        return run_validation(cfg, state.model, val_loader, max_pairs, device,
+                              **kw)
     params = dict(state.model.named_parameters())
     raw = {n: p.detach().clone() for n, p in params.items()}
     print("validation uses EMA params (trainer.test_ema=True)")
     with torch.no_grad():
         for n, p in params.items():
             p.copy_(state.ema_params[n])
-    results = run_validation(cfg, state.model, val_loader, max_pairs, device)
+    results = run_validation(cfg, state.model, val_loader, max_pairs, device,
+                             **kw)
     with torch.no_grad():
         for n, p in params.items():
             p.copy_(raw[n])
@@ -209,8 +236,7 @@ def main(argv=None) -> Dict:
         description="CasMTR training in PyTorch, on one device or "
                     "data-parallel over processes",
         epilog="Unlike the JAX command, validation poses with the batched "
-               "device solver (OpenCV's RANSAC is not ported), draws no "
-               "figures and logs to the console (no TensorBoard).")
+               "device solver (OpenCV's RANSAC is not ported).")
     p.add_argument("--model", default="outdoor_casmtr_4c")
     p.add_argument("--data", default="megadepth_trainval_704")
     p.add_argument("--run-dir", default="runs/default")
@@ -235,6 +261,9 @@ def main(argv=None) -> Dict:
     p.add_argument("--log-every", type=int, default=50)
     p.add_argument("--val-every-epochs", type=int, default=1)
     p.add_argument("--max-val-pairs", type=int, default=200)
+    p.add_argument("--plot-every", type=int, default=32,
+                   help="a validation match figure every N pairs "
+                        "(TensorBoard, run-dir/tb)")
     p.add_argument("--sanity-val-steps", type=int, default=2,
                    help="val pairs to run before training")
     p.add_argument("--seed", type=int, default=66)
@@ -280,6 +309,7 @@ def main(argv=None) -> Dict:
     os.makedirs(args.run_dir, exist_ok=True)
     if main_process:
         dump(cfg, os.path.join(args.run_dir, "config.json"))
+    tb = TensorBoardWriter(os.path.join(args.run_dir, "tb"))
     log = get_logger()
 
     dm = MultiSceneDataModule(cfg, world_size=world, rank=rank)
@@ -357,6 +387,8 @@ def main(argv=None) -> Dict:
                 s = {k: float(v) for k, v in scalars.items()}
                 now = time.time()
                 s["lr"] = float(lr_sched(state.step))
+                tb.scalars({f"train/{k}": v for k, v in s.items()},
+                           state.step)
                 win_step = (now - win_t0 - win_data) / win_n
                 cum_step = (now - t0 - t_data) / (i + 1)
                 step_tag = "compile_s" if i == 0 and epoch == 0 else "step_s"
@@ -384,7 +416,11 @@ def main(argv=None) -> Dict:
 
         if (epoch + 1) % args.val_every_epochs == 0:
             results = _validate(cfg, state, val_loader, args.max_val_pairs,
-                                device)
+                                device, tb=tb, step=state.step,
+                                plot_every=args.plot_every)
+            tb.scalars({f"val/{k}": float(v) for k, v in results.items()},
+                       state.step)
+            tb.flush()
             log.info("epoch %d val: %s", epoch, json.dumps(
                 {k: round(float(v), 4) for k, v in results.items()}))
             if main_process:
@@ -395,6 +431,7 @@ def main(argv=None) -> Dict:
     if main_process and ckpt_mgr.latest_step() != state.step:
         ckpt_mgr.save(state.step, checkpoint_state(state), {"auc@10": -1.0})
         print(f"final checkpoint saved at step {state.step}")
+    tb.close()
     return {"step": state.step, "run_dir": args.run_dir, "val": results}
 
 

@@ -1,16 +1,23 @@
-// Sequential-Huffman JPEG decoding as libjpeg-turbo gives it to
-// cv2.imread by default: baseline and extended-sequential Huffman (SOF0,
-// SOF1) with 8-bit samples and 1 or 3 components, any integral sampling
-// factors, restart markers, 8- and 16-bit quantization tables; the accurate
+// Huffman JPEG decoding as libjpeg-turbo gives it to cv2.imread by
+// default: baseline, extended-sequential and progressive Huffman (SOF0,
+// SOF1, SOF2) with 8-bit samples and 1 or 3 components, any integral
+// sampling factors, restart markers, 8- and 16-bit quantization tables.
+// Progressive files (jdphuff.c: DC first and refine scans, interleaved or
+// not; AC first and refine scans with end-of-band runs, one component
+// each) accumulate the coefficients of the whole image, which are
+// dequantized and transformed at the end of the file as a sequential
+// file's are at each block (libjpeg's block smoothing acts only on
+// coefficients that no scan refined to the last bit, and the decoder
+// refuses a file whose scans leave any).  Then the accurate
 // integer IDCT of jidctint.c (JDCT_ISLOW), the "fancy" triangle upsampling
 // of jdsample.c (h2v1, h2v2, h1v2; plain replication otherwise) and the
 // fixed-point YCbCr->RGB and RGB->gray of jdcolor.c.  Grayscale output is
 // libjpeg's JCS_GRAYSCALE: the Y plane, no colour conversion.  The EXIF
 // orientation is parsed here and applied by the caller.
 //
-// Progressive, arithmetic-coded, lossless, hierarchical and 12-bit files
-// and CMYK/YCCK (4 components) are refused with a message naming the
-// marker.  Plain C interface (ctypes); each call returns 0, or 1 with a
+// Arithmetic-coded (SOF9, SOF10, DAC), lossless, hierarchical (SOF5-7,
+// SOF13-15) and 12-bit files and CMYK/YCCK (4 components) are refused with
+// a message naming the marker.  Plain C interface (ctypes); each call returns 0, or 1 with a
 // message in ``err``.
 
 #include <cstdint>
@@ -307,6 +314,11 @@ struct Component {
   bool latched = false, decoded = false;
   int16_t quant[64];
   std::vector<uint8_t> plane;
+  // progressive: the coefficients of every block (stride / 8 x rows / 8
+  // blocks of 64, natural order), and each coefficient's lowest bit yet
+  // to come (-1 before its first scan, 0 when complete)
+  std::vector<int16_t> coef;
+  int coef_bits[64];
 };
 
 struct Decoder {
@@ -321,6 +333,8 @@ struct Decoder {
   bool qdef[4] = {false, false, false, false};
   Huff dc[4], ac[4];
   int restart_interval = 0;
+  bool progressive = false;
+  int eobrun = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   int orientation = 1;
@@ -481,17 +495,16 @@ struct Decoder {
     pos = 2;
     for (;;) {
       int m = next_marker();
-      if (m == 0xC0 || m == 0xC1) {
+      if (m == 0xC0 || m == 0xC1 || m == 0xC2) {
         if (frame) fail("a second SOF marker");
+        progressive = m == 0xC2;
         read_sof(m);
-      } else if (m == 0xC2 || m == 0xC6 || m == 0xCA || m == 0xCE) {
-        fail("progressive JPEG (" + sof_name(m) + ") is not supported");
       } else if (m == 0xC3 || m == 0xC7 || m == 0xCB || m == 0xCF) {
         fail("lossless JPEG (" + sof_name(m) + ") is not supported");
-      } else if (m == 0xC5) {
-        fail("hierarchical JPEG (SOF5) is not supported");
-      } else if (m == 0xC9) {
-        fail("arithmetic coding (SOF9) is not supported");
+      } else if (m == 0xC5 || m == 0xC6 || m == 0xCD || m == 0xCE) {
+        fail("hierarchical JPEG (" + sof_name(m) + ") is not supported");
+      } else if (m == 0xC9 || m == 0xCA) {
+        fail("arithmetic coding (" + sof_name(m) + ") is not supported");
       } else if (m == 0xCC) {
         fail("arithmetic coding (DAC) is not supported");
       } else if (m == 0xC4) {
@@ -509,6 +522,7 @@ struct Decoder {
         scan();
       } else if (m == 0xD9) {
         if (!frame) fail("EOI before SOF");
+        if (decode && progressive) finish_progressive();
         return;
       } else if (m >= 0xD0 && m <= 0xD7) {
         // a stray restart marker: libjpeg ignores it
@@ -525,28 +539,49 @@ struct Decoder {
     int ns = u8();
     if (ns < 1 || ns > 4 || len != 6 + 2 * ns) fail("corrupt SOS");
     Component* sc[4];
+    int tables[4];
     for (int i = 0; i < ns; i++) {
-      int id = u8(), t = u8();
+      int id = u8();
+      tables[i] = u8();
       Component* c = nullptr;
       for (int j = 0; j < ncomp; j++)
         if (comp[j].id == id) c = &comp[j];
       if (!c) fail("SOS names an unknown component");
-      c->td = t >> 4;
-      c->ta = t & 15;
-      if (c->td > 3 || c->ta > 3 || !dc[c->td].defined ||
-          !ac[c->ta].defined)
+      sc[i] = c;
+    }
+    int ss = u8(), se = u8(), ahl = u8();
+    int ah = ahl >> 4, al = ahl & 15;
+    if (progressive) {
+      bool dc = ss == 0;
+      if ((dc && se != 0) || (!dc && (se < ss || se > 63 || ns != 1)) ||
+          al > 13)
+        fail("corrupt progressive scan parameters (SOS)");
+    }
+    for (int i = 0; i < ns; i++) {
+      Component* c = sc[i];
+      c->td = tables[i] >> 4;
+      c->ta = tables[i] & 15;
+      bool need_dc = !progressive || (ss == 0 && ah == 0);
+      bool need_ac = !progressive || ss > 0;
+      if (c->td > 3 || c->ta > 3 || (need_dc && !dc[c->td].defined) ||
+          (need_ac && !ac[c->ta].defined))
         fail("SOS uses an undefined Huffman table");
       if (!c->latched) {  // libjpeg latches the table at the first scan
         if (!qdef[c->tq]) fail("a component's quantization table is missing");
         for (int k = 0; k < 64; k++) c->quant[k] = (int16_t)qtab[c->tq][k];
         c->latched = true;
         c->plane.assign((size_t)c->stride * c->rows, 0);
+        if (progressive) {
+          c->coef.assign((size_t)c->stride * c->rows, 0);
+          for (int k = 0; k < 64; k++) c->coef_bits[k] = -1;
+        }
       }
+      if (progressive)  // libjpeg only warns about a scan out of order
+        for (int k = ss; k <= se; k++) c->coef_bits[k] = al;
       c->pred = 0;
       c->decoded = true;
-      sc[i] = c;
     }
-    pos += 3;  // Ss, Se, Ah/Al: fixed for sequential scans
+    eobrun = 0;
     Bits bits{data + pos, data + n};
     int16_t block[64];
     auto one_block = [&](Component* c, int bx, int by) {
@@ -572,6 +607,16 @@ struct Decoder {
                  c->plane.data() + (size_t)by * 8 * c->stride + bx * 8,
                  c->stride);
     };
+    auto prog_block = [&](Component* c, int bx, int by) {
+      int16_t* b = c->coef.data() + ((size_t)by * (c->stride / 8) + bx) * 64;
+      if (ss == 0) {
+        decode_dc(bits, c, b, ah, al);
+      } else if (ah == 0) {
+        decode_ac_first(bits, ac[c->ta], b, ss, se, al);
+      } else {
+        decode_ac_refine(bits, ac[c->ta], b, ss, se, al);
+      }
+    };
     int units_x, units_y;
     if (ns == 1) {
       units_x = (sc[0]->dw + 7) / 8;
@@ -587,21 +632,120 @@ struct Decoder {
           if (todo == 0) {
             restart(bits);
             for (int i = 0; i < ns; i++) sc[i]->pred = 0;
+            eobrun = 0;
             todo = restart_interval;
           }
           todo--;
         }
-        if (ns == 1) {
-          one_block(sc[0], mx, my);
-        } else {
-          for (int i = 0; i < ns; i++)
-            for (int y = 0; y < sc[i]->v; y++)
-              for (int x = 0; x < sc[i]->h; x++)
-                one_block(sc[i], mx * sc[i]->h + x, my * sc[i]->v + y);
+        for (int i = 0; i < ns; i++) {
+          int bh = ns == 1 ? 1 : sc[i]->h, bv = ns == 1 ? 1 : sc[i]->v;
+          for (int y = 0; y < bv; y++)
+            for (int x = 0; x < bh; x++) {
+              int bx = mx * bh + x, by = my * bv + y;
+              if (progressive) prog_block(sc[i], bx, by);
+              else one_block(sc[i], bx, by);
+            }
         }
       }
     }
     pos = (size_t)(bits.p - data);
+  }
+
+  // ---- jdphuff.c ----
+  // DC first (ah 0: the difference, shifted up by al) or refine (one bit).
+  void decode_dc(Bits& bits, Component* c, int16_t* b, int ah, int al) {
+    if (ah == 0) {
+      int s = decode_sym(bits, dc[c->td]);
+      if (s) c->pred += extend(bits.get(s), s);
+      b[0] = (int16_t)((unsigned)c->pred << al);
+    } else if (bits.get(1)) {
+      b[0] = (int16_t)(b[0] | (1 << al));
+    }
+  }
+
+  // AC first: coefficients ss..se shifted up by al, or a band of blocks
+  // ended early (EOBRUN).
+  void decode_ac_first(Bits& bits, const Huff& t, int16_t* b, int ss, int se,
+                       int al) {
+    if (eobrun > 0) {
+      eobrun--;
+      return;
+    }
+    for (int k = ss; k <= se; k++) {
+      int rs = decode_sym(bits, t);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        b[kNatural[k]] = (int16_t)((unsigned)extend(bits.get(s), s) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = (1 << r) - 1;
+        if (r) eobrun += bits.get(r);
+        break;
+      }
+    }
+  }
+
+  // AC refine: one more bit of every nonzero coefficient in ss..se, and
+  // coefficients that become nonzero (+-1 << al) after runs of zeros.
+  void decode_ac_refine(Bits& bits, const Huff& t, int16_t* b, int ss,
+                        int se, int al) {
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t* coef) {
+      if (bits.get(1) && (*coef & p1) == 0)
+        *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
+    };
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; k++) {
+        int rs = decode_sym(bits, t);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits.get(1) ? p1 : m1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits.get(r);
+          break;
+        }
+        do {
+          int16_t* coef = b + kNatural[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          k++;
+        } while (k <= se);
+        if (s) b[kNatural[k]] = (int16_t)s;
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; k++) {
+        int16_t* coef = b + kNatural[k];
+        if (*coef != 0) correct(coef);
+      }
+      eobrun--;
+    }
+  }
+
+  // The IDCT of every block of a progressive file, once its scans are
+  // read; every coefficient must have been refined to its last bit.
+  void finish_progressive() {
+    for (int i = 0; i < ncomp; i++) {
+      Component& c = comp[i];
+      if (!c.latched) continue;
+      for (int k = 0; k < 64; k++)
+        if (c.coef_bits[k] != 0)
+          fail("a progressive file whose scans leave coefficient bits "
+               "undecoded");
+      const int bw = c.stride / 8, bh = c.rows / 8;
+      for (int by = 0; by < bh; by++)
+        for (int bx = 0; bx < bw; bx++)
+          idct_islow(c.coef.data() + ((size_t)by * bw + bx) * 64, c.quant,
+                     c.plane.data() + (size_t)by * 8 * c.stride + bx * 8,
+                     c.stride);
+    }
   }
 
   // Drop the buffered bits and read the RSTn marker at the reader's place.

@@ -10,9 +10,10 @@ libjpeg-turbo's default output, the EXIF orientation applied) and PNG
 ``89 50 4E 47`` (chunks parsed here, the joined IDAT inflated by ``zlib``,
 the rows unfiltered by ``csrc/host/png_unfilter.cpp``, and libpng's
 conversions as OpenCV asks for them).  Anything else raises ValueError
-naming the file; so do the refused variants: progressive, arithmetic,
-lossless and 12-bit JPEG, CMYK/YCCK, interlaced (Adam7) PNG and PNG bit
-depths below 8 other than palette.
+naming the file; so do the refused variants: arithmetic-coded (SOF9,
+SOF10), lossless, hierarchical and 12-bit JPEG, CMYK/YCCK, interlaced
+(Adam7) PNG and PNG bit depths below 8 other than palette.  Baseline,
+extended-sequential and progressive (SOF2) Huffman JPEG are read.
 
 ``read_h5_dataset(path, name)`` reads one dataset of an HDF5 file in pure
 Python (``struct``, numpy, ``zlib``): superblock versions 0-3, object

@@ -8,7 +8,9 @@ a hash of the sources and the flags, so a changed source builds anew and an
 unchanged one is reused.  Nothing is built at import time.
 
 Every kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
-kernel, and nowhere else; ``reset_launch_counts`` zeroes them.  Kernels A,
+kernel, and nowhere else, under a lock (the replicas of a
+``serving.Matcher`` launch from several host threads at once);
+``reset_launch_counts`` zeroes them.  Kernels A,
 A′, C, A-bwd and C-bwd also have bf16-input instances (the bf16 eval path
 and the bf16 training step), counted apart under ``<name>_bf16``.
 """
@@ -78,12 +80,14 @@ _SIGNATURES = {
 
 _lib: Optional[ctypes.CDLL] = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 build_seconds: Optional[float] = None  # wall time of the build in this process
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def _digest() -> str:
@@ -252,7 +256,8 @@ def launch(fn_name: str, kernel: str, device: torch.device, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError_t "
                            f"{err}")
-    LAUNCHES[kernel] += 1
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def launch_instance(kernel: str, dtype: torch.dtype, device: torch.device,

@@ -10,11 +10,22 @@ the JAX package's variables load afterwards with
 ``casmtr_tpu_torch.weights.load_jax_variables(matcher.model, ...)``.  Inputs
 are arrays or image paths (JPEG or PNG, read by ``data/codecs`` as
 ``cv2.imread`` reads them, without cv2).
+
+``Matcher(devices=[...])`` serves over replicas, the counterpart of the
+JAX ``Matcher(mesh=...)``: one copy of the weights per distinct device, a
+batch of B pairs split into n equal chunks, and each replica's forward
+selecting its own top-(B/n * M) matches, as the JAX package's ``shard_map``
+forward does (not the one-device global top-(B * M)).  On cards the
+replicas run at once, each in a host thread and on a CUDA stream of its
+own that live as long as the Matcher.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -93,6 +104,13 @@ class Matcher:
     overrides: optional config override dict (applied last).
     device: where the model runs; None means "cuda", which raises when CUDA
         is absent.  Pass "cpu" to run on the CPU.
+    devices: a sequence of n devices instead of ``device`` (the two are
+        mutually exclusive): replica r serves pairs [r B/n, (r+1) B/n) of a
+        batch of B pairs, B a multiple of n, with its own selection of the
+        top-(B/n * M) matches (the JAX ``Matcher(mesh=...)``).  Replicas on
+        one device share its copy of the weights; ``replicate()`` copies
+        ``model``'s weights (the first device's copy) to the others after
+        they change.
     seed / generator: the random weights are drawn from ``generator`` or, if
         none is given, from a CPU generator seeded with ``seed``.
 
@@ -115,7 +133,8 @@ class Matcher:
                  ckpt: Optional[str] = None, bucket: int = 832, df: int = 64,
                  thr: float = 0.2,
                  overrides: Optional[Dict] = None, device=None, seed: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 devices: Optional[Sequence] = None):
         cfg = build_config(model) if isinstance(model, str) else model
         if overrides:
             cfg = override(cfg, overrides)
@@ -125,8 +144,17 @@ class Matcher:
         if self.bucket < self.df or self.bucket % self.df != 0:
             raise ValueError(f"bucket {bucket} must be a multiple of df {df}")
         self.thr = float(thr)
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
+        if devices is not None:
+            if device is not None:
+                raise ValueError("Matcher: pass device or devices, not both")
+            if not devices:
+                raise ValueError("Matcher: devices is empty")
+            self.devices = [resolve_device(d) for d in devices]
+        else:
+            self.devices = None
+        self.device = (self.devices[0] if self.devices
+                       else resolve_device(device))
+        if any(d.type == "cuda" for d in self.devices or [self.device]):
             configure_card()
         self.model = build_model(cfg.loftr)
         if generator is None:
@@ -137,6 +165,22 @@ class Matcher:
                 load_checkpoint_variables
             load_checkpoint_variables(ckpt, self.model)
         self.model.to(self.device).eval()
+        self._models: Dict[torch.device, torch.nn.Module] = {
+            self.device: self.model}
+        self._workers: List[ThreadPoolExecutor] = []   # one per replica
+        self._streams: List[Optional["torch.cuda.Stream"]] = []
+        self.replicate()
+
+    def replicate(self) -> None:
+        """Copy ``model``'s parameters and buffers to the weights of every
+        other device of ``devices`` (one copy per distinct device)."""
+        for dev in dict.fromkeys(self.devices or ()):
+            if dev == self.device:
+                continue
+            if dev in self._models:
+                self._models[dev].load_state_dict(self.model.state_dict())
+            else:
+                self._models[dev] = copy.deepcopy(self.model).to(dev).eval()
 
     def _preprocess(self, img: ImageLike):
         """Resize the long side into the bucket (df-divisible), pad
@@ -162,7 +206,8 @@ class Matcher:
         mask[:h_new, :w_new] = True
         return canvas, mask, np.array([w / w_new, h / h_new], np.float32)
 
-    def _pack(self, pairs: Sequence[Tuple[ImageLike, ImageLike]]):
+    def _pack(self, pairs: Sequence[Tuple[ImageLike, ImageLike]],
+              device=None):
         cols: Dict[str, List[np.ndarray]] = {
             k: [] for k in ("image0", "image1", "mask0", "mask1", "scale0",
                             "scale1")}
@@ -172,7 +217,7 @@ class Matcher:
                 cols[f"image{i}"].append(canvas)
                 cols[f"mask{i}"].append(mask)
                 cols[f"scale{i}"].append(scale)
-        return {k: torch.from_numpy(np.stack(v)).to(self.device)
+        return {k: torch.from_numpy(np.stack(v)).to(device or self.device)
                 for k, v in cols.items()}
 
     def match(self, img0: ImageLike, img1: ImageLike) -> MatchResult:
@@ -184,14 +229,17 @@ class Matcher:
         """Match B pairs in one forward.  Selection is one top-(B*M) by
         confidence across the batch (every capacity scaled by B), so per-pair
         results equal the single-pair ones while no pair saturates the
-        config's ``max_matches``."""
+        config's ``max_matches``.  Over n ``devices`` B must be a multiple
+        of n (ValueError otherwise), and each replica selects over its own
+        B/n pairs."""
         if not pairs:
             return []
-        batch = self._pack(pairs)
-        with torch.inference_mode():
-            fm = self.model(batch, capacity_scale=len(pairs)).final_matches
-        out = {k: getattr(fm, k).cpu().numpy()
-               for k in ("b_ids", "mkpts0", "mkpts1", "mconf", "valid")}
+        if self.devices is None:
+            with torch.inference_mode():
+                out = self._forward(self.model, self._pack(pairs), len(pairs))
+        else:
+            out = self._replica_forward(pairs)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
         keep = out["valid"] & (out["mconf"] >= self.thr)
         results = []
         for b in range(len(pairs)):
@@ -200,10 +248,60 @@ class Matcher:
                                        out["mconf"][sel]))
         return results
 
+    @staticmethod
+    def _forward(model, batch, capacity_scale: int,
+                 offset: int = 0) -> Dict[str, torch.Tensor]:
+        fm = model(batch, capacity_scale=capacity_scale).final_matches
+        out = {k: getattr(fm, k)
+               for k in ("b_ids", "mkpts0", "mkpts1", "mconf", "valid")}
+        out["b_ids"] = out["b_ids"] + offset
+        return out
+
+    def _replica_forward(self, pairs) -> Dict[str, torch.Tensor]:
+        """The forwards of the n replicas on their chunks of ``pairs``,
+        joined: on cards at once, each in its own host thread on its own
+        stream (synchronized before the results are read); on the CPU in
+        turn.  The threads live as long as the Matcher: cuDNN keeps the
+        algorithms its autotuner picks per host thread, so a fresh thread
+        per request would autotune every convolution again."""
+        n = len(self.devices)
+        if len(pairs) % n:
+            raise ValueError(f"batch {len(pairs)} not divisible by the "
+                             f"{n} replicas")
+        Bl = len(pairs) // n
+
+        def run(r: int) -> Dict[str, torch.Tensor]:
+            dev = self.devices[r]
+            chunk = pairs[r * Bl:(r + 1) * Bl]
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(torch.inference_mode())
+                if dev.type == "cuda":
+                    stack.enter_context(torch.cuda.device(dev))
+                    stack.enter_context(torch.cuda.stream(self._streams[r]))
+                out = self._forward(self._models[dev], self._pack(chunk, dev),
+                                    Bl, r * Bl)
+                if dev.type == "cuda":
+                    self._streams[r].synchronize()
+            return out
+
+        if any(d.type == "cuda" for d in self.devices):
+            if not self._workers:
+                self._workers = [ThreadPoolExecutor(1) for _ in range(n)]
+                self._streams = [torch.cuda.Stream(device=d)
+                                 if d.type == "cuda" else None
+                                 for d in self.devices]
+            futures = [w.submit(run, r) for r, w in enumerate(self._workers)]
+            outs = [f.result() for f in futures]
+        else:
+            outs = [run(r) for r in range(n)]
+        return {k: torch.cat([o[k].cpu() for o in outs]) for k in outs[0]}
+
     def warmup(self, batch_sizes: Sequence[int] = (1,)) -> None:
         """Pay the first request's costs up front (on the card cuDNN's
         autotuning and the kernels' build): one dummy batch of a blank
-        half-bucket image pair per batch size."""
+        half-bucket image pair per batch size, each size rounded up to a
+        multiple of the replicas (the only sizes that can run)."""
         dummy = np.zeros((self.bucket // 2, self.bucket // 2, 3), np.float32)
+        n = len(self.devices) if self.devices else 1
         for bs in batch_sizes:
-            self.match_batch([(dummy, dummy)] * bs)
+            self.match_batch([(dummy, dummy)] * (-(-bs // n) * n))

@@ -245,7 +245,7 @@ lines and its seconds:
    1296x968 with 16-bit PNG depth).  (a) The host library built from
    csrc/host/ with c++; every manifest entry decoded by data/codecs and
    held bit-equal to cv2.imread's or h5py's result (sha256), the
-   progressive JPEG refused; median ms per image of the decodes (the depth
+   progressive JPEGs too; median ms per image of the decodes (the depth
    h5 also as h5py writes it by default, contiguous) and of the two
    resizes.  (b) cli.evaluate.main of 4c with megadepth_test_1500 on the
    MegaDepth-layout scene listed 4 times (24 pairs) in the card's default
@@ -315,6 +315,25 @@ lines and its seconds:
    steps and the eval forward of two processes against one process in
    float32 (its module docstring's card gates).  The card's name and power
    limit stand beside every time.  One card: nothing here measures scaling.
+16. The last modules.  (a) Serving replicas: Matcher(devices=["cuda:0",
+   "cuda:0"]) (two replicas on the one card, a host thread and CUDA
+   stream each) beside Matcher(device="cuda"), 4c at bucket 832 in the
+   card's default from the same seed; at B = 2 and 4 pairs a request,
+   each pair's matches equal the one-device Matcher's on its replica's
+   chunk (lexsorted; keypoints 1e-4 px, confidences 1e-5; cuDNN's
+   heuristic algorithms, since its autotuner's picks are per host thread
+   and differ under two threads' contention), the launches
+   exactly twice the chunk's (4c's per-pair counts), B = 3 refused; the
+   median ms per request and pairs/s of both (no scaling claimed: one
+   card).  (b) cli.match_pair.main --out on the MegaDepth-layout scene's
+   first two views at --resize 832 with every threshold at 0: 4c's
+   per-pair launches, the PNG read back by data/codecs.  (c) cli.train.main
+   of 4c on that scene, 2 steps and a validation of 2 pairs with
+   --plot-every 1: the event file in run-dir/tb parsed here (TFRecord
+   framing, both masked CRC32Cs, the Event and Summary fields), the tags
+   train/loss, val/auc@5 and val_match/pair-0, the figure's PNG decoded.
+   (d) The median ms per image of the 1200x800 progressive fixture beside
+   the baseline JPEG of the same view.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -327,6 +346,7 @@ import functools
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -730,6 +750,14 @@ def log(*a):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def smi_line():
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 # --------------------------------------------------------------------------
@@ -4317,7 +4345,8 @@ def decode_phase(torch, tmp):
     """Phase 13(a): the host library built from csrc/host/ with c++ (its
     seconds printed); every entry of the fixtures' manifest decoded and
     held bit-equal to cv2.imread's or h5py's result (its sha256), the
-    progressive JPEG refused with an error naming the file and SOF2; the
+    progressive JPEGs among them (an entry marked "refused" must raise
+    ValueError naming the file and the words it holds); the
     median ms per image of the MegaDepth-size JPEG (colour and gray), the
     640x480 16-bit depth PNG, one depth h5 as the fixtures hold it
     (chunked) and as h5py writes it by default (contiguous, written under
@@ -4349,8 +4378,11 @@ def decode_phase(torch, tmp):
             check(digest(arr) == entry, f"decode: {rel} {mode}: "
                   f"{digest(arr)} != {entry}")
             n += 1
-    log(f"decode: {n} reads of {len(manifest) - 1} files bit-equal to the "
-        "manifest (cv2.imread / h5py)")
+    n_files = sum("refused" not in want for want in manifest.values())
+    log(f"decode: {n} reads of {n_files} files bit-equal to the manifest "
+        "(cv2.imread / h5py), "
+        f"{sum('progressive' in rel for rel in manifest)} of them progressive "
+        "JPEG")
     md = os.path.join(FIXTURES, "megadepth")
     sn = os.path.join(FIXTURES, "scannet", "scans", "scene0000_00")
     jpg = os.path.join(md, "Undistorted_SfM/0000/images/0000.jpg")
@@ -5624,13 +5656,360 @@ def dp_phase(torch):
     """Phase 15: (a) dp_world1, (b) dp_two_ranks, (c) dryrun_multichip(2)
     on the card."""
     from casmtr_tpu_torch.parallel import dryrun
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = smi_line()
     timed("data-parallel: world 1", dp_world1, torch, smi)
     timed("data-parallel: two ranks", dp_two_ranks, torch, smi)
     timed("data-parallel: dryrun", dryrun.dryrun_multichip, 2, "cuda")
+
+
+# --------------------------------------------------------------------------
+# phase 16: serving replicas, the match figure, TensorBoard, progressive JPEG
+# --------------------------------------------------------------------------
+
+REPLICA_RECIPE = "outdoor_casmtr_4c"
+REPLICA_NAME = "outdoor_casmtr_4c 2 replicas"
+REPLICA_SIZES = (2, 4)      # pairs per request
+REPLICA_REPS = 3            # timed requests per Matcher and size
+TB_STEPS, TB_VAL = 2, 2     # phase 16(c)'s training steps and val pairs
+
+
+def same_matches(a, b, px=1e-4, conf=1e-5):
+    """Whether two MatchResults hold the same matches, lexsorted by
+    mkpts0: equal counts, keypoints within ``px``, confidences within
+    ``conf`` (tests/test_serving.py's tolerances)."""
+    if len(a.mconf) != len(b.mconf):
+        return False
+    oa, ob = np.lexsort(a.mkpts0.T), np.lexsort(b.mkpts0.T)
+    return bool(np.allclose(a.mkpts0[oa], b.mkpts0[ob], rtol=0, atol=px)
+                and np.allclose(a.mkpts1[oa], b.mkpts1[ob], rtol=0, atol=px)
+                and np.allclose(a.mconf[oa], b.mconf[ob], rtol=0, atol=conf))
+
+
+def timed_requests(torch, matcher, pairs, reps=REPLICA_REPS):
+    """Median ms of ``reps`` match_batch calls of ``pairs`` (each ends in
+    the copy of its matches to the host)."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        matcher.match_batch(pairs)
+        ts.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(ts)
+
+
+def replica_phase(torch, smi):
+    """Phase 16(a): Matcher(devices=["cuda:0", "cuda:0"]) (two replicas on
+    the one card, one host thread and CUDA stream each) beside
+    Matcher(device="cuda"), 4c at bucket 832 in the card's default from
+    the same seed, every threshold at 0 (random weights match little at
+    the default 0.2).  Per request of B pairs (B in REPLICA_SIZES) each
+    pair's matches equal the one-device Matcher's on its replica's chunk
+    of B/2 pairs (same_matches), and the launches are exactly twice the
+    chunk's (which are 4c's per-pair counts: the kernels take the batch in
+    one launch); B = 3 raises ValueError.  cuDNN keeps its algorithm picks
+    per host thread, and the autotuner's picks under two threads' contention
+    differ from one thread's, so a bf16 convolution may round otherwise:
+    the equality is held with cuDNN's heuristic picks (benchmark off), the
+    one-device chunks run in a fresh thread too, and it is printed, not
+    held, with autotuning.  Then the median ms per request and pairs/s of
+    each Matcher, autotuned (the one-device Matcher selecting one top-(B *
+    M) over the batch, the replicas each their own top-(B/2 * M)); one
+    card, so no scaling is claimed.  Returns (the replicas' launch totals,
+    the B = 2 request's counts, the replicas' median ms at each B)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.serving import Matcher
+    rng = np.random.default_rng(16)
+    pairs = [(a, b) for _, a, b in requests(rng) + requests(rng)][:4]
+    kw = dict(bucket=832, seed=0, thr=0.0,
+              overrides=zero_threshold_overrides(REPLICA_RECIPE))
+
+    def chunks_of(one, B):
+        """The one-device Matcher on each replica's chunk (in ``ref``'s
+        thread), with each chunk's launches."""
+        out, counts = [], []
+        for r in range(2):
+            kernels.reset_launch_counts()
+            out += ref.submit(one.match_batch,
+                              pairs[r * B // 2:(r + 1) * B // 2]).result()
+            counts.append(dict(kernels.LAUNCHES))
+        return out, counts
+
+    with precision("bf16"):
+        one = Matcher(REPLICA_RECIPE, device="cuda", **kw)
+        two = Matcher(REPLICA_RECIPE, devices=["cuda:0", "cuda:0"], **kw)
+        torch.backends.cudnn.benchmark = False
+        ref = ThreadPoolExecutor(1)
+        e = raised(two.match_batch, pairs[:3])
+        check(isinstance(e, ValueError), f"replicas: B = 3 gave {e!r}")
+        log(f"replicas: B = 3 refused: {e}")
+        totals = {k: 0 for k in kernels.LAUNCHES}
+        first = None
+        for B in REPLICA_SIZES:
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            got = two.match_batch(pairs[:B])
+            counts = dict(kernels.LAUNCHES)
+            chunks, per_chunk = chunks_of(one, B)
+            check(per_chunk[0] == per_chunk[1] ==
+                  LAUNCHES_PER_PAIR[REPLICA_RECIPE],
+                  f"replicas: one-device chunk launches {per_chunk}, "
+                  f"expected {LAUNCHES_PER_PAIR[REPLICA_RECIPE]}")
+            want = {k: 2 * v for k, v in per_chunk[0].items()}
+            check(counts == want, f"replicas: B {B} launches {counts}, "
+                  f"expected twice the chunk's {want}")
+            same = [same_matches(g, w) for g, w in zip(got, chunks)]
+            log(f"replicas: B {B}, cuDNN heuristics: matches per pair "
+                f"{[len(r.mconf) for r in got]} (one device on the chunks: "
+                f"{[len(r.mconf) for r in chunks]}), equal {same}; launches "
+                f"{counts}")
+            check(all(same), f"replicas: B {B} differ from the one-device "
+                  "chunks")
+            totals = {k: totals[k] + v for k, v in counts.items()}
+            first = first or counts
+        # autotuned: fresh replica threads (a new Matcher), the one-device
+        # Matcher in this thread
+        torch.backends.cudnn.benchmark = True
+        del two
+        two = Matcher(REPLICA_RECIPE, devices=["cuda:0", "cuda:0"], **kw)
+        t0 = time.perf_counter()
+        one.warmup(REPLICA_SIZES)
+        ref.submit(one.warmup, [B // 2 for B in REPLICA_SIZES]).result()
+        two.warmup(REPLICA_SIZES)
+        log(f"replicas: autotuning warm-up {time.perf_counter() - t0:.1f} s")
+        times = {}
+        for B in REPLICA_SIZES:
+            got = two.match_batch(pairs[:B])
+            chunks, _ = chunks_of(one, B)
+            log(f"replicas: B {B}, autotuned (not held): matches per pair "
+                f"{[len(r.mconf) for r in got]} (one device on the chunks: "
+                f"{[len(r.mconf) for r in chunks]}), equal "
+                f"{[same_matches(g, w) for g, w in zip(got, chunks)]}")
+            ms_one = timed_requests(torch, one, pairs[:B])
+            ms_two = timed_requests(torch, two, pairs[:B])
+            times[B] = ms_two
+            log(f"replicas: B {B} median of {REPLICA_REPS}: one device "
+                f"{ms_one:.1f} ms ({1e3 * B / ms_one:.2f} pairs/s), two "
+                f"replicas on the one card {ms_two:.1f} ms "
+                f"({1e3 * B / ms_two:.2f} pairs/s) [{smi}]; one card: no "
+                "scaling claimed")
+        ref.shutdown()
+    del one, two
+    torch.cuda.empty_cache()
+    return totals, first, times
+
+
+def match_pair_phase(torch, tmp, smi):
+    """Phase 16(b): python -m casmtr_tpu_torch.cli.match_pair (its main) on
+    the MegaDepth-layout scene's first two views (1200x800) at --resize 832
+    with every threshold at 0, --out a PNG: the launches 4c's per pair, the
+    figure read back by data/codecs (both views side by side and the
+    plotting module's gap, RGBA)."""
+    from casmtr_tpu_torch.cli import match_pair
+    from casmtr_tpu_torch.data import codecs
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.utils.plotting import GAP
+    p0, p1 = (os.path.join(FIXTURES, "megadepth", "Undistorted_SfM", "0000",
+                           "images", f"000{i}.jpg") for i in (0, 1))
+    out = os.path.join(tmp, "match_pair.png")
+    with precision("bf16"):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mk0, _, _ = match_pair.main([
+            p0, p1, "--resize", "832", "--thr", "0", "--out", out,
+            "--overrides-json",
+            json.dumps(zero_threshold_overrides(REPLICA_RECIPE))])
+        wall = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    check(counts == LAUNCHES_PER_PAIR[REPLICA_RECIPE],
+          f"match_pair: launches {counts}")
+    fig = codecs.imread(out, codecs.IMREAD_UNCHANGED)
+    h, w = codecs.imread(p0).shape[:2]
+    check(fig.shape == (h, 2 * w + GAP, 4) and len(mk0) > 0,
+          f"match_pair: figure {fig.shape}, {len(mk0)} matches")
+    log(f"match_pair: --out {os.path.getsize(out)} bytes, {fig.shape[1]}x"
+        f"{fig.shape[0]} RGBA read back by data/codecs, {len(mk0)} matches, "
+        f"the command {wall:.1f} s (model built from seeded weights) [{smi}]")
+
+
+def crc32c_table():
+    table = []
+    for n in range(256):
+        c = n
+        for _ in range(8):
+            c = (c >> 1) ^ 0x82F63B78 if c & 1 else c >> 1
+        table.append(c)
+    return table
+
+
+def masked_crc(data, table):
+    crc = 0xFFFFFFFF
+    for b in data:
+        crc = table[(crc ^ b) & 0xFF] ^ (crc >> 8)
+    crc ^= 0xFFFFFFFF
+    return (((crc >> 15) | (crc << 17)) + 0xA282EAD8) & 0xFFFFFFFF
+
+
+def proto_fields(buf):
+    """(field number, wire type, value) of a protobuf message: varints as
+    ints, fixed64 / fixed32 as their bytes, length-delimited as bytes."""
+    i, out = 0, []
+
+    def varint():
+        nonlocal i
+        v, shift = 0, 0
+        while True:
+            b = buf[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                return v
+
+    while i < len(buf):
+        key = varint()
+        field, wire = key >> 3, key & 7
+        if wire == 0:
+            out.append((field, wire, varint()))
+        elif wire == 1:
+            out.append((field, wire, buf[i:i + 8]))
+            i += 8
+        elif wire == 5:
+            out.append((field, wire, buf[i:i + 4]))
+            i += 4
+        elif wire == 2:
+            n = varint()
+            out.append((field, wire, buf[i:i + n]))
+            i += n
+        else:
+            raise ValueError(f"wire type {wire}")
+    return out
+
+
+def read_events(path):
+    """The TensorBoard event file's records, each framing and both CRCs
+    checked here: [(step, file_version or None, [(tag, scalar or None,
+    (height, width, png) or None)])]."""
+    table = crc32c_table()
+    with open(path, "rb") as f:
+        data = f.read()
+    i, events = 0, []
+    while i < len(data):
+        head = data[i:i + 8]
+        n = struct.unpack("<Q", head)[0]
+        check(struct.unpack("<I", data[i + 8:i + 12])[0]
+              == masked_crc(head, table), f"events: length CRC at {i}")
+        body = data[i + 12:i + 12 + n]
+        check(len(body) == n and struct.unpack(
+            "<I", data[i + 12 + n:i + 16 + n])[0] == masked_crc(body, table),
+            f"events: data CRC at {i}")
+        i += 16 + n
+        step, version, values = 0, None, []
+        for field, _, v in proto_fields(body):
+            if field == 2:
+                step = v
+            elif field == 3:
+                version = v.decode()
+            elif field == 5:
+                for vf, _, value in proto_fields(v):
+                    if vf != 1:
+                        continue
+                    tag, scalar, image = None, None, None
+                    for f2, _, x in proto_fields(value):
+                        if f2 == 1:
+                            tag = x.decode()
+                        elif f2 == 2:
+                            scalar = struct.unpack("<f", x)[0]
+                        elif f2 == 4:
+                            fields = {a: c for a, _, c in proto_fields(x)}
+                            image = (fields.get(1), fields.get(2), fields[4])
+                    values.append((tag, scalar, image))
+        events.append((step, version, values))
+    return events
+
+
+def tensorboard_phase(torch, tmp):
+    """Phase 16(c): the training command of 4c on the fixtures'
+    MegaDepth-layout scene, TB_STEPS steps, no sanity validation, one
+    validation of TB_VAL pairs with --plot-every 1: launches TB_STEPS x the
+    per-step count plus TB_VAL x the per-pair count; run-dir/tb's event
+    file read here (TFRecord framing, both masked CRC32Cs, the Event and
+    Summary fields): file_version first, train/loss at every step,
+    val/auc@5 and val_match/pair-0 at the last, the figure's PNG decoded by
+    data/codecs at its stated size."""
+    from casmtr_tpu_torch.data import codecs
+    run = os.path.join(tmp, "tb_run")
+    ov = {"dataset": dict(**fixture_overrides("train", "MegaDepth"),
+                          **fixture_overrides("val", "MegaDepth")),
+          "trainer": {"n_samples_per_subset": TB_STEPS}}
+    io_train_run(torch, IO_TRAIN, [
+        "--model", "outdoor_casmtr_4c", "--data", "megadepth_trainval_704",
+        "--epochs", "1", "--num-workers", "2", "--log-every", "1",
+        "--max-val-pairs", str(TB_VAL), "--sanity-val-steps", "0",
+        "--plot-every", "1", "--run-dir", run,
+        "--overrides-json", json.dumps(ov)], TB_STEPS, TB_VAL)
+    tb = os.path.join(run, "tb")
+    files = os.listdir(tb)
+    check(len(files) == 1 and files[0].startswith("events.out.tfevents."),
+          f"tensorboard: {files}")
+    t0 = time.perf_counter()
+    events = read_events(os.path.join(tb, files[0]))
+    parse_s = time.perf_counter() - t0
+    check(events[0][1] == "brain.Event:2", f"tensorboard: {events[0]}")
+    tags = {}
+    for step, _, values in events:
+        for tag, scalar, image in values:
+            tags.setdefault(tag, []).append((step, scalar, image))
+    loss = [(s, v) for s, v, _ in tags.get("train/loss", [])]
+    check([s for s, _ in loss] == list(range(1, TB_STEPS + 1)) and all(
+        np.isfinite(v) for _, v in loss), f"tensorboard: train/loss {loss}")
+    check([s for s, _, _ in tags.get("val/auc@5", [])] == [TB_STEPS],
+          f"tensorboard: val/auc@5 {tags.get('val/auc@5')}")
+    figs = sorted(t for t in tags if t.startswith("val_match/"))
+    check(figs == [f"val_match/pair-{n}" for n in range(TB_VAL)],
+          f"tensorboard: figures {figs}")
+    h, w, png = tags["val_match/pair-0"][0][2]
+    path = os.path.join(tmp, "figure.png")
+    with open(path, "wb") as f:
+        f.write(png)
+    img = codecs.imread(path, codecs.IMREAD_UNCHANGED)
+    check(img.shape == (h, w, 4), f"tensorboard: figure {img.shape}, "
+          f"stated {(h, w)}")
+    log(f"tensorboard: {len(events)} records, CRCs checked in {parse_s:.2f} "
+        f"s; tags {sorted(tags)}; train/loss {loss}; val/auc@5 "
+        f"{tags['val/auc@5'][0][1]}; figure {w}x{h} RGBA, "
+        f"{len(png)} PNG bytes")
+
+
+def progressive_phase():
+    """Phase 16(d): the median ms of data/codecs.imread of the largest
+    progressive fixture (1200x800, 4:2:0) beside the baseline JPEG of the
+    same view (phase 13(a) held both to cv2's hashes)."""
+    from casmtr_tpu_torch.data import codecs
+    prog = os.path.join(FIXTURES, "decode", "jpeg_progressive_420_1200x800.jpg")
+    base = os.path.join(FIXTURES, "megadepth", "Undistorted_SfM", "0000",
+                        "images", "0000.jpg")
+    times = {name: median_ms(codecs.imread, path)
+             for name, path in (("progressive", prog), ("baseline", base))}
+    log(f"progressive: jpeg 1200x800 colour, median of {IO_REPS} on one host "
+        f"thread: progressive {times['progressive']:.2f} ms, baseline "
+        f"{times['baseline']:.2f} ms")
+    return times
+
+
+def last_modules_phase(torch):
+    """Phase 16: (a) replicas, (b) match_pair --out, (c) train's
+    TensorBoard events, (d) progressive decoding."""
+    import tempfile
+    smi = smi_line()
+    out = timed("last modules: replicas", replica_phase, torch, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        timed("last modules: match_pair --out", match_pair_phase, torch, tmp,
+              smi)
+        torch.cuda.empty_cache()
+        timed("last modules: tensorboard", tensorboard_phase, torch, tmp)
+    timed("last modules: progressive", progressive_phase)
+    return out
 
 
 def timed(name, fn, *args):
@@ -5662,11 +6041,7 @@ def main(argv):
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+    log(smi_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, numpy {np.__version__}, device "
         f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
@@ -5739,6 +6114,9 @@ def main(argv):
     train_runs.update(io_train_runs)
     serve_runs[SFM_NAME] = timed("sfm", sfm_phase, torch)
     timed("data-parallel", dp_phase, torch)
+    replica_totals, replica_counts, _ = timed("last modules",
+                                              last_modules_phase, torch)
+    serve_runs[REPLICA_NAME] = {"bf16": (replica_totals, replica_counts)}
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

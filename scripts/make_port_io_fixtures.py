@@ -8,7 +8,9 @@ port itself never imports):
   qualities, a restart interval, EXIF orientations 3, 6 and 8, an Adobe
   RGB file, 16-bit quantization tables; 8-bit gray, RGB, RGBA and palette
   PNG and 16-bit gray PNG; contiguous and deflate+shuffle chunked HDF5),
-  and one progressive JPEG that must be refused;
+  and progressive JPEG: 4:2:0 from PIL (67x45), 4:4:4, gray, 4:2:0 with a
+  restart interval and an odd 23x13 from cv2, and the MegaDepth scene's
+  first view (1200x800) re-encoded progressive by PIL;
 * ``megadepth/``: a scene in MegaDepth's layout (index/scene_info/0000.npz
   with image_paths, depth_paths, intrinsics, poses and pair_infos, and the
   list file index/list.txt): 4 views, 1200x800 JPEG 4:2:0, of a textured
@@ -21,7 +23,7 @@ port itself never imports):
   index/list.txt) of a textured room: 3 frames;
 * ``manifest.json``: for each file and each read mode, the shape, dtype
   and sha256 of what cv2.imread (channels reordered to RGB(A)) or h5py
-  gives, and for the refused file the words its error must hold.
+  gives.
 
 Run from the root of the repository:
 
@@ -147,6 +149,31 @@ def decode_cases(rng, d):
     with h5py.File(f"{d}/h5_chunked_shuffle_gzip.h5", "w") as f:
         f.create_dataset("depth", data=depth.T, chunks=(8, 16),
                          compression="gzip", shuffle=True, track_times=False)
+
+
+def progressive_cases(rng, d, megadepth_root):
+    """Progressive JPEG from cv2 and PIL, drawn from their own ``rng`` so
+    that the other fixtures stay as they were."""
+    big, odd = (45, 67), (13, 23)
+    prog = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+    save_cv2(f"{d}/jpeg_progressive_444_q85_67x45.jpg",
+             smooth_noise(rng, *big), prog + [
+                 cv2.IMWRITE_JPEG_QUALITY, 85,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                 cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+    save_pil(f"{d}/jpeg_progressive_gray_q75_67x45.jpg",
+             smooth_noise(rng, *big, c=1), quality=75, progressive=True)
+    save_cv2(f"{d}/jpeg_progressive_420_restart3_67x45.jpg",
+             smooth_noise(rng, *big), prog + [
+                 cv2.IMWRITE_JPEG_QUALITY, 90,
+                 cv2.IMWRITE_JPEG_RST_INTERVAL, 3])
+    save_cv2(f"{d}/jpeg_progressive_420_q90_23x13.jpg",
+             smooth_noise(rng, *odd), prog + [cv2.IMWRITE_JPEG_QUALITY, 90])
+    view = cv2.imread(os.path.join(
+        megadepth_root, "Undistorted_SfM/0000/images/0000.jpg"))
+    save_pil(f"{d}/jpeg_progressive_420_1200x800.jpg",
+             np.ascontiguousarray(view[..., ::-1]), quality=90,
+             progressive=True, subsampling="4:2:0")
 
 
 # ---- rendering of piecewise-planar scenes
@@ -317,6 +344,9 @@ def main():
     md_images, md_depths = megadepth_scene(rng, os.path.join(OUT,
                                                              "megadepth"))
     sn_images, sn_depths = scannet_scene(rng, os.path.join(OUT, "scannet"))
+    progressive_cases(np.random.default_rng(20261019),
+                      os.path.join(OUT, "decode"),
+                      os.path.join(OUT, "megadepth"))
     files = sorted(os.path.join("decode", f)
                    for f in os.listdir(os.path.join(OUT, "decode")))
     files += [os.path.join("megadepth", p) for p in md_images + md_depths]
@@ -324,9 +354,6 @@ def main():
     manifest = {}
     for rel in files:
         path = os.path.join(OUT, rel)
-        if "progressive" in rel:
-            manifest[rel] = {"refused": "progressive JPEG (SOF2)"}
-            continue
         kind = os.path.splitext(rel)[1][1:].replace("jpg", "jpeg")
         manifest[rel] = manifest_entries(path, kind)
     with open(os.path.join(OUT, "manifest.json"), "w") as f:

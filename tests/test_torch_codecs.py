@@ -4,14 +4,17 @@ library) against cv2.imread and h5py, bit for bit, on the CPU:
 * JPEG written at test time: 4:4:4, 4:2:2, 4:2:0 and 4:4:0 at 1x1, 17x9,
   67x45 and 45x67, qualities 50 and 95, gray files, restart intervals 1, 3
   and 17, EXIF orientations 1-8 (colour and gray), an Adobe RGB file, 16-bit
-  quantization tables (SOF1); read in colour, gray and unchanged mode;
+  quantization tables (SOF1), progressive files (SOF2) from PIL and cv2 in
+  every subsampling, with and without restart intervals; read in colour,
+  gray and unchanged mode;
 * PNG of every colour type and bit depth the readers take (gray 8/16, RGB
   8/16, gray+alpha 8/16, RGBA 8/16, palette 1/2/4/8, with and without
   tRNS), rows filtered with every filter type, in the three modes;
 * HDF5 from h5py: the default format and ``libver="latest"`` contiguous,
   chunked with gzip and with shuffle + gzip (default format), big- and
   little-endian floats and integers, nested groups;
-* the refusals: progressive, arithmetic, lossless and 12-bit JPEG, CMYK,
+* the refusals: arithmetic (sequential and progressive), lossless and
+  12-bit JPEG, CMYK,
   interlaced PNG, 4-bit gray PNG, an unknown format (ValueError naming the
   file and what was met), chunked layout version 4 and the LZF filter
   (NotImplementedError);
@@ -139,17 +142,53 @@ def _baseline(tmp_path):
     return pil_jpeg(tmp_path / "b.jpg", textured(7, 17, 9), quality=90)
 
 
+PROGRESSIVE_CASES = [(enc, sub, hw) for enc in ("pil", "cv2")
+                     for sub in ("4:4:4", "4:2:2", "4:2:0", "4:4:0")
+                     for hw in ((1, 1), (13, 23), (67, 45))
+                     if not (enc == "pil" and sub == "4:4:0")]
+CV2_SAMPLING = {"4:4:4": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444,
+                "4:2:2": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422,
+                "4:2:0": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_420,
+                "4:4:0": cv2.IMWRITE_JPEG_SAMPLING_FACTOR_440}
+
+
+@pytest.mark.parametrize("enc,sub,hw", PROGRESSIVE_CASES,
+                         ids=[f"{e}-{s}-{h}x{w}" for e, s, (h, w)
+                              in PROGRESSIVE_CASES])
+def test_jpeg_progressive(tmp_path, enc, sub, hw):
+    """Progressive files: PIL's scan script (spectral selection and
+    successive approximation) and libjpeg's through cv2, the latter with
+    a restart interval on the larger size."""
+    if enc == "pil":
+        path = pil_jpeg(tmp_path / "p.jpg", textured(11, *hw), quality=90,
+                        subsampling=sub, progressive=True)
+    else:
+        path = tmp_path / "p.jpg"
+        ok, data = cv2.imencode(".jpg", textured(12, *hw), [
+            cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 85,
+            cv2.IMWRITE_JPEG_SAMPLING_FACTOR, CV2_SAMPLING[sub],
+            cv2.IMWRITE_JPEG_RST_INTERVAL, 2 if hw[0] > 13 else 0])
+        path.write_bytes(data.tobytes())
+    assert b"\xff\xc2" in path.read_bytes()
+    assert_same(path)
+    gray = pil_jpeg(tmp_path / "g.jpg", textured(13, *hw, c=1), quality=70,
+                    progressive=True)
+    assert_same(gray)
+
+
 @pytest.mark.parametrize("patch,words", [
-    (None, "progressive JPEG (SOF2)"),
+    ("sof10", "arithmetic coding (SOF10)"),
     ((b"\xff\xc0", b"\xff\xc9"), "arithmetic coding (SOF9)"),
     ((b"\xff\xc0", b"\xff\xc3"), "lossless JPEG (SOF3)"),
     ("precision", "12-bit samples"),
     ("cmyk", "CMYK/YCCK (4 components)"),
 ])
 def test_jpeg_refusals(tmp_path, patch, words):
-    if patch is None:
-        path = pil_jpeg(tmp_path / "p.jpg", textured(8, 17, 9), quality=90,
-                        progressive=True)
+    if patch == "sof10":   # progressive with arithmetic coding
+        data = pil_jpeg(tmp_path / "p.jpg", textured(8, 17, 9), quality=90,
+                        progressive=True).read_bytes()
+        path = tmp_path / "x.jpg"
+        path.write_bytes(data.replace(b"\xff\xc2", b"\xff\xca", 1))
     elif patch == "cmyk":
         path = tmp_path / "c.jpg"
         Image.fromarray(np.concatenate([textured(9, 17, 9), textured(

@@ -7,8 +7,8 @@
   ``run_eval`` as in tests/test_evaluate_cli.py, ``--pose-solver cv2``
   raises, and an end-to-end run from files (``--device cpu``) prints the
   result JSON;
-* ``cli.match_pair.main``: the number of matches printed; ``--out``
-  raises NotImplementedError;
+* ``cli.match_pair.main``: the number of matches printed and the figure
+  written to ``--out`` (a PNG of both images side by side);
 * ``cli.train.main`` end to end on a fake MegaDepth scene: 2 steps,
   validation, checkpoints and config.json, then ``--stage 2 --resume``
   from them (tests/test_train_cli.py's test in the port), its first step's
@@ -34,6 +34,7 @@ from casmtr_tpu_torch.cli import match_pair as MP  # noqa: E402
 from casmtr_tpu_torch.cli import train as T  # noqa: E402
 from casmtr_tpu_torch.data.io import _imread  # noqa: E402
 from casmtr_tpu_torch.serving import Matcher  # noqa: E402
+from casmtr_tpu_torch.utils.plotting import GAP  # noqa: E402
 from tests.test_data_layer import make_fake_scene  # noqa: E402
 from tests.torch_parity import tiny_4c_overrides  # noqa: E402
 
@@ -120,16 +121,21 @@ def test_evaluate_cli_from_files(scene_dir, capsys):
     assert printed == {k: float(v) for k, v in res.items()}
 
 
-def test_match_pair_cli(scene_dir, capsys):
+def test_match_pair_cli(scene_dir, capsys, tmp_path):
     p0 = os.path.join(scene_dir, "imgs", "0001_0.jpg")
     p1 = os.path.join(scene_dir, "imgs", "0001_2.jpg")
     ov = json.dumps(tiny_4c_overrides(64, zero_thresholds=True))
-    with pytest.raises(NotImplementedError, match="figure"):
-        MP.main([p0, p1, "--out", "result.jpg", "--device", "cpu"])
+    out = str(tmp_path / "result.png")
     mk0, mk1, mconf = MP.main([p0, p1, "--resize", "64", "--thr", "0",
-                               "--device", "cpu", "--overrides-json", ov])
-    assert f"{len(mk0)} matches" in capsys.readouterr().out
+                               "--device", "cpu", "--overrides-json", ov,
+                               "--out", out])
+    printed = capsys.readouterr().out
+    assert f"{len(mk0)} matches" in printed and f"wrote {out}" in printed
     assert len(mk0) == len(mk1) == len(mconf) > 0
+    fig = cv2.imread(out, cv2.IMREAD_UNCHANGED)
+    h0, w0 = _imread(p0, False).shape[:2]
+    h1, w1 = _imread(p1, False).shape[:2]
+    assert fig.shape == (max(h0, h1), w0 + w1 + GAP, 4)
 
 
 def test_train_cli_end_to_end_and_stage_resume(scene_dir, tmp_path,

@@ -44,7 +44,8 @@ IMPORTED = ("casmtr_tpu_torch", "casmtr_tpu_torch.serving",
             "casmtr_tpu_torch.cli.train", "casmtr_tpu_torch.cli.match_pair",
             "casmtr_tpu_torch.cli.reconstruct", "casmtr_tpu_torch.sfm.pipeline",
             "casmtr_tpu_torch.parallel.comm", "casmtr_tpu_torch.parallel.mesh",
-            "casmtr_tpu_torch.parallel.dryrun")
+            "casmtr_tpu_torch.parallel.dryrun",
+            "casmtr_tpu_torch.utils.plotting", "casmtr_tpu_torch.data.augment")
 
 
 def _build_tree():
@@ -91,6 +92,13 @@ def test_matcher_defaults_to_cuda_and_raises_without_it():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="CUDA"):
         Matcher("outdoor_casmtr_4c", bucket=64, df=32)
+
+
+def test_matcher_replicas_raise_without_cuda():
+    from casmtr_tpu_torch.serving import Matcher
+    for devices in (["cuda:0", "cuda:0"], ["cpu", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Matcher("outdoor_casmtr_4c", bucket=64, df=32, devices=devices)
 
 
 def _is_cpu_branch(node: ast.If) -> bool:
