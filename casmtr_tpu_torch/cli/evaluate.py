@@ -1,7 +1,7 @@
 """Pose evaluation of a matcher over a dataset of pairs (counterpart of
-casmtr_tpu/cli/evaluate.py): the served forward on each batch, the batched
-device pose solver on its final matches, then pose AUC @5/10/20 and
-epipolar precision over the dataset.
+casmtr_tpu/cli/evaluate.py): the served forward on each batch, the pose of
+each pair from its final matches, then pose AUC @5/10/20 and epipolar
+precision over the dataset.
 
     python -m casmtr_tpu_torch.cli.evaluate --model outdoor_casmtr_4c \
         --data megadepth_test_1500 --ckpt CKPT
@@ -10,10 +10,12 @@ reads the test split of the data recipe from disk (``data/module.
 MultiSceneDataModule``; point it elsewhere with ``--overrides-json '{"dataset":
 {"test_data_root": ..., "test_npz_root": ..., "test_list_path": ...}}'``).
 
-The port's only pose solver is the device one (``sfm.pose.
-estimate_pose_batch``, the JAX package's ``--pose-solver device``), so
-``--pose-solver`` defaults to ``device`` here: the JAX command's default,
-OpenCV's RANSAC, is not ported, and ``cv2`` raises.  ``run_eval`` also
+``--pose-solver cv2`` (the default, as in the JAX command) is the reference
+protocol: each pair posed on the host by ``utils/metrics.
+compute_pose_errors``, essential-matrix RANSAC and ``recoverPose`` by the
+port's own solver (``sfm/essential.py``, no OpenCV; the name keeps the JAX
+command's).  ``device`` poses every pair of a batch at once on the card
+(``sfm.pose.estimate_pose_batch``).  ``run_eval`` also
 takes a caller's own ``dataset``, whose samples are dicts of numpy arrays:
 image0 and image1 [H, W, 3] in [0, 1], K0 and K1 [3, 3], T_0to1 [4, 4],
 optionally mask0/mask1, scale0/scale1 and ``pair_names``.
@@ -51,6 +53,30 @@ def _identifier(batch: Dict, b: int, metrics: Dict) -> str:
     if "pair_names" in batch:
         return "#".join(batch["pair_names"][b])
     return f"r0pair{len(metrics['identifiers'])}"
+
+
+def evaluate_batch_outputs(out_np: Dict, batch: Dict, cfg: Config,
+                           metrics: Dict) -> None:
+    """Pose each pair of the batch by the reference protocol on the host
+    (``utils/metrics.compute_pose_errors`` on its valid final matches) and
+    append its identifier, epipolar errors, rotation and translation
+    errors and inliers to ``metrics``."""
+    B = batch["K0"].shape[0]
+    b_ids, valid = out_np["b_ids"], out_np["valid"]
+    for b in range(B):
+        sel = valid & (b_ids == b)
+        mk0, mk1 = out_np["mkpts0"][sel], out_np["mkpts1"][sel]
+        T = batch["T_0to1"][b]
+        K0, K1 = batch["K0"][b], batch["K1"][b]
+        epi = M.compute_epipolar_errors(mk0, mk1, T, K0, K1)
+        R_err, t_err, inl = M.compute_pose_errors(
+            mk0, mk1, T, K0, K1, pixel_thr=cfg.trainer.ransac_pixel_thr,
+            conf=cfg.trainer.ransac_conf)
+        metrics["identifiers"].append(_identifier(batch, b, metrics))
+        metrics["epi_errs"].append(epi)
+        metrics["R_errs"].append(R_err)
+        metrics["t_errs"].append(t_err)
+        metrics["inliers"].append(inl)
 
 
 def _device_pose_metrics(out_np: Dict, batch: Dict, cfg: Config,
@@ -109,7 +135,7 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
              max_pairs: Optional[int] = None,
              profiler_name: Optional[str] = None,
              dump_dir: Optional[str] = None,
-             pose_solver: str = "device", device=None,
+             pose_solver: str = "cv2", device=None,
              loader=None, on_batch=None) -> Dict:
     """Evaluate ``model`` (a port model of ``cfg.loftr``) on ``dataset``
     (None: the test split of ``cfg.dataset`` read from disk), one pair per
@@ -124,12 +150,11 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
     batch ("Data loading") per region; ``dump_dir`` receives the
     final matches of every batch (pred_eval.npy); ``on_batch(n, batch,
     out_np, metrics)`` is called after each batch is scored, with ``n``
-    the pairs before it (the training command's figures)."""
-    if pose_solver == "cv2":
-        raise ValueError("pose_solver 'cv2' (OpenCV RANSAC) is not ported; "
-                         "the port's solver is 'device' "
-                         "(sfm.pose.estimate_pose_batch)")
-    if pose_solver != "device":
+    the pairs before it (the training command's figures).  ``pose_solver``
+    "cv2" poses each pair by the reference protocol on the host
+    (``evaluate_batch_outputs``), "device" every pair of a batch at once
+    on ``device`` (``sfm.pose.estimate_pose_batch``)."""
+    if pose_solver not in ("cv2", "device"):
         raise ValueError(f"unknown pose solver: {pose_solver!r}")
     if loader is None:
         if dataset is None:
@@ -160,8 +185,11 @@ def run_eval(cfg: Config, model: torch.nn.Module, dataset=None,
                       for k in ("b_ids", "mkpts0", "mkpts1", "mconf",
                                 "valid")}
         with profiler.profile("RANSAC"):
-            _device_pose_metrics(out_np, batch, cfg, metrics, pose_fn,
-                                 device)
+            if pose_solver == "device":
+                _device_pose_metrics(out_np, batch, cfg, metrics, pose_fn,
+                                     device)
+            else:
+                evaluate_batch_outputs(out_np, batch, cfg, metrics)
         if dump_dir is not None:
             dumps.append(out_np)
         if on_batch is not None:
@@ -207,11 +235,12 @@ def main(argv=None) -> Dict:
                    help="override the test image resize")
     p.add_argument("--overrides-json", default=None,
                    help="inline JSON config overrides (applied last)")
-    p.add_argument("--pose-solver", default="device",
+    p.add_argument("--pose-solver", default="cv2",
                    choices=("cv2", "device"),
-                   help="device (the default here) = batched essential-"
-                        "matrix RANSAC on the card (sfm/pose.py); cv2, the "
-                        "JAX command's default, is not ported and raises")
+                   help="cv2 = the reference protocol (per-pair essential-"
+                        "matrix RANSAC and recoverPose on the host, "
+                        "sfm/essential.py; no OpenCV); device = batched "
+                        "essential-matrix RANSAC on the card (sfm/pose.py)")
     p.add_argument("--device", default=None,
                    help="where the model runs (default: the card, 'cuda'; "
                         "'cpu' for the CPU)")

@@ -11,9 +11,11 @@ track counts, the final BA cost), optionally a PLY point cloud:
 
 The model runs on the card (``--device cpu`` for the CPU), with seeded
 random weights unless ``--ckpt`` names a reference .ckpt/.pth or a port
-checkpoint directory.  ``--pose-solver`` defaults to ``device`` (the
-batched RANSAC of ``sfm/pose.py``); the JAX command's default, OpenCV's
-per-pair RANSAC, is not ported, and ``cv2`` raises.
+checkpoint directory.  ``--pose-solver cv2`` (the default, as in the JAX
+command) poses each pair by the reference protocol on the host
+(``sfm/essential.py``: the port's own essential-matrix RANSAC and
+``recoverPose``, no OpenCV); ``device`` by the batched RANSAC of
+``sfm/pose.py`` on the card.
 """
 
 from __future__ import annotations
@@ -63,11 +65,11 @@ def main(argv=None):
     p.add_argument("--keyframes", type=int, nargs="+", default=None,
                    help="explicit keyframe indices (skips adaptive "
                         "selection)")
-    p.add_argument("--pose-solver", default="device",
+    p.add_argument("--pose-solver", default="cv2",
                    choices=("cv2", "device"),
-                   help="device (the default here) = batched essential-"
-                        "matrix RANSAC on the card (sfm/pose.py); cv2, the "
-                        "JAX command's default, is not ported and raises")
+                   help="cv2 = per-pair host RANSAC (sfm/essential.py, no "
+                        "OpenCV); device = batched essential-matrix RANSAC "
+                        "on the card (sfm/pose.py)")
     p.add_argument("--pgo", action="store_true",
                    help="refine the chained init with pose-graph "
                         "optimization over all matched pairs before BA "
@@ -80,11 +82,6 @@ def main(argv=None):
                    help="where the model and the SfM device work run "
                         "(default: the card, 'cuda'; 'cpu' for the CPU)")
     args = p.parse_args(argv)
-    if args.pose_solver == "cv2":
-        raise NotImplementedError(
-            "--pose-solver cv2 (OpenCV's per-pair RANSAC) is not ported: "
-            "the port does not use OpenCV; use --pose-solver device (the "
-            "default here)")
 
     exts = (".png", ".jpg", ".jpeg", ".bmp", ".ppm")
     paths = sorted(

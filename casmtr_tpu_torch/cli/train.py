@@ -36,8 +36,9 @@ TensorBoardWriter``, stdlib only): ``train/*`` and ``lr`` every
 ``val_match/pair-{n}`` every ``--plot-every`` validation pairs
 (``utils/plotting``'s raster).
 
-Deviation from the JAX command: validation poses with the batched device
-solver (``sfm.pose``; OpenCV's RANSAC is not ported).
+Validation poses each pair by the reference protocol on the host, as the
+JAX command does (``utils/metrics.estimate_pose``, the port's own
+essential-matrix RANSAC and ``recoverPose``, no OpenCV).
 """
 
 from __future__ import annotations
@@ -180,9 +181,9 @@ def run_validation(cfg: Config, model: torch.nn.Module, val_loader,
                    max_pairs: int = 200, device=None, tb=None, step: int = 0,
                    plot_every: int = 32) -> Dict:
     """One validation pass of ``model`` over at most ``max_pairs`` pairs of
-    ``val_loader``: ``evaluate.run_eval`` on the loader (the batched device
-    pose solver; the JAX command poses with OpenCV's RANSAC, which is not
-    ported), or {} without pairs.  With ``tb`` (a ``TensorBoardWriter``)
+    ``val_loader``: ``evaluate.run_eval`` on the loader (each pair posed
+    by the reference protocol on the host, as the JAX function does), or
+    {} without pairs.  With ``tb`` (a ``TensorBoardWriter``)
     the first pair of every ``plot_every``-th batch (by pairs seen) is
     drawn (``make_evaluation_figure`` of its valid matches and epipolar
     errors) as ``val_match/pair-{n}`` at ``step``, as the JAX function
@@ -204,7 +205,7 @@ def run_validation(cfg: Config, model: torch.nn.Module, val_loader,
                 cfg.trainer.epi_err_thr)
             tb.figure(f"val_match/pair-{n}", fig, step)
     return run_eval(cfg, model, max_pairs=max_pairs, device=device,
-                    loader=val_loader, on_batch=on_batch)
+                    loader=val_loader, on_batch=on_batch, pose_solver="cv2")
 
 
 def _validate(cfg, state: TrainState, val_loader, max_pairs, device,
@@ -234,9 +235,7 @@ def main(argv=None) -> Dict:
     final step, the run directory and the last validation's results)."""
     p = argparse.ArgumentParser(
         description="CasMTR training in PyTorch, on one device or "
-                    "data-parallel over processes",
-        epilog="Unlike the JAX command, validation poses with the batched "
-               "device solver (OpenCV's RANSAC is not ported).")
+                    "data-parallel over processes")
     p.add_argument("--model", default="outdoor_casmtr_4c")
     p.add_argument("--data", default="megadepth_trainval_704")
     p.add_argument("--run-dir", default="runs/default")

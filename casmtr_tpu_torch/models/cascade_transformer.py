@@ -6,7 +6,10 @@ the 'window' and 'dilated1' propagations, the indoor recipe's windowed
 relative PE, and the learnable keypoint detector head).  The stack
 computes in ``transformer_dtype`` (the POLA and LKA blocks in float32, as
 the JAX package's), feeds the cross layers and the Guided layers q/k/v in
-``table_dtype`` and returns float32 tokens for window matching."""
+``table_dtype`` and returns float32 tokens for window matching.  With
+``remat`` every layer but the LKA blocks (which hold BatchNorm) runs
+under ``transformer.layer_call`` in training, as the JAX package wraps
+its blocks in ``nn.remat``."""
 
 from __future__ import annotations
 
@@ -22,7 +25,8 @@ from casmtr_tpu_torch.models.cascade_attention import (DoubleGroupBlock,
 from casmtr_tpu_torch.models.pola import POLATransBlock
 from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.models.transformer import (LoFTREncoderLayer, Mlp,
-                                                 QuadtreeBlock, table_dtype,
+                                                 QuadtreeBlock, layer_call,
+                                                 remats, table_dtype,
                                                  transformer_dtype)
 from casmtr_tpu_torch.ops.propagation import get_propagations
 from casmtr_tpu_torch.ops.quadtree import (GUIDED_LEVELS, cascade_qtatt_b,
@@ -145,11 +149,14 @@ class CascadeFeatureTransformer(nn.Module):
     windowed relative position bias of ``h_pos_bias`` and ``w_pos_bias``.
     With ``detector`` 'learnable' a head ``detector`` (3x3 conv,
     BatchNorm, SiLU, 1x1 conv, in float32) maps image0's output tokens to
-    a keypoint heatmap in training."""
+    a keypoint heatmap in training.  ``remat``: the layers but LKABlock
+    under ``layer_call`` in training (``remats``); the detector head is
+    never recomputed."""
 
-    def __init__(self, config):
+    def __init__(self, config, remat: bool = True):
         super().__init__()
         self.config = config
+        self.remat = remat
         t = config.self_attn_type
         if "self" in config.layer_names:
             if t not in SELF_ATTN_TYPES:
@@ -280,26 +287,31 @@ class CascadeFeatureTransformer(nn.Module):
                                       W1)
         guides = None
         up01 = up10 = None
+        rm = remats(self)
         for layer, name in zip(self.layers, cfg.layer_names):
+            wrap = rm and not isinstance(layer, LKABlock)
+
+            def call(*args, **kwargs):
+                return layer_call(layer, wrap, *args, **kwargs)
             if name != "self":
                 (feat0, up01), (feat1, up10) = (
-                    layer(feat0, feat1, hw0, hw1, win01, dt, tab, rel01),
-                    layer(feat1, feat0, hw1, hw0, win10, dt, tab, rel10))
+                    call(feat0, feat1, hw0, hw1, win01, dt, tab, rel01),
+                    call(feat1, feat0, hw1, hw0, win10, dt, tab, rel10))
             elif isinstance(layer, (POLATransBlock, LKABlock)):
-                feat0, feat1 = layer(feat0, H0, W0), layer(feat1, H1, W1)
+                feat0, feat1 = call(feat0, H0, W0), call(feat1, H1, W1)
             elif isinstance(layer, LoFTREncoderLayer):
-                feat0 = layer(feat0, feat0, None, None, dt)
-                feat1 = layer(feat1, feat1, None, None, dt)
+                feat0 = call(feat0, feat0, None, None, dt)
+                feat1 = call(feat1, feat1, None, None, dt)
             elif isinstance(layer, QuadtreeBlock):
                 if guides is None:
                     guides = self._cycle_topk(conf_matrix_c)
-                feat0 = layer(feat0, feat0, hw0, hw0, dt, tab,
-                              topk_pos=guides[0])
-                feat1 = layer(feat1, feat1, hw1, hw1, dt, tab,
-                              topk_pos=guides[1])
+                feat0 = call(feat0, feat0, hw0, hw0, dt, tab,
+                             topk_pos=guides[0])
+                feat1 = call(feat1, feat1, hw1, hw1, dt, tab,
+                             topk_pos=guides[1])
             else:
-                feat0 = layer(feat0, H0, W0, dt)
-                feat1 = layer(feat1, H1, W1, dt)
+                feat0 = call(feat0, H0, W0, dt)
+                feat1 = call(feat1, H1, W1, dt)
         feat0, feat1 = feat0.float(), feat1.float()
         if fw is not None:
             up01 = upsample_idx(full01, H0 // 2, H1 // 2, W1 // 2)

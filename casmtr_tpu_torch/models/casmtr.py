@@ -153,14 +153,16 @@ class CasMTR(nn.Module):
         two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
         self.loftr_coarse_8c = LocalFeatureTransformer(
-            config.coarse, config.train_size // 8)
+            config.coarse, config.train_size // 8, remat=config.remat)
         levels = run_levels(config)
         if 4 in levels:
             self.up_block1 = UpBlock(config.coarse.d_model, bd[1])
-            self.loftr_coarse_4c = CascadeFeatureTransformer(config.coarse2)
+            self.loftr_coarse_4c = CascadeFeatureTransformer(
+                config.coarse2, remat=config.remat)
         if 2 in levels:
             self.up_block2 = UpBlock(config.coarse2.d_model, bd[0])
-            self.loftr_coarse_2c = CascadeFeatureTransformer(config.coarse3)
+            self.loftr_coarse_2c = CascadeFeatureTransformer(
+                config.coarse3, remat=config.remat)
         if runs_fine(config):
             # 2c refines its 1/2 tokens themselves; 4c the 1/2 backbone map
             # with the 1/4 tokens as context
@@ -169,7 +171,8 @@ class CasMTR(nn.Module):
                 config.fine.d_model, d_c, d_c if two else bd[0],
                 config.fine_window_size,
                 cat_c_feat=config.fine_concat_coarse_feat)
-            self.loftr_fine = LocalFeatureTransformer(config.fine)
+            self.loftr_fine = LocalFeatureTransformer(config.fine,
+                                                      remat=config.remat)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 capacity_scale: int = 1) -> MatchOutput:

@@ -67,7 +67,8 @@ class CasMTRRefine(nn.Module):
         self.backbone = ResNetFPN_8_4_2(bb.initial_dim, tuple(bb.block_dims),
                                         is_rgb=False)
         self.loftr_coarse = LocalFeatureTransformer(config.coarse,
-                                                     config.train_size // 8)
+                                                     config.train_size // 8,
+                                                     remat=config.remat)
         if config.training_stage >= 2:
             if bb.no_lst:
                 self.proj4c = nn.Conv2d(bb.block_dims[1], rd[1], 1)
@@ -76,11 +77,13 @@ class CasMTRRefine(nn.Module):
                 self.ladder = Ladder_4_2(bb.block_dims, rd, config.is_rgb,
                                          config.bn_fix)
             self.up_block1 = UpBlock(config.coarse.d_model, rd[1])
-            self.loftr_coarse_4c = CascadeFeatureTransformer(config.coarse2)
+            self.loftr_coarse_4c = CascadeFeatureTransformer(
+                config.coarse2, remat=config.remat)
             self.cas_fine_preprocess = FinePreprocess(
                 config.fine.d_model, config.coarse2.d_model, rd[0],
                 config.fine_window_size, cat_c_feat=True)
-            self.cas_loftr_fine = LocalFeatureTransformer(config.fine)
+            self.cas_loftr_fine = LocalFeatureTransformer(config.fine,
+                                                          remat=config.remat)
         self.train()
 
     def train(self, mode: bool = True) -> "CasMTRRefine":

@@ -42,12 +42,14 @@ class QuadtreeLoFTR(nn.Module):
         self.config = config
         self.backbone = build_backbone(config)
         self.loftr_coarse = LocalFeatureTransformer(config.coarse,
-                                                     config.train_size // 8)
+                                                     config.train_size // 8,
+                                                     remat=config.remat)
         self.fine_preprocess = FinePreprocess(
             config.fine.d_model, config.coarse.d_model,
             config.backbone.block_dims[0], config.fine_window_size,
             cat_c_feat=config.fine_concat_coarse_feat)
-        self.loftr_fine = LocalFeatureTransformer(config.fine)
+        self.loftr_fine = LocalFeatureTransformer(config.fine,
+                                                  remat=config.remat)
 
     def forward(self, batch: Dict[str, torch.Tensor],
                 capacity_scale: int = 1) -> MatchOutput:

@@ -10,7 +10,13 @@ A stack computes in ``transformer_dtype`` (each step cast by
 models/precision.py), feeds the attention kernels q/k/v in
 ``table_dtype``, and returns float32 tokens for the matching heads.  A
 block called on its own computes in the ``dtype`` passed (default: its
-input's)."""
+input's).
+
+With ``remat`` (``loftr.remat``, default True as in the JAX package) a
+stack in training with gradients on runs each attention layer under
+``layer_call``: its activations are dropped after the forward and
+recomputed in the backward pass, as the JAX package's ``nn.remat``; the
+eval forward is unchanged."""
 
 from __future__ import annotations
 
@@ -21,6 +27,7 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from casmtr_tpu_torch.models.precision import run
 from casmtr_tpu_torch.ops import kernels
@@ -41,6 +48,22 @@ def transformer_dtype(device: torch.device, train: bool) -> torch.dtype:
         return torch.bfloat16 if forced == "1" else torch.float32
     cuda = torch.device(device).type == "cuda"
     return torch.bfloat16 if cuda and not train else torch.float32
+
+
+def layer_call(layer: nn.Module, remat: bool, *args, **kwargs):
+    """``layer(*args, **kwargs)``; with ``remat`` under
+    ``torch.utils.checkpoint`` without reentry, which keeps only the
+    layer's inputs and recomputes its forward (the kernels' forward
+    launches included) in the backward pass."""
+    if remat:
+        return checkpoint(layer, *args, use_reentrant=False, **kwargs)
+    return layer(*args, **kwargs)
+
+
+def remats(module: nn.Module) -> bool:
+    """Whether a stack rematerializes its layers now: its ``remat`` flag in
+    training with gradients on."""
+    return module.remat and module.training and torch.is_grad_enabled()
 
 
 def table_dtype(device: torch.device) -> torch.dtype:
@@ -304,11 +327,13 @@ class LocalFeatureTransformer(nn.Module):
     ``w_pos_bias.i`` and ``h_pos_bias.i`` of ``train_size // 2^i`` buckets
     (``train_size``: the stack's grid side at the training size), which
     every layer's attention B adds at every level (plain PyTorch: such
-    levels do not go through kernels A and A′)."""
+    levels do not go through kernels A and A′).  ``remat``: each layer
+    under ``layer_call`` in training (``remats``)."""
 
-    def __init__(self, config, train_size: int = 0):
+    def __init__(self, config, train_size: int = 0, remat: bool = True):
         super().__init__()
         self.config = config
+        self.remat = remat
         if config.block_type == "quadtree":
             if config.attn_type == "Guided":
                 raise ValueError(
@@ -357,19 +382,23 @@ class LocalFeatureTransformer(nn.Module):
                     f"{tuple(hw0)} for both images (as in the JAX package, "
                     f"which cannot run another grid {tuple(hw1)})")
             rel = self.relative_biases(hw0)
+        rm = remats(self)
         for layer, name in zip(self.layers, self.config.layer_names):
+            def call(*args, **kwargs):
+                return layer_call(layer, rm, *args, **kwargs)
+
             if loftr:
                 if name == "self":
-                    feat0 = layer(feat0, feat0, mask0, mask0, dt)
-                    feat1 = layer(feat1, feat1, mask1, mask1, dt)
+                    feat0 = call(feat0, feat0, mask0, mask0, dt)
+                    feat1 = call(feat1, feat1, mask1, mask1, dt)
                 else:
-                    feat0 = layer(feat0, feat1, mask0, mask1, dt)
-                    feat1 = layer(feat1, feat0, mask1, mask0, dt)
+                    feat0 = call(feat0, feat1, mask0, mask1, dt)
+                    feat1 = call(feat1, feat0, mask1, mask0, dt)
             elif name == "self":
-                feat0 = layer(feat0, feat0, hw0, hw0, dt, tab, rel_pos=rel)
-                feat1 = layer(feat1, feat1, hw1, hw1, dt, tab, rel_pos=rel)
+                feat0 = call(feat0, feat0, hw0, hw0, dt, tab, rel_pos=rel)
+                feat1 = call(feat1, feat1, hw1, hw1, dt, tab, rel_pos=rel)
             else:
                 feat0, feat1 = (
-                    layer(feat0, feat1, hw0, hw1, dt, tab, rel_pos=rel),
-                    layer(feat1, feat0, hw1, hw0, dt, tab, rel_pos=rel))
+                    call(feat0, feat1, hw0, hw1, dt, tab, rel_pos=rel),
+                    call(feat1, feat0, hw1, hw0, dt, tab, rel_pos=rel))
         return feat0.float(), feat1.float()

@@ -9,23 +9,18 @@ recoveries, optional pose-graph refinement, DLT triangulation and the
 Schur-complement bundle adjustment of ``sfm/ba.py``.
 
 The matcher is a black box ``match_fn(i, j) -> (mkpts0, mkpts1, mconf)``
-in pixels.  Device work (the batched relative-pose RANSAC, triangulation,
+in pixels.  Relative poses come from the reference pose protocol on the
+host (``pose_solver="cv2"``, the default as in the JAX package:
+``utils/metrics.estimate_pose``, the port's own essential-matrix RANSAC
+and ``recoverPose``, no OpenCV) or from the batched device solver
+(``"device"``, ``sfm/pose.py``).  Device work (the batched RANSAC,
+triangulation,
 pose-graph optimisation, bundle adjustment) runs on the card unless the
 caller passes ``device="cpu"``; the orchestration, the landmark maps and
 the tracks are host Python, as in the JAX package.
 
-Deviations from the JAX package:
-
-* ``pose_solver`` defaults to ``"device"``, the batched essential-matrix
-  RANSAC of ``sfm/pose.py``: the port does not use OpenCV, and ``"cv2"``
-  raises NotImplementedError.
-* ``_pnp_pose`` solves PnP with ``sfm/pnp.py`` (EPnP in RANSAC, host
-  float64) where the JAX package calls ``cv2.solvePnPRansac``.
-* ``_skip_pair_pose`` solves its single pair with ``estimate_pose_batch``
-  on a batch of one where the JAX package calls OpenCV's
-  ``findEssentialMat`` / ``recoverPose``.
-* There is no ``_pair_pose``: the JAX package's per-pair OpenCV solve
-  serves only ``pose_solver="cv2"``, which the port refuses.
+``_pnp_pose`` solves PnP with ``sfm/pnp.py`` (EPnP in RANSAC, host
+float64) where the JAX package calls ``cv2.solvePnPRansac``.
 
 Each loop marks where the host waits for the device (``# the host waits``);
 ``HOST_SYNCS`` counts those waits by kind.
@@ -47,23 +42,18 @@ from casmtr_tpu_torch.sfm import reconstruct as Rc
 from casmtr_tpu_torch.sfm.geometry import triangulate
 from casmtr_tpu_torch.sfm.pnp import rodrigues, solve_pnp_ransac
 from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
+from casmtr_tpu_torch.utils.metrics import estimate_pose
 
 MatchFn = Callable[[int, int], Tuple[np.ndarray, np.ndarray, np.ndarray]]
 PairMatches = Dict[Tuple[int, int], Tuple[np.ndarray, np.ndarray, np.ndarray]]
 
-NO_CV2 = ("pose_solver 'cv2' (OpenCV's per-pair RANSAC, the JAX package's "
-          "default) is not ported: the port does not use OpenCV. Use "
-          "pose_solver='device' (sfm.pose.estimate_pose_batch, the default "
-          "here)")
 HOST_SYNCS: Dict[str, int] = {"pose": 0, "triangulate": 0}
 N_HYP = 512              # hypotheses per pair (estimate_pose_batch's)
 POSE_CHUNK = 1 << 27     # hypothesis x match entries per solver call
 
 
 def _check_solver(pose_solver: str) -> None:
-    if pose_solver == "cv2":
-        raise NotImplementedError(NO_CV2)
-    if pose_solver != "device":
+    if pose_solver not in ("cv2", "device"):
         raise ValueError(f"unknown pose solver: {pose_solver!r}")
 
 
@@ -265,17 +255,6 @@ def _solve_pairs(kpts: Sequence[Tuple[np.ndarray, np.ndarray]],
     return ok, R.astype(np.float64), t.astype(np.float64), inl, counts
 
 
-def _solve_one(mk0, mk1, K: np.ndarray, thresh: float, device=None,
-               generator: Optional[torch.Generator] = None):
-    """One pair through the device solver (a batch of one): (R, t unit,
-    inlier mask) or None where it fails."""
-    ok, R, t, inl, counts = _solve_pairs([(mk0, mk1)], K, thresh, device,
-                                         generator=generator)
-    if not ok[0]:
-        return None
-    return R[0], t[0], inl[0, :counts[0]]
-
-
 def _pnp_pose(mk0: np.ndarray, mk1: np.ndarray,
               prev_depth: Dict[Tuple[int, int], float], K: np.ndarray,
               quant: float, thresh: float):
@@ -338,12 +317,12 @@ def _triangulate_host(P0: np.ndarray, P1: np.ndarray, mk0: np.ndarray,
 def _skip_pair_pose(matches: PairMatches, h: int, j: int, K: np.ndarray,
                     thresh: float, quant: float,
                     depth_h: Optional[Dict[Tuple[int, int], float]],
-                    rel_hi: Tuple[np.ndarray, np.ndarray], device=None,
-                    generator: Optional[torch.Generator] = None):
+                    rel_hi: Tuple[np.ndarray, np.ndarray], device=None):
     """Recover link i->j through the wider-baseline skip pair (h, j).
 
     When the consecutive pair (i, j) is degenerate, the overlap-2 pair
-    (h, j) is often still solvable (the device solver on a batch of one).
+    (h, j) is often still solvable (the reference protocol,
+    ``estimate_pose``, whatever the chain's solver, as in the JAX package).
     Its unit translation is rescaled against frame h's landmark map (the
     chain's median depth-ratio rule), then composed with the already
     scaled link h->i: R_ij = R_hj R_hi^T, t_ij = t_hj - R_ij t_hi.
@@ -353,8 +332,8 @@ def _skip_pair_pose(matches: PairMatches, h: int, j: int, K: np.ndarray,
     if (h, j) not in matches or not depth_h:
         return None
     mk0, mk1, _ = matches[(h, j)]
-    ret = _solve_one(mk0.astype(np.float64), mk1.astype(np.float64), K,
-                     thresh, device, generator)
+    ret = estimate_pose(mk0.astype(np.float64), mk1.astype(np.float64),
+                        K, K, thresh)
     if ret is None:
         return None
     R_hj, t_hj, inl = ret
@@ -387,6 +366,18 @@ def _skip_pair_pose(matches: PairMatches, h: int, j: int, K: np.ndarray,
     return R_ij, t_ij, depth_j
 
 
+def _pair_pose(matches: PairMatches, i: int, j: int, K: np.ndarray,
+               thresh: float = 0.5):
+    """One pair's pose by the reference protocol on the host: (R, t unit,
+    inlier mask), or ``_pose_failed``."""
+    mk0, mk1, _ = matches[(i, j)]
+    ret = estimate_pose(mk0.astype(np.float64), mk1.astype(np.float64),
+                        K, K, thresh)
+    if ret is None:
+        return _pose_failed(i, j, len(mk0))
+    return ret
+
+
 def _pair_poses_device(matches: PairMatches, pairs, K: np.ndarray,
                        thresh: float, device=None, noise=None,
                        generator: Optional[torch.Generator] = None):
@@ -408,21 +399,25 @@ def _pair_poses_device(matches: PairMatches, pairs, K: np.ndarray,
 
 
 def pair_relative_poses(matches: PairMatches, pairs, K: np.ndarray,
-                        thresh: float = 0.5, pose_solver: str = "device",
+                        thresh: float = 0.5, pose_solver: str = "cv2",
                         device=None, noise=None,
                         generator: Optional[torch.Generator] = None
                         ) -> Dict[Tuple[int, int], tuple]:
     """Relative pose (R, t unit, inlier mask or None on failure) of every
-    pair, by the batched device solver (``_pair_poses_device``)."""
+    pair: the reference protocol pair by pair on the host (``"cv2"``), or
+    one batched device solve (``"device"``, ``_pair_poses_device``)."""
     _check_solver(pose_solver)
     pairs = list(pairs)
+    if pose_solver == "cv2":
+        return {(i, j): _pair_pose(matches, i, j, K, thresh)
+                for i, j in pairs}
     return dict(zip(pairs, _pair_poses_device(matches, pairs, K, thresh,
                                               device, noise, generator)))
 
 
 def chain_with_scale(matches: PairMatches, frames: Sequence[int],
                      K: np.ndarray, thresh: float = 0.5, quant: float = 4.0,
-                     pose_solver: str = "device",
+                     pose_solver: str = "cv2",
                      pair_poses: Optional[Dict[Tuple[int, int], tuple]]
                      = None, device=None, noise=None,
                      generator: Optional[torch.Generator] = None):
@@ -432,28 +427,30 @@ def chain_with_scale(matches: PairMatches, frames: Sequence[int],
     first pair sets the global scale.
 
     The consecutive pairs' poses come from ``pair_poses`` when given, else
-    from the batched device solver (``noise`` [len(frames)-1, 512, M]
-    feeds its draw).  A failed link recovers from the map: (1) PnP RANSAC
-    against the propagated landmark map (``_pnp_pose``), (2) composition
-    through the overlap-2 pair (frames[a-1], j) when it was matched
-    (``_skip_pair_pose``).  Only when both fail does a near-identity link
+    from ``pose_solver``: the reference protocol pair by pair (``"cv2"``)
+    or the batched device solver (``"device"``; ``noise`` [len(frames)-1,
+    512, M] feeds its draw).  A failed link recovers from the map: (1)
+    PnP RANSAC against the propagated landmark map (``_pnp_pose``), (2)
+    composition through the overlap-2 pair (frames[a-1], j) when it was
+    matched (``_skip_pair_pose``).  Only when both fail does a near-identity link
     remain, with the "trajectory unreliable" warning."""
     _check_solver(pose_solver)
     rel: List[Tuple[np.ndarray, np.ndarray]] = []
     # per-frame landmark maps (quantised cell -> chain-scale depth), read by
     # scale propagation (frame i's map) and by the recoveries
     frame_depth: Dict[int, Dict[Tuple[int, int], float]] = {}
+    consecutive = [(frames[a], frames[a + 1])
+                   for a in range(len(frames) - 1)]
     if pair_poses is not None:
-        device_poses = [pair_poses[(frames[a], frames[a + 1])]
-                        for a in range(len(frames) - 1)]
+        poses = [pair_poses[p] for p in consecutive]
+    elif pose_solver == "cv2":
+        poses = [_pair_pose(matches, i, j, K, thresh) for i, j in consecutive]
     else:
-        consecutive = [(frames[a], frames[a + 1])
-                       for a in range(len(frames) - 1)]
-        device_poses = _pair_poses_device(matches, consecutive, K, thresh,
-                                          device, noise, generator)
+        poses = _pair_poses_device(matches, consecutive, K, thresh, device,
+                                   noise, generator)
     for a in range(len(frames) - 1):
         i, j = frames[a], frames[a + 1]
-        R, t, inl = device_poses[a]
+        R, t, inl = poses[a]
         mk0, mk1, _ = matches[(i, j)]
         prev_depth = frame_depth.get(i)
         metric = False                 # t already at chain scale (recovery)
@@ -467,7 +464,7 @@ def chain_with_scale(matches: PairMatches, frames: Sequence[int],
             else:
                 rec2 = (_skip_pair_pose(matches, frames[a - 1], j, K, thresh,
                                         quant, frame_depth.get(frames[a - 1]),
-                                        rel[-1], device, generator)
+                                        rel[-1], device)
                         if a > 0 else None)
                 if rec2 is not None:
                     R, t, depth_j = rec2
@@ -606,7 +603,7 @@ def reconstruct_sequence(match_fn: MatchFn, n_frames: int, K: np.ndarray,
                          quant: float = 4.0, min_track_len: int = 2,
                          ba_iters: int = 20, huber_delta: float = 3.0,
                          max_obs: Optional[int] = None,
-                         pose_solver: str = "device",
+                         pose_solver: str = "cv2",
                          pgo: bool = False,
                          solver: str = "auto",
                          cg_iters: int = 100, device=None, noise=None,
@@ -617,9 +614,10 @@ def reconstruct_sequence(match_fn: MatchFn, n_frames: int, K: np.ndarray,
     matched pairs) -> tracks -> triangulation -> robust Schur BA (Huber,
     ``huber_delta`` px; None for plain least squares).  ``solver``:
     "auto" takes the sparse CG path when P*C > 3e6, else the dense direct
-    solve.  Device work on ``device`` (None: the card).  ``noise`` is the
-    device solver's draw for its batch: all pairs under ``pgo``, else the
-    consecutive keyframe pairs."""
+    solve.  Device work on ``device`` (None: the card).  ``pose_solver``:
+    "cv2" (the reference protocol on the host) or "device"; ``noise`` is
+    the device solver's draw for its batch: all pairs under ``pgo``, else
+    the consecutive keyframe pairs."""
     _check_solver(pose_solver)
     if 1 not in overlaps:
         raise ValueError("overlaps must include 1: the chained "

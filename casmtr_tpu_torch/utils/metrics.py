@@ -1,12 +1,12 @@
 """Evaluation metrics (counterpart of casmtr_tpu/utils/metrics.py, in numpy):
-the symmetric epipolar distance of matches, the relative pose error, and
-the pose AUC and epipolar precision a dataset is scored by.
+the symmetric epipolar distance of matches, the reference pose protocol
+(``estimate_pose``: essential-matrix RANSAC and ``recoverPose`` per pair,
+on the host), the relative pose error, and the pose AUC and epipolar
+precision a dataset is scored by.
 
-The JAX package poses each pair by OpenCV's RANSAC by default; the port
-uses no OpenCV, so its evaluation poses every pair of a batch with the
-batched device solver (``casmtr_tpu_torch.sfm.pose.estimate_pose_batch``,
-the JAX package's ``--pose-solver device``), and ``estimate_pose`` /
-``compute_pose_errors`` raise and name it.
+The JAX package's protocol calls OpenCV; the port runs its own solver and
+no OpenCV (``casmtr_tpu_torch.sfm.essential``, which draws OpenCV's
+samples and so gives its E and inliers).
 """
 
 from __future__ import annotations
@@ -16,11 +16,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-NO_CV2 = ("OpenCV's RANSAC (the JAX package's default pose protocol) is not "
-          "ported: the port does not use OpenCV. Pose the pairs with the "
-          "batched device solver, casmtr_tpu_torch.sfm.pose."
-          "estimate_pose_batch (cli.evaluate.run_eval does)")
-
+from casmtr_tpu_torch.sfm.essential import find_essential, recover_pose
 
 def cross_product_matrix(t: np.ndarray) -> np.ndarray:
     """[3] -> skew-symmetric [3, 3]."""
@@ -49,14 +45,47 @@ def compute_epipolar_errors(mkpts0, mkpts1, T_0to1, K0, K1) -> np.ndarray:
     return symmetric_epipolar_distance(mkpts0, mkpts1, E, K0, K1)
 
 
-def estimate_pose(*args, **kwargs):
-    """Not ported (OpenCV); see the module docstring."""
-    raise NotImplementedError(NO_CV2)
+def estimate_pose(kpts0, kpts1, K0, K1, thresh: float, conf: float = 0.99999,
+                  max_iters: int = 10000):
+    """The reference pose protocol for one pair of pixel matches [N, 2]:
+    essential-matrix RANSAC at ``thresh`` pixels (over the mean focal
+    length) and confidence ``conf``, then ``recoverPose`` of each E it
+    returns (points in front of both cameras and nearer than 50), each
+    call starting from the previous call's cheirality mask (OpenCV writes
+    it into the mask it is given).  Returns (R, t [3],
+    inlier mask [N]) of the E with the most points in front, the mask as
+    that E's call left it, or None.  ``max_iters`` does not reach the
+    solver, as in the JAX package: RANSAC stops at OpenCV's 1000."""
+    if len(kpts0) < 5:
+        return None
+    kpts0 = (kpts0 - K0[[0, 1], [2, 2]][None]) / K0[[0, 1], [0, 1]][None]
+    kpts1 = (kpts1 - K1[[0, 1], [2, 2]][None]) / K1[[0, 1], [0, 1]][None]
+    ransac_thr = thresh / np.mean([K0[0, 0], K1[1, 1], K0[0, 0], K1[1, 1]])
+    E, mask = find_essential(kpts0, kpts1, ransac_thr, conf)
+    if E is None:
+        return None
+    best_n, ret = 0, None
+    for _E in E:
+        # the JAX call's positional 1e9 lands in the R output of OpenCV's
+        # overload without a distance: points count up to depth 50
+        n, R, t, mask = recover_pose(_E, kpts0, kpts1, mask)
+        if n > best_n:
+            ret = (R, t, mask)
+            best_n = n
+    return ret
 
 
-def compute_pose_errors(*args, **kwargs):
-    """Not ported (OpenCV); see the module docstring."""
-    raise NotImplementedError(NO_CV2)
+def compute_pose_errors(mkpts0, mkpts1, T_0to1, K0, K1,
+                        pixel_thr: float = 0.5, conf: float = 0.99999):
+    """Rotation and translation errors in degrees of one pair posed by
+    ``estimate_pose``, and its inliers: (R_err, t_err, inliers), or (inf,
+    inf, empty) where no pose was found."""
+    ret = estimate_pose(mkpts0, mkpts1, K0, K1, pixel_thr, conf)
+    if ret is None:
+        return np.inf, np.inf, np.zeros((0,), bool)
+    R, t, inliers = ret
+    t_err, R_err = relative_pose_error(T_0to1, R, t)
+    return R_err, t_err, inliers
 
 
 def relative_pose_error(T_0to1, R, t, ignore_gt_t_thr: float = 0.0):

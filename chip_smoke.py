@@ -122,22 +122,26 @@ lines and its seconds:
    704^2, batch 1, full width and depth, seeded random weights, on a pair
    whose image1 is a shifted crop of image0 with the matching camera
    translation, first in the card's default (bf16 backbone and kernel
-   inputs, float32 stacks: per step the bf16 instances A 12, A′ 12, A-bwd
-   24, C 4 and C-bwd 4 per cascade level, no f32 A, A′, A-bwd, C or C-bwd)
-   and then with float32 forced (the f32 instances, no bf16 one); B and
-   B-bwd (float32 in both) 2 and 1 per cascade level.  One warm-up step
-   and 4 timed steps, each with the launch counts zeroed just before and
-   read just after; finite losses, matches to supervise at every cascade
-   level, parameters that moved, nonzero finite gradients on the q/k/v
-   projections that go through kernels A, A′ and C.  Then one more step
-   under torch.profiler, per precision.  quadtree_baseline at 704^2 (per
-   step A 16, A′ 16, A-bwd 32) and the indoor recipe at 640^2 (also B 2,
-   B-bwd 1, no C) likewise; their profiled step in bf16 only.  The refine
+   inputs, float32 stacks, each stack layer rematerialized (loftr.remat,
+   the default): per step the bf16 instances A 24, A′ 24, A-bwd 24, C 8
+   and C-bwd 4 per cascade level, no f32 A, A′, A-bwd, C or C-bwd) and
+   then with float32 forced (the f32 instances, no bf16 one); B and B-bwd
+   (float32 in both) 2 and 1 per cascade level.  One warm-up step and 3
+   timed steps (2 with float32 forced), each with the launch counts zeroed
+   just before and read just after; finite losses, matches to supervise at
+   every cascade level, parameters that moved, nonzero finite gradients on
+   the q/k/v projections that go through kernels A, A′ and C.  Then one
+   more step under torch.profiler, per precision.  quadtree_baseline at
+   704^2 (per step A 32, A′ 32, A-bwd 32) and the indoor recipe at 640^2
+   (also B 2, B-bwd 1, no C) likewise; their profiled step in bf16 only.
+   The refine
    model at 640^2 likewise (A 16, A′ 16, B 2, B-bwd 1, no A-bwd: its trunk
-   is frozen), and after its steps every trunk parameter and BatchNorm
+   is frozen, runs under no_grad and is not recomputed), and after its
+   steps every trunk parameter and BatchNorm
    buffer must be bit-identical to its value before them.
 8. Training reference: one step at 256^2 on the card and on the CPU from
-   the same weights and batch.  With float32 forced on both (each recipe
+   the same weights and batch (the CPU's without remat, which gives the
+   same numbers in less time).  With float32 forced on both (each recipe
    and the ResNetFPN variant): loss within 1e-4 relative, cosine of the
    whole flattened gradients >= 0.999; a loss term may differ by up to 10x
    its largest response on the CPU to two nudges of the images by 1e-6
@@ -150,8 +154,7 @@ lines and its seconds:
    relative difference of that term), 1 - gradient cosine within
    max(1e-3, 4x the CPU's own).  quadtree_baseline and the indoor
    recipe are ResNetFPN-based as the variant: their whole f32 step is
-   printed with the CPU's response to a nudge, their backbone gated as the
-   variant's, and the indoor 1/4 stack alone (POLA and the relative-PE
+   printed, their backbone gated as the variant's, and the indoor 1/4 stack alone (POLA and the relative-PE
    gather path) as the recipes' cascade stacks.  The refine model as the
    indoor recipe, its ladder (in train mode, on the trunk's maps taken once
    on the CPU) gated in place of the backbone.
@@ -177,9 +180,10 @@ lines and its seconds:
    cli.train.resume_state from the checkpoint (train.checkpoints.
    CheckpointManager) the stage before saved, then a same-stage resume at
    stage 3; per stage one warm-up step and 2 timed steps with the launch
-   counts zeroed just before and read just after each (per step: stage 1
-   the bf16 A 12, A′ 12, A-bwd 24 and nothing else; stage 2 also C 4,
-   C-bwd 4, B 2, B-bwd 1; stage 3 as phase 7's 2c), finite losses of
+   counts zeroed just before and read just after each (per step, the
+   stacks rematerialized: stage 1 the bf16 A 24, A′ 24, A-bwd 24 and
+   nothing else; stage 2 also C 8, C-bwd 4, B 2, B-bwd 1; stage 3 as
+   phase 7's 2c), finite losses of
    exactly the stage's terms, the kernel-path q/k/v projections moved,
    s/step and peak memory; after each resume the restored tensors
    bit-identical to the checkpoint and the new ones to their seeded init,
@@ -237,8 +241,9 @@ lines and its seconds:
    half the pairs) within 1 / 2 degrees of the true R / t, ms per
    batch.  (c)
    cli.evaluate.run_eval of 4c on 8 pairs of a textured plane at 832^2
-   (known K, R, t) through the port's DataLoader: launches 8 x 4c's per
-   pair, the AUC and precision finite (printed: random weights), pairs/s.
+   (known K, R, t) through the port's DataLoader with the device solver
+   (pose_solver="device"): launches 8 x 4c's per pair, the AUC and
+   precision finite (printed: random weights), pairs/s.
 13. Files (the committed fixtures of scripts/make_port_io_fixtures.py under
    tests/data/port_io: small decode cases, a MegaDepth-layout scene of 4
    views at 1200x800 with h5 depth, a ScanNet-layout scene of 3 frames at
@@ -254,13 +259,13 @@ lines and its seconds:
    workers and prefetch have run out), launches 24 x 4c's per pair.  (c)
    cli.train.main of 4c with megadepth_trainval_704 on that scene, its
    depth files rewritten as h5py writes them by default (contiguous, as
-   the real ones): 32 steps with 4 loader threads, a sanity validation of
-   1 pair and a validation of 2 (launches 32 x per step + 3 x per pair),
+   the real ones): 16 steps with 4 loader threads, a sanity validation of
+   1 pair and a validation of 2 (launches 16 x per step + 3 x per pair),
    finite losses, ground-truth coarse matches at every step, the
-   checkpoints and config.json written, step_s and data_s over steps 9-32
+   checkpoints and config.json written, step_s and data_s over steps 9-16
    beside phase 7's bf16 step, the loader alone in samples/s at 1 and 4
    threads on both depth layouts; then --resume on the committed files
-   for 4 more steps (the step count continues to 36); then 2
+   for 4 more steps (the step count continues to 20); then 2
    steps of the indoor recipe with scannet_trainval on the ScanNet-layout
    scene.  (d) Matcher.match on two image paths bit-identical to
    Matcher.match on the arrays data/io._imread gives for them (thresholds
@@ -272,7 +277,8 @@ lines and its seconds:
    relative, rotations, translations over their norm: the monocular scale
    is a near-null direction); reconstruct_sequence on
    tests/test_sfm_pipeline.synth_sequence (5 frames at 0.3 px, PGO) on one
-   draw of the pose solver made on the CPU: keyframes, pairs and tracks
+   draw of the device pose solver made on the CPU: keyframes, pairs and
+   tracks
    identical, final rotations, similarity-aligned centres and cost within
    1e-3.  (b) scripts/sfm_scale_bench.py --big's 200-frame, 64000-point
    sequence (SFM_SEQ: fx 900, a pure lateral track, 0.3 px, every frame a
@@ -334,6 +340,27 @@ lines and its seconds:
    train/loss, val/auc@5 and val_match/pair-0, the figure's PNG decoded.
    (d) The median ms per image of the 1200x800 progressive fixture beside
    the baseline JPEG of the same view.
+17. The reference pose protocol and rematerialization.  (a)
+   utils/metrics.estimate_pose (sfm/essential.py on the host: OpenCV's
+   RANSAC draws, five-point solver, recoverPose) on numpy copies of
+   tests/test_pose_solver._scene at N 512, 2048 and 8192 matches, 0.3 px,
+   0% and 30% outliers, 8 scenes each: every pose whose inliers hold half
+   the true matches (at least half the scenes) within 2 / 4 degrees of the
+   true R / t (OpenCV's own RANSAC, which the protocol reproduces, errs up
+   to 1.34 / 3.42 on them); the median ms per pair, and recover_pose's
+   part of it, beside the device solver's (estimate_pose_batch on the 8
+   scenes at once, host clock around the call and a synchronize).  (b)
+   run_eval of 4c on phase 12(c)'s 8 pairs with its default, the protocol:
+   launches 8 x 4c's per pair, the results finite, pairs/s beside 12(c)'s
+   device solver.  (c) 4c and 2c trained at 704^2 in the card's default
+   with loftr.remat off, twice, from the seeded weights and batch of
+   phase 7's bf16 run, which is the remat-on run: the first step's loss
+   terms bit-equal, its gradients at cosine >= MIN_GRAD_COS and norm
+   within REMAT_NORM_RTOL of the first off run's (the two off runs'
+   spread printed beside: A-bwd's and C-bwd's atomics differ from run to
+   run), each step's launches held to its setting's per-step counts, and
+   per setting the median s/step and peak memory of the steps after the
+   first (REMAT_STEPS per off run; phase 7's timed steps).
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -394,8 +421,8 @@ MIN_GRAD_COS = 0.999     # flattened gradients, card vs CPU
 BF16_STACK_RTOL = 2.0 ** -8
 # The ResNetFPN variant's step at 256^2 with random weights is held at its
 # backbone: its quadtree's top-k picks in the 1/8 stack flip under a nudge
-# of NUDGE of its images (the CPU's response is printed), so its whole step
-# is printed, not gated.  The backbone in train mode in f32, card vs CPU:
+# of NUDGE of its images (PERF.md, PRs 8-10), so its whole step is
+# printed, not gated.  The backbone in train mode in f32, card vs CPU:
 # maps (of their largest value), running statistics and the maps' product
 # with a seeded cotangent within BACKBONE_RTOL, gradient cosine >=
 # MIN_GRAD_COS (the worst per-leaf error is printed, not gated: a
@@ -441,6 +468,18 @@ POSE_R_DEG, POSE_T_DEG, POSE_CARD_CPU_DEG = 1.0, 2.0, 0.1
 POSE_SUPPORT = 0.5
 # run_eval: pairs of a textured plane at the bucket's size
 EVAL_PAIRS, EVAL_SIZE = 8, 832
+# phase 17: the protocol's scenes (tests/test_pose_solver._scene), its
+# supported poses within PROTOCOL_R_DEG / PROTOCOL_T_DEG of the truth
+# (not 1 / 2: the protocol refits nothing, and OpenCV's own RANSAC, which
+# it reproduces on these very scenes, errs up to 1.34 deg in R and 3.42
+# in t at 512 matches), and the rematerialized
+# training steps (remat on against off, the first step)
+PROTOCOL_NS = (512, 2048, 8192)
+PROTOCOL_R_DEG, PROTOCOL_T_DEG = 2.0, 4.0
+PROTOCOL_OUTLIERS = (0.0, 0.3)
+PROTOCOL_SCENES = 8
+REMAT_NORM_RTOL = 1e-3
+REMAT_STEPS = 1
 # phase 14: card against CPU on the JAX tests' scenes (final BA cost
 # relative, rotations and gauge-free translations / aligned centres)
 SFM_COST_RTOL, SFM_POSE_ATOL = 1e-3, 1e-3
@@ -453,7 +492,10 @@ SFM_COST_RTOL, SFM_POSE_ATOL = 1e-3, 1e-3
 # half the init's
 SFM_SEQ = dict(n_frames=200, P=64000, fx=900.0, full_span=True,
                pan_rate=0.0, y_half=2.0, y_rate=0.0, noise=0.3)
-SFM_SEQ_RUN = dict(overlaps=(1, 2), ba_iters=25, quant=0.25, pgo=True)
+# the scale script's device solver: OpenCV's RANSAC (the default protocol)
+# misses some of this narrow-FOV sequence's pairs at 0.3 px
+SFM_SEQ_RUN = dict(overlaps=(1, 2), ba_iters=25, quant=0.25, pgo=True,
+                   pose_solver="device")
 SFM_BA = dict(C=240, P=56000, track_len=8)
 SFM_BA_RUN = dict(iters=12, solver="cg", cg_iters=60)
 SFM_RESIZE = 640
@@ -596,7 +638,7 @@ IO_PAIRS = IO_SCENE_PAIRS * IO_EVAL_REPEATS
 # the steady-state medians over the steps after the loader's head start;
 # the resumed run takes IO_RESUME_STEPS more
 IO_WORKERS = 4
-IO_STEPS, IO_RESUME_STEPS, IO_SANITY, IO_VAL = 32, 4, 1, 2
+IO_STEPS, IO_RESUME_STEPS, IO_SANITY, IO_VAL = 16, 4, 1, 2
 IO_INDOOR_STEPS = 2
 IO_LOADER_SAMPLES = 16   # the training loader timed alone, at 1 and 4 threads
 IO_REPS = 10          # decode and resize timings: median of this many
@@ -683,17 +725,27 @@ def per_pair(model, bf16):
                 window_patch_score_bwd=0)
 
 
-def per_step(model, bf16):
-    """Launches per training step (no rematerialization): the forward's,
-    and one backward for each forward whose inputs need a gradient -- all
-    but the detached 1->0 window scores; A and A′ share A-bwd, which a
-    frozen trunk (REFINED) never launches.  With ``bf16`` (the card's
-    training default) A, A′, A-bwd, C and C-bwd are their bf16 instances
-    and their f32 instances launch 0 times; B and B-bwd stay f32."""
+def per_step(model, bf16, remat=True):
+    """Launches per training step: the forward's, and one backward for
+    each forward whose inputs need a gradient -- all but the detached 1->0
+    window scores; A and A′ share A-bwd, which a frozen trunk (REFINED)
+    never launches.  With ``remat`` (loftr.remat, the default) every
+    stack layer that takes a gradient runs its forward again in the
+    backward pass: A, A′ (but a frozen trunk's) and C launch twice; B,
+    in cascade matching outside the stacks, once.  With ``bf16`` (the
+    card's training default) A, A′, A-bwd, C and C-bwd are their bf16
+    instances and their f32 instances launch 0 times; B and B-bwd stay
+    f32."""
     qt, levels, c_levels = LAYOUT[model]
-    a_fwd = 4 * qt + 2 * GUIDED.get(model, 0)
+    guided = GUIDED.get(model, 0)
+    again = 2 if remat else 1
+    trunk = 1 if model in REFINED else again
     return dict(per_pair(model, bf16), **_typed(
-        {"quadtree_fine_attention_bwd": 0 if model in REFINED else a_fwd,
+        {"quadtree_fine_attention": 2 * (qt * trunk + guided * again),
+         "quadtree_fine_topk": 2 * qt * trunk,
+         "window_cross_attention": 4 * c_levels * again,
+         "quadtree_fine_attention_bwd":
+             0 if model in REFINED else 4 * qt + 2 * guided,
          "window_cross_attention_bwd": 4 * c_levels}, bf16),
         window_patch_score_bwd=SCORE_LEVELS.get(model, levels))
 
@@ -2298,12 +2350,11 @@ def top(avgs, keep, n):
     return rows[:n], sum(r[0] for r in rows)
 
 
-def profile_phase(torch, recipe, matcher, request, prec, conv_ab=False):
+def profile_phase(torch, recipe, matcher, request, prec):
     """One more steady request in precision ``prec`` under torch.profiler:
     device time summed over the request's kernels against its wall time,
     and device time by operator (the convolutions also by input shape) and
-    by kernel; with ``conv_ab`` also the FPN conv's cuDNN algorithm
-    choices."""
+    by kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     name, img0, img1 = request
@@ -2339,45 +2390,6 @@ def profile_phase(torch, recipe, matcher, request, prec, conv_ab=False):
         log(f"profile: kernel {ms:8.3f} ms {n:5d}x {key[:80]}")
     for ms, n, key, _ in ours:
         log(f"profile: ours   {ms:8.3f} ms {n:5d}x {key.split('(')[0]}")
-    if conv_ab:
-        conv_algorithm_ab()
-
-
-# cuDNN caches the algorithm it first picks for a convolution's shapes,
-# whatever mode picked it, so each mode is timed in a process of its own
-CONV_PROBE = """
-import statistics, sys, torch
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-torch.backends.cudnn.benchmark = sys.argv[1] == "1"
-conv = torch.nn.Conv2d(256, 128, 3, padding=1, bias=False).cuda()
-x = torch.randn(2, 256, 208, 208, device="cuda").contiguous(
-    memory_format=torch.channels_last)
-times = []
-with torch.inference_mode():
-    for i in range(6):
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record(); conv(x); e.record(); torch.cuda.synchronize()
-        times.append(s.elapsed_time(e))
-print(statistics.median(times[1:]))
-"""
-
-
-def conv_algorithm_ab():
-    """The Twins FPN's 3x3 256->128 conv at its 832^2 input (2 images of
-    256 x 208 x 208, channels-last as the FPN makes it): cuDNN's heuristic
-    algorithm choice against its autotuner, each in a fresh process."""
-    ms = {}
-    for tuned in ("0", "1"):
-        out = subprocess.run([sys.executable, "-c", CONV_PROBE, tuned],
-                             capture_output=True, text=True, check=True,
-                             timeout=300)
-        ms[tuned] = float(out.stdout.strip().splitlines()[-1])
-    t_bound, by = bound((2 * 256 + 2 * 128) * 208 * 208 * 4
-                        + 128 * 256 * 9 * 4, 2 * 208 * 208 * 128 * 256 * 9 * 2)
-    log(f"profile: conv 3x3 256->128 on 2 x 256 x 208 x 208: cuDNN heuristic "
-        f"{ms['0']:.3f} ms, autotuned {ms['1']:.3f} ms, bound {t_bound:.3f} "
-        f"ms ({by})")
 
 
 # --------------------------------------------------------------------------
@@ -2679,7 +2691,7 @@ def zoo_watch(model):
     return params, stats
 
 
-def training_phase(torch, name, prec, steps=4):
+def training_phase(torch, name, prec, steps=3, first=None):
     """MODELS[name] trained at TRAIN_SIZES[name] in precision ``prec``, which
     the
     caller sets ("bf16", the card's default: bf16 backbone and kernel
@@ -2688,7 +2700,10 @@ def training_phase(torch, name, prec, steps=4):
     before and read just after each, held to the precision's per-step
     count; a ZOO model also with finite nonzero gradients on its new
     modules and its LKA BatchNorm statistics moved at every step
-    (zoo_watch)."""
+    (zoo_watch).  With a dict ``first``, the warm-up step's scalars and
+    gradients (by parameter, float64 on the host) go into it, and the
+    timed steps' seconds and peak memory (phase 17(c) reads them as its
+    remat-on run: the same seeded weights and batch)."""
     from casmtr_tpu_torch.models.backbone.resnet_fpn import backbone_dtype
     from casmtr_tpu_torch.models.transformer import (table_dtype,
                                                      transformer_dtype)
@@ -2731,6 +2746,11 @@ def training_phase(torch, name, prec, steps=4):
     t0 = time.perf_counter()
     state, scalars = step(state, batch)
     torch.cuda.synchronize()
+    if first is not None:
+        first["scalars"] = {k: float(v) for k, v in scalars.items()}
+        first["grads"] = {n: p.grad.detach().double().cpu()
+                          for n, p in sorted(model.named_parameters())
+                          if p.grad is not None}
     log(f"training: {recipe} {size}^2 batch 1, {n_params} "
         f"parameters (seeded random), warm-up step "
         f"{time.perf_counter() - t0:.2f} s, loss {float(scalars['loss']):.4f}")
@@ -2791,6 +2811,8 @@ def training_phase(torch, name, prec, steps=4):
         + ("; the reference's own quadtree GPU step (the architecture of "
            f"{BASELINE}), for context only: {REFERENCE_S_PER_STEP} s (fp16, "
            "704^2, bench.py)" if name == BASELINE else ""))
+    if first is not None:
+        first.update(times=times, peak=peak)
     return totals, counts, step, state, batch, times
 
 
@@ -2866,9 +2888,17 @@ def reference_step(torch, name, size, dev, base, prec, nudge=None):
         for k in ("image0", "image1"):
             batch[k] = (batch[k] * (1 + NUDGE * rng.standard_normal(
                 batch[k].shape))).astype(np.float32)
+    from casmtr_tpu_torch.models import build_model
+    # the CPU's step without remat: the same numbers (phase 17(c),
+    # tests/test_torch_remat.py) without the recompute's minutes
+    remat = dev != "cpu"
     with precision(prec):
+        model = build_model(model_config(name, train_size=size,
+                                         remat=remat).loftr,
+                            refine=name in REFINED)
+        model.load_state_dict(base.state_dict())
         model, state, step = build_trainer(torch, name, size, device=dev,
-                                           model=copy.deepcopy(base))
+                                           model=model, remat=remat)
         # a frozen trunk's 1/8 stack takes no gradient
         coarse = (None if name in REFINED
                   else coarse_gradient(torch, model, batch, dev))
@@ -3078,8 +3108,8 @@ def train_reference_phase(torch, name):
     bf16-backbone-against-f32 difference (floors BF16_LOSS_RTOL and 1 -
     MIN_GRAD_COS); then cascade_stack_reference.  For the ResNetFPN-based
     models (the 4c variant, quadtree_baseline and the indoor recipe, whose
-    1/8 top-k picks may flip under rounding): the f32 step printed beside
-    the CPU's response to a nudge of its images, and backbone_reference;
+    1/8 top-k picks may flip under rounding): the f32 step printed, and
+    backbone_reference;
     for the indoor recipe also cascade_stack_reference (its 1/4 stack:
     POLA and the relative-PE gather path, no discrete choice inside)."""
     size = 256
@@ -3106,13 +3136,6 @@ def train_reference_phase(torch, name):
         f"({worst_name}, not gated); step {tg:.2f} s on the card, "
         f"{tc:.2f} s on the CPU")
     if name not in RECIPES:
-        nudged = step_difference(torch, reference_step(
-            torch, name, size, "cpu", base, "f32", 0), res["cpu", "f32"])
-        log(f"training reference: {name} whole step not gated: the CPU's "
-            f"response to a nudge of {NUDGE:g} of its images: relative "
-            + ", ".join(f"{k} {r:.2e}" for k, r in nudged[0].items())
-            + f"; gradient cosine {nudged[1]:.6f}, of loss_8c on the 1/8 "
-            f"q/k/v {nudged[3]:.6f}")
         backbone_reference(torch, name, base, size)
         if name in (INDOOR, REFINE):
             cascade_stack_reference(torch, name, base, size)
@@ -4239,11 +4262,12 @@ def evaluate_phase(torch):
     log(f"evaluate: {EVAL_PAIRS} pairs of {s}^2 made and the model built in "
         f"{time.perf_counter() - t0:.1f} s")
     with precision("bf16"):
-        run_eval(cfg, model, data[:1])
+        run_eval(cfg, model, data[:1], pose_solver="device")
         kernels.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = run_eval(cfg, model, data, profiler_name="inference")
+        res = run_eval(cfg, model, data, profiler_name="inference",
+                       pose_solver="device")
         wall = time.perf_counter() - t0
     totals = dict(kernels.LAUNCHES)
     per_pair = LAUNCHES_PER_PAIR[EVAL_NAME]
@@ -4888,8 +4912,8 @@ def sfm_card_cpu_phase(torch, dev="cuda"):
     within SFM_COST_RTOL relative, rotations and gauge-free translations
     within SFM_POSE_ATOL.  The pipeline (tests/test_sfm_pipeline.
     synth_sequence, 5 frames at 0.3 px, overlaps (1, 2), PGO, 15 BA
-    iterations) on one draw of the pose solver made on the CPU: keyframes,
-    pairs and tracks identical, the final rotations within SFM_POSE_ATOL,
+    iterations) on one draw of the device pose solver made on the CPU:
+    keyframes, pairs and tracks identical, the final rotations within SFM_POSE_ATOL,
     the camera centres within it after similarity alignment, the cost
     within SFM_COST_RTOL."""
     from casmtr_tpu_torch.sfm import ba, pose
@@ -4919,7 +4943,8 @@ def sfm_card_cpu_phase(torch, dev="cuda"):
                             torch.Generator().manual_seed(0), "cpu")
     res = {d: pl.reconstruct_sequence(match_fn, 5, K, keyframes=kfs,
                                       overlaps=(1, 2), ba_iters=15, pgo=True,
-                                      device=d, noise=noise)
+                                      device=d, noise=noise,
+                                      pose_solver="device")
            for d in (dev, "cpu")}
     a, b = res[dev], res["cpu"]
     same_tracks = (list(a.tracks) == list(b.tracks) and all(
@@ -5318,7 +5343,7 @@ def sfm_phase(torch):
 
 DP_NAME = "outdoor_casmtr_4c"
 DP_SIZE = 256     # the two-process agreement run's pairs
-DP_STEPS = 3      # timed steps of each mode, after a warm-up
+DP_STEPS = 2      # timed steps of each mode, after a warm-up
 DP_TIMEOUT_S = 600
 DP_NORM_RTOL = 1e-3   # |norm ratio - 1| of loss_8c's gradient
 DP_COARSE_RTOL = 0.25  # each loss term and grad_norm, behind the selections
@@ -6012,6 +6037,269 @@ def last_modules_phase(torch):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the reference pose protocol and rematerialization
+# --------------------------------------------------------------------------
+
+def protocol_scene(rng, R, t, n, n_out, noise=0.3, f=400.0, c=320.0):
+    """tests/test_pose_solver._scene in numpy: ``n`` points 4-10 in front of
+    camera 0 seen from (R, t) with pixel noise, then ``n_out`` uniform
+    outlier matches; (kpts0, kpts1, K) float32."""
+    K = np.array([[f, 0, c], [0, f, c], [0, 0, 1.0]])
+    X = np.stack([rng.uniform(-2, 2, n), rng.uniform(-2, 2, n),
+                  rng.uniform(4, 10, n)], axis=1)
+    x0 = X / X[:, 2:3]
+    X1 = X @ R.T + t
+    x1 = X1 / X1[:, 2:3]
+    k0 = (x0 @ K.T)[:, :2] + rng.normal(0, noise, (n, 2))
+    k1 = (x1 @ K.T)[:, :2] + rng.normal(0, noise, (n, 2))
+    k0_out = rng.uniform(0, 2 * c, (n_out, 2))
+    k1_out = rng.uniform(0, 2 * c, (n_out, 2))
+    return (np.concatenate([k0, k0_out]).astype(np.float32),
+            np.concatenate([k1, k1_out]).astype(np.float32),
+            K.astype(np.float32))
+
+
+def protocol_phase(torch, smi):
+    """Phase 17(a): utils/metrics.estimate_pose on PROTOCOL_SCENES scenes
+    at each of PROTOCOL_NS x PROTOCOL_OUTLIERS (0.3 px): the supported
+    poses (inliers >= POSE_SUPPORT of the true matches, at least half the
+    scenes) within PROTOCOL_R_DEG / PROTOCOL_T_DEG of the truth; the
+    median ms per pair (host clock) beside the device solver's on the
+    same scenes at once (estimate_pose_batch at its defaults, host clock
+    around the call and a synchronize, median of 3 after a warm-up,
+    divided by the scenes); of the protocol's time, recover_pose's
+    (timed alone on the pair, on E = [t]x R of the pose found and its
+    inlier mask).  Returns {(N, share): (protocol ms, device ms)}."""
+    from casmtr_tpu_torch.sfm.essential import recover_pose
+    from casmtr_tpu_torch.sfm.pose import estimate_pose_batch
+    from casmtr_tpu_torch.utils.metrics import estimate_pose
+    rng = np.random.default_rng(17)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for N in PROTOCOL_NS:
+        for share in PROTOCOL_OUTLIERS:
+            n_out = int(round(N * share))
+            n = N - n_out
+            scenes = []
+            for _ in range(PROTOCOL_SCENES):
+                R = rodrigues(rng.standard_normal(3), rng.uniform(0.1, 0.3))
+                t = rng.standard_normal(3)
+                t /= np.linalg.norm(t)
+                scenes.append((R, t) + protocol_scene(rng, R, t, n, n_out))
+            ms, rec_ms, errs, supported = [], [], [], []
+            for R, t, k0, k1, K in scenes:
+                t0 = time.perf_counter()
+                ret = estimate_pose(k0, k1, K, K, 0.5)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(ret is not None, f"protocol: no pose at N {N}, "
+                      f"{share:.0%} outliers")
+                Rh, th, inl = ret
+                x0, x1 = ((k - K[[0, 1], [2, 2]]) / K[[0, 1], [0, 1]]
+                          for k in (k0, k1))
+                t0 = time.perf_counter()
+                recover_pose(np.cross(np.eye(3), th) @ Rh, x0, x1, inl)
+                rec_ms.append((time.perf_counter() - t0) * 1e3)
+                supported.append(int(inl[:n].sum()) >= POSE_SUPPORT * n)
+                errs.append((rot_angle_deg(Rh, R), dir_angle_deg(th, t)))
+            args = [torch.from_numpy(np.stack(a)).cuda() for a in (
+                [sc[2] for sc in scenes], [sc[3] for sc in scenes],
+                [np.ones(N, bool)] * PROTOCOL_SCENES,
+                [sc[4] for sc in scenes], [sc[4] for sc in scenes])]
+
+            def solve():
+                res = estimate_pose_batch(*args, thr_px=0.5, generator=gen)
+                torch.cuda.synchronize()
+                return res
+            solve()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                solve()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            dev_ms = statistics.median(walls) / PROTOCOL_SCENES
+            out[N, share] = (statistics.median(ms), dev_ms)
+            log(f"protocol: N {N}, {share:.0%} outliers, 0.3 px: median "
+                f"{statistics.median(ms):.2f} ms per pair on the host "
+                f"(pairs {', '.join(f'{m:.1f}' for m in ms)}; recover_pose "
+                f"alone {statistics.median(rec_ms):.2f}); the device "
+                f"solver {dev_ms:.2f} ms per pair ({PROTOCOL_SCENES} pairs "
+                f"at once); R / t error (deg) "
+                + ", ".join(f"{r:.3f} / {e:.3f}" for r, e in errs)
+                + f"; supported {sum(supported)} of {PROTOCOL_SCENES} "
+                f"({smi})")
+            check(2 * sum(supported) >= PROTOCOL_SCENES,
+                  f"protocol: too few supported poses at N {N}, {share:.0%}")
+            check(all(r <= PROTOCOL_R_DEG and e <= PROTOCOL_T_DEG
+                      for (r, e), sup in zip(errs, supported) if sup),
+                  f"protocol: a supported pose off the truth at N {N}, "
+                  f"{share:.0%}")
+    return out
+
+
+def protocol_eval_phase(torch, smi, device_pairs_s=None):
+    """Phase 17(b): run_eval of 4c on phase 12(c)'s EVAL_PAIRS plane pairs
+    with its default pose solver (the reference protocol), after a
+    one-pair warm-up: launches held to EVAL_PAIRS x 4c's per pair, the
+    results finite, pairs/s beside ``device_pairs_s`` (phase 12(c)'s,
+    else measured here with pose_solver="device").  Returns pairs/s."""
+    from casmtr_tpu_torch.cli.evaluate import run_eval
+    from casmtr_tpu_torch.configs import build_config
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.ops import kernels
+    from casmtr_tpu_torch.weights import init_random_
+    data = plane_dataset(np.random.default_rng(6), EVAL_PAIRS, EVAL_SIZE)
+    cfg = build_config("outdoor_casmtr_4c")
+    model = build_model(cfg.loftr)
+    init_random_(model, torch.Generator().manual_seed(0))
+    per_pair = LAUNCHES_PER_PAIR[EVAL_NAME]
+    rates = {}
+    with precision("bf16"):
+        run_eval(cfg, model, data[:1])
+        for solver in ("cv2",) + (("device",) if device_pairs_s is None
+                                  else ()):
+            kernels.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_eval(cfg, model, data, profiler_name="inference",
+                           pose_solver=solver)
+            rates[solver] = EVAL_PAIRS / (time.perf_counter() - t0)
+            totals = dict(kernels.LAUNCHES)
+            log(f"protocol: run_eval pose_solver={solver!r} {EVAL_PAIRS} "
+                f"pairs at {EVAL_SIZE}^2: {rates[solver]:.2f} pairs/s; "
+                + ", ".join(f"{k} {float(v):.4f}" for k, v in res.items())
+                + f" (random weights: printed, not gated); launches "
+                f"{totals} ({smi})")
+            check(set(res) == {"auc@5", "auc@10", "auc@20", "prec@5e-04"},
+                  "protocol: run_eval result keys")
+            check(all(np.isfinite(float(v)) for v in res.values()),
+                  "protocol: a non-finite run_eval result")
+            check(totals == {k: v * EVAL_PAIRS for k, v in per_pair.items()},
+                  f"protocol: run_eval launches {totals}, expected "
+                  f"{EVAL_PAIRS} x {per_pair}")
+    device = rates.get("device", device_pairs_s)
+    log(f"protocol: run_eval {rates['cv2']:.2f} pairs/s with the protocol "
+        f"against {device:.2f} with the device solver"
+        + (" (phase 12(c))" if device_pairs_s is not None else ""))
+    return rates["cv2"]
+
+
+def remat_run(torch, name, base, remat):
+    """MODELS[name] at TRAIN_SIZES[name] from a copy of ``base`` in the
+    card's default with loftr.remat ``remat``: the first step's scalars
+    and gradients (one float64 vector on the host, by parameter name),
+    then REMAT_STEPS steps; each step's launches held to per_step(name,
+    True, remat).  Returns (scalars, gradients, step seconds, peak GiB of
+    the later steps)."""
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.ops import kernels
+    size = TRAIN_SIZES[name]
+    model = build_model(model_config(name, train_size=size,
+                                     remat=remat).loftr)
+    model.load_state_dict(base.state_dict())
+    model, state, step = build_trainer(torch, name, size, model=model,
+                                       remat=remat)
+    stacks = [m.remat for m in model.modules() if hasattr(m, "remat")]
+    check(len(stacks) >= 3 and set(stacks) == {remat},
+          f"remat: the stacks' flags {stacks}, expected {remat}")
+    expected = per_step(name, True, remat)
+    batch = train_batch(size, 0)
+    first, grads, times = None, None, []
+    for i in range(1 + REMAT_STEPS):
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scalars = step(state, batch)
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+        counts = dict(kernels.LAUNCHES)
+        check(counts == expected, f"remat: {name} remat={remat} step {i} "
+              f"launches {counts}, expected {expected}")
+        if i == 0:
+            first = {k: float(v) for k, v in scalars.items()}
+            grads = {n: p.grad.detach().double().cpu()
+                     for n, p in sorted(model.named_parameters())
+                     if p.grad is not None}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del model, state, step
+    torch.cuda.empty_cache()
+    return first, grads, times, peak
+
+
+def remat_phase(torch, smi, remat_on):
+    """Phase 17(c): 4c and 2c (RECIPES) at 704^2 with remat off, twice,
+    from the seeded weights and batch of phase 7's bf16 run, which is the
+    remat-on run (``remat_on``: training_phase's ``first``): the first
+    step's loss terms bit-equal on against off, its gradients at cosine
+    >= MIN_GRAD_COS and norm within REMAT_NORM_RTOL, the two off runs'
+    spread printed beside; s/step and peak memory per setting (on:
+    phase 7's timed steps).  Returns {name: {remat: (s/step, peak
+    GiB)}}."""
+    from casmtr_tpu_torch.models import build_model
+    from casmtr_tpu_torch.weights import init_random_
+    out = {}
+    for name in RECIPES:
+        base = build_model(model_config(name, train_size=TRAIN_SIZES[name])
+                           .loftr)
+        init_random_(base, torch.Generator().manual_seed(0))
+        with precision("bf16"):
+            runs = [remat_run(torch, name, base, False) for _ in range(2)]
+        (s_off, g_off, t_off, p_off), (s_off2, g_off2, t_off2, p_off2) = runs
+        on = remat_on[name]
+        s_on, g_on, t_on, p_on = (on["scalars"], on["grads"], on["times"],
+                                  on["peak"])
+
+        def compare(ga, gb):
+            fa = torch.cat([ga[n].flatten() for n in gb])
+            fb = torch.cat([gb[n].flatten() for n in gb])
+            return (cosine(fa, fb),
+                    abs(float(fa.norm()) / float(fb.norm()) - 1))
+        check(set(g_on) == set(g_off), "remat: other parameters took a "
+              "gradient")
+        cos, dnorm = compare(g_on, g_off)
+        cos2, dnorm2 = compare(g_off2, g_off)
+        same = {k: s_on[k] == s_off[k] for k in s_off
+                if k.startswith("loss")}
+        same2 = {k: s_off2[k] == s_off[k] for k in s_off
+                 if k.startswith("loss")}
+        losses = ", ".join(f"{k} {v:.6g}" for k, v in sorted(s_off.items())
+                           if k.startswith("loss"))
+        log(f"remat: {name} first step, on (phase 7) against off: loss "
+            f"terms bit-equal {same} ({losses}); "
+            f"gradients cosine {cos:.8f}, norm {dnorm:.2e} apart; the two "
+            f"off runs: loss terms bit-equal {same2}, cosine {cos2:.8f}, "
+            f"norm {dnorm2:.2e} apart")
+        for remat, t, p in ((False, t_off, p_off), (True, t_on, p_on),
+                            (False, t_off2, p_off2)):
+            log(f"remat: {name} remat={remat}"
+                + (" (phase 7's timed steps)" if remat else "")
+                + f": median {statistics.median(t):.4f} s/step (steps "
+                f"{', '.join(f'{x:.4f}' for x in t)}), peak device memory "
+                f"{p:.2f} GiB ({smi})")
+        check(all(same.values()), f"remat: {name} loss terms differ {same}")
+        check(cos >= MIN_GRAD_COS and dnorm <= REMAT_NORM_RTOL,
+              f"remat: {name} gradients apart (cosine {cos}, norm {dnorm})")
+        out[name] = {True: (statistics.median(t_on), p_on),
+                     False: (statistics.median(t_off + t_off2),
+                             max(p_off, p_off2))}
+    return out
+
+
+def remat_protocol_phase(torch, device_pairs_s, remat_on):
+    """Phase 17: (a) the protocol on synthetic scenes, (b) run_eval with
+    it, (c) rematerialized training steps against phase 7's."""
+    smi = smi_line()
+    timed("protocol: scenes", protocol_phase, torch, smi)
+    timed("protocol: run_eval", protocol_eval_phase, torch, smi,
+          device_pairs_s)
+    torch.cuda.empty_cache()
+    return timed("remat", remat_phase, torch, smi, remat_on)
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6070,8 +6358,7 @@ def main(argv):
                     else ())
         for prec in profiled:
             timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
-                  matcher, request, prec,
-                  recipe == RECIPES[0] and prec == "f32")
+                  matcher, request, prec)
         del matcher
         torch.cuda.empty_cache()
     for recipe in BASE_MODELS:
@@ -6079,13 +6366,17 @@ def main(argv):
             timed(f"reference {recipe}", reference_phase, torch, recipe)
     train_runs = {}
     earlier = {}    # readings of phases 7 and 12 that phase 13 prints beside
+    remat_on = {}   # phase 7's bf16 runs of the recipes, for phase 17(c)
     for recipe in BASE_MODELS:
         for prec in ("bf16", "f32"):
+            first = ({} if recipe in RECIPES and prec == "bf16" else None)
             with precision(prec):
                 totals, counts, step, state, batch, times = timed(
                     f"training {recipe} {prec}", training_phase, torch,
-                    recipe, prec)
+                    recipe, prec, 3 if prec == "bf16" else 2, first)
                 train_runs[recipe, prec] = (totals, counts)
+                if first is not None:
+                    remat_on[recipe] = first
                 if (recipe, prec) == ("outdoor_casmtr_4c", "bf16"):
                     earlier["4c bf16 step_s"] = statistics.median(times)
                 if prec == "bf16" or recipe not in (BASELINE, INDOOR,
@@ -6117,6 +6408,8 @@ def main(argv):
     replica_totals, replica_counts, _ = timed("last modules",
                                               last_modules_phase, torch)
     serve_runs[REPLICA_NAME] = {"bf16": (replica_totals, replica_counts)}
+    timed("protocol and remat", remat_protocol_phase, torch,
+          earlier["run_eval pairs/s"], remat_on)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

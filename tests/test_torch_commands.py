@@ -4,9 +4,10 @@
   os.PathLike) bit-identical to the same calls on the arrays
   ``data/io._imread`` returns for those files;
 * ``cli.evaluate.main``: its --thr / --img-size / --overrides-json reach
-  ``run_eval`` as in tests/test_evaluate_cli.py, ``--pose-solver cv2``
-  raises, and an end-to-end run from files (``--device cpu``) prints the
-  result JSON;
+  ``run_eval`` as in tests/test_evaluate_cli.py (``--pose-solver``
+  defaulting to ``cv2``, the reference protocol), and end-to-end runs
+  from files (``--device cpu``) with ``--pose-solver cv2`` and
+  ``device`` print the result JSON;
 * ``cli.match_pair.main``: the number of matches printed and the figure
   written to ``--out`` (a PNG of both images side by side);
 * ``cli.train.main`` end to end on a fake MegaDepth scene: 2 steps,
@@ -89,7 +90,7 @@ def test_evaluate_cli_overrides_reach_run_eval(monkeypatch, capsys):
 
     def fake_run_eval(cfg, model, dataset=None, max_pairs=None,
                       profiler_name=None, dump_dir=None,
-                      pose_solver="device", device=None):
+                      pose_solver="cv2", device=None):
         seen.update(cfg=cfg, max_pairs=max_pairs, pose_solver=pose_solver,
                     device=device)
         return {"auc@5": 0.0}
@@ -102,23 +103,23 @@ def test_evaluate_cli_overrides_reach_run_eval(monkeypatch, capsys):
     assert cfg.loftr.match_coarse.thr == pytest.approx(0.123)
     assert cfg.dataset.mgdpt_img_resize == 64
     assert cfg.loftr.coarse.d_model == 16
-    assert seen["max_pairs"] == 3 and seen["pose_solver"] == "device"
+    assert seen["max_pairs"] == 3 and seen["pose_solver"] == "cv2"
     assert seen["device"] == "cpu"
     assert "auc@5" in capsys.readouterr().out
 
 
 def test_evaluate_cli_from_files(scene_dir, capsys):
     ov = _overrides(scene_dir)
-    with pytest.raises(ValueError, match="'cv2'.*not ported"):
-        E.main(["--pose-solver", "cv2", "--device", "cpu",
-                "--overrides-json", json.dumps(ov)])
-    res = E.main(["--device", "cpu", "--max-pairs", "1", "--profiler",
-                  "inference", "--overrides-json", json.dumps(ov)])
-    out = capsys.readouterr().out
-    assert set(res) == {"auc@5", "auc@10", "auc@20", "prec@1e-04"}
-    assert "Data loading" in out
-    printed = json.loads(out[out.index("{"):])
-    assert printed == {k: float(v) for k, v in res.items()}
+    keys = {"auc@5", "auc@10", "auc@20", "prec@1e-04"}
+    for solver in ("cv2", "device"):
+        res = E.main(["--pose-solver", solver, "--device", "cpu",
+                      "--max-pairs", "1", "--profiler", "inference",
+                      "--overrides-json", json.dumps(ov)])
+        out = capsys.readouterr().out
+        assert set(res) == keys
+        assert "Data loading" in out
+        printed = json.loads(out[out.index("{"):])
+        assert printed == {k: float(v) for k, v in res.items()}
 
 
 def test_match_pair_cli(scene_dir, capsys, tmp_path):

@@ -3,7 +3,10 @@
 * ``utils/metrics.py``: the epipolar errors, the relative pose error, the
   AUC, the epipolar precision and the aggregation (the last of duplicate
   identifiers counts) on the same inputs, within 1e-12 (both numpy,
-  float64); OpenCV's pose refused with a pointer to the device solver;
+  float64); the reference protocol (``estimate_pose``,
+  ``compute_pose_errors``) on test_pose_solver's scenes: R and t within
+  1e-7 and the same inliers as the JAX functions (OpenCV there, the
+  port's own solver here, tests/test_torch_essential.py);
 * ``sfm/pose.estimate_pose_batch`` against the JAX package's at B = 3,
   M = 260, 64 hypotheses, JAX's own draw passed in as ``noise``: the same
   ``ok`` flags; where a pose is ok, R and t within 1e-3 rad; the inlier
@@ -25,9 +28,16 @@
   JAX's draws: the same identifiers, epipolar errors within 1e-5
   (squared normalized distances, 1e-8 to 1 here), rotation and
   translation errors within 1e-3 degrees (or infinite in both), the
-  result dict within 1e-6; and ``pose_solver="cv2"`` refused.  With
-  random weights the poses are tens of degrees off, so the AUCs are 0 in
-  both; the errors and the precision carry the comparison.
+  result dict within 1e-6; and ``run_eval(pose_solver="cv2")`` (the
+  default) on the same model: each pair's rotation and translation
+  errors within 0.1 degrees of JAX's ``evaluate_batch_outputs`` on the
+  port's final matches.  With random weights the poses are tens of
+  degrees off, so the AUCs are 0 in both; the errors and the precision
+  carry the comparison;
+* ``evaluate_batch_outputs`` of both packages on fixed synthetic matches
+  of 16 pairs (test_pose_solver's scenes, 0-40% outliers, one pair of
+  four matches): per-pair errors within 0.1 degrees (inf in both where
+  no pose), AUC@5/10/20 within 0.01.
 
 The tolerances were fixed before the first run but two: the inlier
 margin, set at 5% after a first run showed a flip at 2% at 512
@@ -52,6 +62,8 @@ POSE_RAD = 1e-3
 INLIER_MARGIN = 0.05
 EPI_ATOL = 1e-5
 ERR_DEG = 1e-3
+PROTOCOL_DEG = 0.1
+PROTOCOL_AUC = 0.01
 AUC_ATOL = 1e-6
 POSES = [(_rotmat([0, 1, 0], 0.15), np.array([1.0, 0.1, 0.2])),
          (_rotmat([1, 0.5, 0], -0.1), np.array([-0.5, 0.8, 0.1])),
@@ -129,11 +141,24 @@ def test_metrics_match_jax():
 
 
 def test_cv2_pose_is_refused_with_the_device_solver_named():
+    """The reference protocol, which the port once refused, against the
+    JAX functions on test_pose_solver's three scenes."""
+    from casmtr_tpu.utils import metrics as J
     from casmtr_tpu_torch.utils import metrics as T
-    for fn in (T.estimate_pose, T.compute_pose_errors):
-        with pytest.raises(NotImplementedError, match="estimate_pose_batch"):
-            fn(np.zeros((8, 2)), np.zeros((8, 2)), np.eye(3), np.eye(3),
-               0.5)
+    rng = np.random.default_rng(0)
+    for R_gt, t_gt in POSES:
+        k0, k1, _, K = _scene(rng, R_gt, t_gt, n=200, n_out=60)
+        want = J.estimate_pose(k0, k1, K, K, 0.5)
+        got = T.estimate_pose(k0, k1, K, K, 0.5)
+        np.testing.assert_allclose(got[0], want[0], atol=1e-7, rtol=0)
+        np.testing.assert_allclose(got[1], want[1], atol=1e-7, rtol=0)
+        np.testing.assert_array_equal(got[2], want[2])
+        Tm = np.eye(4)
+        Tm[:3, :3], Tm[:3, 3] = R_gt, t_gt
+        ew = J.compute_pose_errors(k0, k1, Tm, K, K)
+        eg = T.compute_pose_errors(k0, k1, Tm, K, K)
+        np.testing.assert_allclose(eg[:2], ew[:2], atol=1e-5)
+        assert eg[0] < 1.0 and eg[1] < 2.0
 
 
 # ------------------------------------------------------------ pose solver
@@ -225,6 +250,58 @@ def test_estimate_pose_batch_masks_and_degenerate():
     assert not bool(solve(few).ok[0])
 
 
+def _protocol_batch(rng, b):
+    """One pair of fixed synthetic matches, as a batch of one with its
+    final-match arrays: test_pose_solver's scene, 0-40% outliers, four
+    matches in pair 7."""
+    axis = rng.normal(size=3)
+    R, t = _rotmat(axis, rng.uniform(0.05, 0.3)), rng.normal(size=3)
+    n = 4 if b == 7 else int(rng.integers(60, 400))
+    n_out = 0 if b == 7 else int(n * (b % 5) / 10)
+    k0, k1, _, K = _scene(rng, R, t, n=n, n_out=n_out,
+                          noise=float(rng.uniform(0.2, 1.0)))
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, t
+    m = len(k0)
+    out_np = {"b_ids": np.zeros(m + 3, np.int64),
+              "mkpts0": np.concatenate([k0, np.zeros((3, 2), np.float32)]),
+              "mkpts1": np.concatenate([k1, np.zeros((3, 2), np.float32)]),
+              "valid": np.arange(m + 3) < m}
+    batch = {"K0": K[None], "K1": K[None], "T_0to1": T[None],
+             "pair_names": [(f"a{b}", f"b{b}")]}
+    return out_np, batch
+
+
+def test_evaluate_batch_outputs_protocol_matches_jax():
+    from casmtr_tpu.cli import evaluate as jev
+    from casmtr_tpu_torch.cli import evaluate as tev
+    from casmtr_tpu_torch.utils import metrics as tmetrics
+    jcfg, tcfg = configs(tiny_4c_overrides())
+    rng = np.random.default_rng(0)
+    keys = ("identifiers", "epi_errs", "R_errs", "t_errs", "inliers")
+    want, got = ({k: [] for k in keys} for _ in range(2))
+    for b in range(16):
+        out_np, batch = _protocol_batch(rng, b)
+        jev.evaluate_batch_outputs(out_np, batch, jcfg, want)
+        tev.evaluate_batch_outputs(out_np, batch, tcfg, got)
+    assert got["identifiers"] == want["identifiers"]
+    for key in ("R_errs", "t_errs"):
+        w, g = np.asarray(want[key]), np.asarray(got[key])
+        np.testing.assert_array_equal(np.isinf(g), np.isinf(w))
+        assert np.isinf(g).sum() == 1
+        fin = np.isfinite(w)
+        np.testing.assert_allclose(g[fin], w[fin], rtol=0, atol=PROTOCOL_DEG)
+    for a, b in zip(got["inliers"], want["inliers"]):
+        np.testing.assert_array_equal(a, b)
+    from casmtr_tpu.utils import metrics as jmetrics
+    aw = jmetrics.aggregate_metrics(want)
+    ag = tmetrics.aggregate_metrics(got)
+    assert ag.keys() == aw.keys()
+    for k in aw:
+        assert ag[k] == pytest.approx(float(aw[k]), abs=PROTOCOL_AUC), k
+    assert aw["auc@20"] > 0.5
+
+
 # --------------------------------------------------------------- run_eval
 
 def test_run_eval_matches_jax(monkeypatch, tmp_path):
@@ -273,7 +350,7 @@ def test_run_eval_matches_jax(monkeypatch, tmp_path):
         patch.setattr(jev.jax, "jit", fast_jit)
         want = jev.run_eval(jcfg, variables, data, pose_solver="device")
     got = tev.run_eval(tcfg, model, data, device="cpu",
-                       dump_dir=str(tmp_path))
+                       dump_dir=str(tmp_path), pose_solver="device")
     assert got.keys() == want.keys()
     for k in want:
         assert got[k] == pytest.approx(float(want[k]), abs=AUC_ATOL), k
@@ -287,5 +364,15 @@ def test_run_eval_matches_jax(monkeypatch, tmp_path):
         np.testing.assert_allclose(g[key], w[key], rtol=0, atol=ERR_DEG)
     dumped = np.load(tmp_path / "pred_eval.npy", allow_pickle=True)
     assert len(dumped) == 2 and "mkpts0" in dumped[0]
-    with pytest.raises(ValueError, match="device"):
-        tev.run_eval(tcfg, model, data, device="cpu", pose_solver="cv2")
+    # the reference protocol, the default: JAX's per-pair host loop on the
+    # port's final matches
+    tev.run_eval(tcfg, model, data, device="cpu")
+    g = seen["port"]
+    want = {"identifiers": [], "epi_errs": [], "R_errs": [], "t_errs": [],
+            "inliers": []}
+    for i, out_np in enumerate(dumped):
+        jev.evaluate_batch_outputs(out_np, {k: np.asarray(v)[None] for k, v
+                                            in data[i].items()}, jcfg, want)
+    for key in ("R_errs", "t_errs"):
+        np.testing.assert_allclose(g[key], want[key], rtol=0,
+                                   atol=PROTOCOL_DEG)

@@ -39,8 +39,10 @@ numpy inputs made from seeds:
   truth;
 * ``parallel/comm.py`` in one process, and the device rule: without CUDA
   a problem sent to the card, ``build_problem`` and
-  ``pipeline.reconstruct_sequence`` on the default device raise, and
-  ``pose_solver="cv2"`` raises naming the device solver.
+  ``pipeline.reconstruct_sequence`` on the default device raise; with
+  ``pose_solver="cv2"`` (the reference protocol on the host) and
+  ``device="cpu"`` it gives the JAX pipeline's keyframes, matches and
+  tracks on a 3-frame sequence, the chain's poses within 1e-3.
 """
 
 import numpy as np
@@ -521,6 +523,16 @@ def test_device_work_needs_the_card():
     match_fn, K, _ = synth_sequence(np.random.default_rng(0), n_frames=3)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TP.reconstruct_sequence(match_fn, 3, K)
-    with pytest.raises(NotImplementedError, match="device"):
-        TP.reconstruct_sequence(match_fn, 3, K, pose_solver="cv2",
-                                device="cpu")
+    from casmtr_tpu.sfm import pipeline as JP
+    from tests.torch_parity import fast_jit
+    with pytest.MonkeyPatch.context() as patch:
+        patch.setattr(JP, "triangulate", fast_jit(JP.triangulate))
+        rj = JP.reconstruct_sequence(match_fn, 3, K, keyframes=[0, 1, 2],
+                                     ba_iters=3, pose_solver="cv2")
+    rt = TP.reconstruct_sequence(match_fn, 3, K, keyframes=[0, 1, 2],
+                                 ba_iters=3, pose_solver="cv2", device="cpu")
+    assert rt.keyframes == rj.keyframes
+    assert list(rt.matches) == list(rj.matches)
+    assert list(rt.tracks) == list(rj.tracks)
+    np.testing.assert_allclose(rt.init_Rs, rj.init_Rs, atol=1e-3)
+    np.testing.assert_allclose(rt.init_ts, rj.init_ts, atol=1e-3)

@@ -1,7 +1,7 @@
 """The port's SfM pipeline and reconstruct command against the JAX
 package's, on the CPU, on tests/test_sfm_pipeline.py's synthetic
-sequences (``pose_solver="device"`` in both; the port is fed the JAX
-key's draw through ``pipeline.estimate_pose_batch``):
+sequences (``pose_solver="device"`` in both, the port fed the JAX key's
+draw through ``pipeline.estimate_pose_batch``, unless ``cv2`` is named):
 
 * ``pair_graph``, ``select_keyframes`` with its cache, ``match_pairs``
   with an injected two-rank gather and ``build_tracks``: identical;
@@ -22,12 +22,14 @@ key's draw through ``pipeline.estimate_pose_batch``):
   rotations within 1e-3 (the solver's parity), the final BA rotations
   within 1e-4, the camera centres within 1e-4 of each other after
   similarity alignment (the monocular gauge), the cost within 1e-3
-  relative;
+  relative; and the same with ``pose_solver="cv2"`` in both (the
+  reference protocol: OpenCV in JAX, sfm/essential.py in the port, whose
+  draws are OpenCV's), the chain's rotations within 1e-3;
 * the map recoveries through tests/test_sfm_pipeline.py's failed link
   (2, 3), on a noiseless sequence, both chains fed the JAX solver's poses
-  with that link failed, without a warning: skip-pair recovery (JAX:
-  OpenCV's findEssentialMat; the port: the device solver on a batch of
-  one) gives the JAX trajectory within 1e-4; PnP recovery (JAX: OpenCV's
+  with that link failed, without a warning: skip-pair recovery (the
+  reference protocol: OpenCV in JAX, sfm/essential.py in the port) gives
+  the JAX trajectory within 1e-4; PnP recovery (JAX: OpenCV's
   solvePnPRansac; the port: sfm/pnp.py) within 2e-3, because the two
   EPnP fits differ on inexact points (test_torch_sfm.py::
   test_epnp_fit_against_cv2_epnp: up to 5e-4 in R and 4.5e-3 in t on the
@@ -38,8 +40,9 @@ key's draw through ``pipeline.estimate_pose_batch``):
 * ``refine_with_pose_graph``: no-op without redundancy, within 1e-4 of
   JAX's with a failed pair;
 * ``cli.reconstruct.main``: a tiny 4c on three fixture frames (--device
-  cpu) writes the JAX report's keys and the PLY; ``--pose-solver cv2``
-  raises naming ``device``; without CUDA the default device raises; with
+  cpu) writes the JAX report's keys and the PLY with ``--pose-solver
+  cv2`` (the default) and ``device``; without CUDA the default device
+  raises; with
   ``model_match_fn`` monkeypatched in both packages to the same synthetic
   matcher, the report equals the JAX command's (keyframes, matches,
   tracks and observations equal, rotations within 1e-4, centres within
@@ -292,9 +295,33 @@ def test_reconstruct_sequence_matches_jax(jax_draw, pgo, request):
     rj = JP.reconstruct_sequence(match_fn, n, K, overlaps=(1, 2),
                                  ba_iters=15, pose_solver="device", **kw)
     rt = TP.reconstruct_sequence(match_fn, n, K, overlaps=(1, 2),
+                                 ba_iters=15, device="cpu",
+                                 pose_solver="device", **kw)
+    _compare_results(rj, rt)
+    np.testing.assert_allclose(rt.init_Rs, rj.init_Rs, atol=SOLVER_ATOL)
+    assert TR.ate_rmse(TR.camera_centers(rt.problem), gt[rt.keyframes]) < 0.1
+
+
+@pytest.mark.parametrize("pgo", (False, True))
+def test_reconstruct_sequence_cv2_matches_jax(jax_fast, pgo):
+    """The reference protocol in both (the default): 7 frames at 0.3 px,
+    adaptive keyframes (max_gap 2), or 6 frames at 0.2 px with PGO."""
+    pytest.importorskip("cv2")
+    if pgo:
+        match_fn, K, gt = _sequence(6, 0.2)
+        kw = dict(keyframes=list(range(6)), pgo=True)
+        n = 6
+    else:
+        match_fn, K, gt = _sequence(7, 0.3)
+        kw = dict(min_matches=10_000, max_gap=2)
+        n = 7
+    rj = JP.reconstruct_sequence(match_fn, n, K, overlaps=(1, 2),
+                                 ba_iters=15, **kw)
+    rt = TP.reconstruct_sequence(match_fn, n, K, overlaps=(1, 2),
                                  ba_iters=15, device="cpu", **kw)
     _compare_results(rj, rt)
     np.testing.assert_allclose(rt.init_Rs, rj.init_Rs, atol=SOLVER_ATOL)
+    np.testing.assert_allclose(rt.init_ts, rj.init_ts, atol=SOLVER_ATOL)
     assert TR.ate_rmse(TR.camera_centers(rt.problem), gt[rt.keyframes]) < 0.1
 
 
@@ -314,8 +341,9 @@ def _failing_batch(real):
 def test_recoveries_match_jax(six, jax_fast, monkeypatch, path):
     """Both chains on the JAX solver's poses of a noiseless 6-frame
     sequence with the link (2, 3) failed: the JAX chain recovers through
-    OpenCV (solvePnPRansac, or findEssentialMat on the skip pair), the
-    port's through sfm/pnp.py, or the device solver on a batch of one."""
+    OpenCV (solvePnPRansac, or the reference protocol on the skip pair),
+    the port's through sfm/pnp.py, or its own protocol
+    (sfm/essential.py)."""
     pytest.importorskip("cv2")
     _, K, _, pairs, matches = _six(0.0)
     gt = _sequence(6, 0.0)[2]
@@ -344,7 +372,8 @@ def test_unrecoverable_link_warns(monkeypatch):
                         _failing_batch(TP._pair_poses_device))
     monkeypatch.setattr(TP, "_pnp_pose", lambda *a, **k: None)
     with pytest.warns(RuntimeWarning, match="unreliable"):
-        TP.chain_with_scale(matches, frames, K, device="cpu")
+        TP.chain_with_scale(matches, frames, K, device="cpu",
+                            pose_solver="device")
 
 
 def test_refine_with_pose_graph_matches_jax():
@@ -388,8 +417,10 @@ def test_reconstruct_cli_tiny_model(frames_dir, tmp_path, capsys):
             "--overrides-json",
             json.dumps(tiny_4c_overrides(64, zero_thresholds=True)),
             "--out", out, "--ply", ply]
-    with pytest.raises(NotImplementedError, match="device"):
-        C.main(argv + ["--pose-solver", "cv2", "--device", "cpu"])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        dev = C.main(argv + ["--pose-solver", "device", "--device", "cpu"])
+    assert set(dev) == REPORT_KEYS and dev["n_frames"] == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             C.main(argv)
@@ -438,7 +469,7 @@ def test_reconstruct_cli_matches_jax(six, tmp_path, monkeypatch, jax_draw):
               "--keyframes", *map(str, range(6)), "--pgo"]
     JC.main(common + ["--pose-solver", "device",
                       "--out", str(tmp_path / "j.json")])
-    got = TC.main(common + ["--device", "cpu",
+    got = TC.main(common + ["--device", "cpu", "--pose-solver", "device",
                             "--out", str(tmp_path / "t.json")])
     with open(tmp_path / "j.json") as f:
         want = json.load(f)
