@@ -1,8 +1,9 @@
-"""The ResNet-FPN backbones ``ResNetFPN_8_4_2`` and ``ResNetFPN_8_2``, the
-PMT-refine side network ``Ladder_4_2``, the Conv/BatchNorm building blocks
-that the Twins FPN shares with them, and the backbone's compute dtype
-(counterpart of casmtr_tpu/models/backbone/resnet_fpn.py). Layout NCHW in
-and out; module names follow the JAX package's flax names as
+"""The ResNet-FPN backbones ``ResNetFPN_8_4_2``, ``ResNetFPN_8_2`` and
+``ResNetFPN_16_4``, the PMT-refine side network ``Ladder_4_2``, the
+Conv/BatchNorm building blocks that the Twins FPN shares with them, and the
+backbone's compute dtype (counterpart of
+casmtr_tpu/models/backbone/resnet_fpn.py). Layout NCHW in and out; module
+names follow the JAX package's flax names as
 ``weights.flax_path_to_torch_key`` maps them (``layer1_0`` -> ``layer1.0``,
 ``downsample_0`` -> ``downsample.0``, ``layer2_outconv2/0`` ->
 ``layer2_outconv2.0``)."""
@@ -227,6 +228,56 @@ class ResNetFPN_8_2(ResNetFPN_8_4_2):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x3_out, _, x1_out = super().forward(x)
         return [x3_out, x1_out]
+
+
+class ResNetFPN_16_4(nn.Module):
+    """The stem and four stages of two BasicBlocks (1/2, 1/4, 1/8, 1/16) and
+    the FPN's top-down fusion from 1/16 to 1/4.  Input as
+    ``ResNetFPN_8_4_2``'s; computes in ``backbone_dtype(device,
+    self.training)``; returns [1/16 (block_dims[3]), 1/4 (block_dims[1])]
+    NCHW float32 maps."""
+
+    def __init__(self, initial_dim: int = 128,
+                 block_dims=(128, 196, 256, 512), is_rgb: bool = False):
+        super().__init__()
+        d = tuple(block_dims)
+        self.is_rgb = is_rgb
+        self.conv1 = nn.Conv2d(3 if is_rgb else 1, initial_dim, 7, stride=2,
+                               padding=3, bias=False)
+        self.bn1 = bn(initial_dim)
+        self.layer1 = nn.Sequential(BasicBlock(initial_dim, d[0]),
+                                    BasicBlock(d[0], d[0]))
+        self.layer2 = nn.Sequential(BasicBlock(d[0], d[1], 2),
+                                    BasicBlock(d[1], d[1]))
+        self.layer3 = nn.Sequential(BasicBlock(d[1], d[2], 2),
+                                    BasicBlock(d[2], d[2]))
+        self.layer4 = nn.Sequential(BasicBlock(d[2], d[3], 2),
+                                    BasicBlock(d[3], d[3]))
+        self.layer4_outconv = conv1x1(d[3], d[3])
+        self.layer3_outconv = conv1x1(d[2], d[3])
+        self.layer3_outconv2 = _out_conv2(d[3], d[2])
+        self.layer2_outconv = conv1x1(d[1], d[2])
+        self.layer2_outconv2 = _out_conv2(d[2], d[1])
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if not self.is_rgb and x.shape[1] == 3:
+            x = _to_gray(x)
+        dt = backbone_dtype(x.device, self.training)
+        x = F.relu(run(self.bn1, run(self.conv1, x, dt), dt))
+        stages = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            for blk in layer:
+                x = blk(x, dt)
+            stages.append(x)                          # 1/2, 1/4, 1/8, 1/16
+        _, x2, x3, x4 = stages
+        x4_out = run(self.layer4_outconv, x4, dt)
+        x4_2x = resize_bilinear_align_corners(x4_out, *x3.shape[-2:])
+        x3_out = run(self.layer3_outconv2,
+                     run(self.layer3_outconv, x3, dt) + x4_2x, dt)
+        x3_2x = resize_bilinear_align_corners(x3_out, *x2.shape[-2:])
+        x2_out = run(self.layer2_outconv2,
+                     run(self.layer2_outconv, x2, dt) + x3_2x, dt)
+        return [x4_out.float(), x2_out.float()]
 
 
 class Ladder_4_2(nn.Module):

@@ -1,8 +1,8 @@
 """Twins-SVT backbone + FPN (counterpart of
 casmtr_tpu/models/backbone/twins.py: PatchEmbed, PosCNN, TwinsSVT,
-FPNBasicBlock, TwinsFPN_8_4_2).  Layout NCHW in and out.  The whole
-backbone computes in ``backbone_dtype`` (models/precision.py casts each
-step) and returns float32 maps.
+FPNBasicBlock, TwinsFPN_8_4_2, TwinsFPN_16_8_4_2).  Layout NCHW in and
+out.  The whole backbone computes in ``backbone_dtype`` (models/precision.py
+casts each step) and returns float32 maps.
 
 The strided patch-embedding and spatial-reduction convs use padding 0, which
 floors the grid -- the shapes and values of the JAX package's VALID padding.
@@ -69,12 +69,16 @@ class TwinsSVT(nn.Module):
     """Twins-SVT truncated to its first ``n_stages`` stages.  Blocks alternate
     window attention (even index) and global sr attention (odd); PosCNN
     follows the first block of each stage; each stage ends in a LayerNorm.
-    Returns the stage outputs NCHW, in ``dtype`` (default: x's)."""
+    A third stage is cut to two blocks, whatever the preset's depth (the
+    reference's first3_layers variants all pass stage3_depth 2, as the JAX
+    module does).  Returns the stage outputs NCHW, in ``dtype`` (default:
+    x's)."""
 
     def __init__(self, model_type: str = "large", n_stages: int = 2):
         super().__init__()
         pre = TWINS_PRESETS[model_type]
         dims = pre["embed_dims"]
+        depths = [2 if i == 2 else pre["depths"][i] for i in range(n_stages)]
         self.patch_embeds = nn.ModuleList(
             PatchEmbed(3 if i == 0 else dims[i - 1], dims[i], 4 if i == 0 else 2)
             for i in range(n_stages))
@@ -84,7 +88,7 @@ class TwinsSVT(nn.Module):
                            pre["sr_ratios"][i],
                            1 if j % 2 == 1 else pre["wss"][i],
                            qkv_bias=True, ln_eps=_LN_EPS)
-                for j in range(pre["depths"][i]))
+                for j in range(depths[i]))
             for i in range(n_stages))
         self.pos_block = nn.ModuleList(PosCNN(dims[i]) for i in range(n_stages))
         self.norm_list = nn.ModuleList(nn.LayerNorm(dims[i], eps=_LN_EPS)
@@ -174,3 +178,50 @@ class TwinsFPN_8_4_2(nn.Module):
         x1_out = run(self.layer1_outconv2,
                      run(self.layer1_outconv, x1, dt) + x2_2x, dt)
         return [x3_out.float(), x2_out.float(), x1_out.float()]
+
+
+class TwinsFPN_16_8_4_2(nn.Module):
+    """Conv stem (1/2) + three-stage Twins ViT (1/4, 1/8, 1/16) + FPN fusion
+    from 1/16 down to 1/2.  Input as ``TwinsFPN_8_4_2``'s; returns [1/16
+    (bd[3]), 1/8 (bd[2]), 1/4 (bd[1]), 1/2 (bd[0])] NCHW float32 maps."""
+
+    def __init__(self, initial_dim: int = 64, block_dims=(64, 128, 196, 256),
+                 model_type: str = "large"):
+        super().__init__()
+        bd = tuple(block_dims)
+        dims = TWINS_PRESETS[model_type]["embed_dims"]
+        self.conv1 = nn.Sequential(
+            nn.Conv2d(3, bd[0] // 2, 7, stride=2, padding=3, bias=False),
+            bn(bd[0] // 2), nn.ReLU())
+        self.layer1 = nn.Sequential(FPNBasicBlock(bd[0] // 2, bd[0]),
+                                    FPNBasicBlock(bd[0], bd[0]))
+        self.vit = TwinsSVT(model_type, 3)
+        self.layer4_outconv = nn.Sequential(conv1x1(dims[2], bd[3]), bn(bd[3]))
+        self.layer3_outconv = nn.Sequential(conv1x1(dims[1], bd[3]), bn(bd[3]))
+        self.layer3_outconv2 = out_conv2(bd[3], bd[2])
+        self.layer2_outconv = nn.Sequential(conv1x1(dims[0], bd[2]), bn(bd[2]))
+        self.layer2_outconv2 = out_conv2(bd[2], bd[1])
+        self.layer1_outconv = nn.Sequential(conv1x1(bd[0], bd[1]), bn(bd[1]))
+        self.layer1_outconv2 = out_conv2(bd[1], bd[0])
+        self.register_buffer("mean", torch.tensor(_IMAGENET_MEAN)[:, None, None],
+                             persistent=False)
+        self.register_buffer("std", torch.tensor(_IMAGENET_STD)[:, None, None],
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        dt = backbone_dtype(x.device, self.training)
+        x = (x - self.mean) / self.std
+        x1 = run(self.conv1, x, dt)
+        for blk in self.layer1:
+            x1 = blk(x1, dt)
+        x2, x3, x4 = self.vit(x, dt)
+        out = run(self.layer4_outconv, x4, dt)
+        maps = [out]
+        for fine, lateral, fuse in (
+                (x3, self.layer3_outconv, self.layer3_outconv2),
+                (x2, self.layer2_outconv, self.layer2_outconv2),
+                (x1, self.layer1_outconv, self.layer1_outconv2)):
+            up = resize_bilinear_align_corners(out, *fine.shape[-2:])
+            out = run(fuse, run(lateral, fine, dt) + up, dt)
+            maps.append(out)
+        return [m.float() for m in maps]

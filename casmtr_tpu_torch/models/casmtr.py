@@ -40,7 +40,9 @@ import torch.nn as nn
 
 from casmtr_tpu_torch.config import LoftrConfig
 from casmtr_tpu_torch.models.backbone import build_backbone
-from casmtr_tpu_torch.models.backbone.resnet_fpn import bn, conv3x3
+from casmtr_tpu_torch.models.backbone.resnet_fpn import (ResNetFPN_16_4, bn,
+                                                         conv3x3)
+from casmtr_tpu_torch.models.backbone.twins import TwinsFPN_16_8_4_2
 from casmtr_tpu_torch.models.cascade_transformer import \
     CascadeFeatureTransformer
 from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
@@ -152,6 +154,11 @@ class CasMTR(nn.Module):
         bd = tuple(config.backbone.block_dims)
         two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
+        if isinstance(self.backbone, (ResNetFPN_16_4, TwinsFPN_16_8_4_2)):
+            raise ValueError(
+                f"{type(self.backbone).__name__} under a cascade: CasMTR "
+                "takes the [1/8, 1/4, 1/2] pyramid, and the 1/16 backbones "
+                "serve the plain QuadtreeLoFTR only (cascade false)")
         self.loftr_coarse_8c = LocalFeatureTransformer(
             config.coarse, config.train_size // 8, remat=config.remat)
         levels = run_levels(config)

@@ -1,6 +1,7 @@
 """The plain QuadtreeLoFTR assembly and the level padding masks
-(counterpart of casmtr_tpu/models/loftr.py): backbone -> sine PE -> 1/8
-transformer -> dual-softmax matching -> fine window refinement, in eval and
+(counterpart of casmtr_tpu/models/loftr.py): backbone -> sine PE -> coarse
+transformer (1/8, or 1/16 on the ResNetFPN_16_4 and TwinsFPN_16_8_4_2
+backbones) -> dual-softmax matching -> fine window refinement, in eval and
 train mode (``module.training``), in the precision policy of
 models/casmtr.py."""
 
@@ -12,6 +13,7 @@ import torch
 import torch.nn as nn
 
 from casmtr_tpu_torch.models.backbone import build_backbone
+from casmtr_tpu_torch.models.backbone.resnet_fpn import ResNetFPN_16_4
 from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
 from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
 from casmtr_tpu_torch.ops import fine_matching as fm
@@ -31,8 +33,11 @@ def level_mask(mask_full: Optional[torch.Tensor], h: int, w: int):
 
 
 class QuadtreeLoFTR(nn.Module):
-    """LoFTR with quadtree attention at 1/8 (``loftr_coarse``) and linear
-    attention in the fine windows at ``resolution[1]``; no cascade."""
+    """LoFTR with quadtree attention at the backbone's coarsest map
+    (``loftr_coarse``; 1/8, or 1/16) and linear attention in the fine
+    windows on its finest map; no cascade.  The sine PE is normalized to
+    ``train_size // 8`` and the coarse stack sized by it at either level,
+    as in the JAX package."""
 
     def __init__(self, config):
         super().__init__()
@@ -41,12 +46,16 @@ class QuadtreeLoFTR(nn.Module):
                 f"fine block {config.fine.block_type!r} is not ported yet")
         self.config = config
         self.backbone = build_backbone(config)
+        # the finest map: 1/4 (block_dims[1]) on ResNetFPN_16_4, else 1/2
+        bd = config.backbone.block_dims
+        fine_dim = (bd[1] if isinstance(self.backbone, ResNetFPN_16_4)
+                    else bd[0])
         self.loftr_coarse = LocalFeatureTransformer(config.coarse,
                                                      config.train_size // 8,
                                                      remat=config.remat)
         self.fine_preprocess = FinePreprocess(
             config.fine.d_model, config.coarse.d_model,
-            config.backbone.block_dims[0], config.fine_window_size,
+            fine_dim, config.fine_window_size,
             cat_c_feat=config.fine_concat_coarse_feat)
         self.loftr_fine = LocalFeatureTransformer(config.fine,
                                                   remat=config.remat)
@@ -64,13 +73,15 @@ class QuadtreeLoFTR(nn.Module):
         H1, W1 = img1.shape[-2:]
         scale0, scale1 = batch.get("scale0"), batch.get("scale1")
 
+        # the coarsest and the finest map of the pyramid
         if (H0, W0) == (H1, W1):   # both images in one BatchNorm batch
-            fc, ff = self.backbone(torch.cat([img0, img1], dim=0))
-            feat_c0, feat_c1 = fc.chunk(2)
-            feat_f0, feat_f1 = ff.chunk(2)
+            feats = self.backbone(torch.cat([img0, img1], dim=0))
+            feat_c0, feat_c1 = feats[0].chunk(2)
+            feat_f0, feat_f1 = feats[-1].chunk(2)
         else:
-            feat_c0, feat_f0 = self.backbone(img0)
-            feat_c1, feat_f1 = self.backbone(img1)
+            f0s, f1s = self.backbone(img0), self.backbone(img1)
+            feat_c0, feat_f0 = f0s[0], f0s[-1]
+            feat_c1, feat_f1 = f1s[0], f1s[-1]
         hc0, hc1 = tuple(feat_c0.shape[-2:]), tuple(feat_c1.shape[-2:])
 
         t0, t1 = (add_sine_pe_norm(f, (ts // 8, ts // 8)).flatten(2)

@@ -15,8 +15,9 @@ relative-PE cross layers at 1/4, served at bucket 640 and trained at 640^2)
 and the published indoor_casmtr_4c as the PMT-refine model (REFINE:
 build_model(..., refine=True), a frozen gray quadtree trunk of 128 / [128,
 196, 256], a ladder side network of 64 / 128 in RGB, the indoor 1/4 stack
-and fine heads; bucket 640, 640^2), and the model zoo's three
-configurations (phase 11), at full width.  Phases, each printing its own
+and fine heads; bucket 640, 640^2), the model zoo's three configurations
+(phase 11) and quadtree_baseline on the two coarse-1/16 backbones (phase
+18), at full width.  Phases, each printing its own
 lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch,
@@ -106,9 +107,10 @@ lines and its seconds:
    the Matcher's canvas, masks and selection around it (A 16, A′ 16, B 2;
    in training too the frozen trunk runs its eval forward, so its A and A′
    are the eval instances).
-5. Profile: one more steady request of each recipe in each precision under
-   torch.profiler (device busy share, device time by operator and by
-   kernel); of quadtree_baseline and the indoor recipe in bf16 only.
+5. Profile: one more steady request of the two recipes, quadtree_baseline,
+   the indoor recipe and the refine model in the card's default (bf16)
+   only, under torch.profiler (device busy share, device time by operator
+   and by kernel).
 6. Reference: each full-width recipe at bucket 256 with its match
    thresholds at 0, on one pair: the card with float32 forced against the
    CPU (plain versions) -- coarse and window confidences and final matches
@@ -131,9 +133,10 @@ lines and its seconds:
    just before and read just after; finite losses, matches to supervise at
    every cascade level, parameters that moved, nonzero finite gradients on
    the q/k/v projections that go through kernels A, A′ and C.  Then one
-   more step under torch.profiler, per precision.  quadtree_baseline at
+   more step under torch.profiler in the card's default (bf16) only.
+   quadtree_baseline at
    704^2 (per step A 32, A′ 32, A-bwd 32) and the indoor recipe at 640^2
-   (also B 2, B-bwd 1, no C) likewise; their profiled step in bf16 only.
+   (also B 2, B-bwd 1, no C) likewise.
    The refine
    model at 640^2 likewise (A 16, A′ 16, B 2, B-bwd 1, no A-bwd: its trunk
    is frozen, runs under no_grad and is not recomputed), and after its
@@ -361,6 +364,24 @@ lines and its seconds:
    run), each step's launches held to its setting's per-step counts, and
    per setting the median s/step and peak memory of the steps after the
    first (REMAT_STEPS per off run; phase 7's timed steps).
+18. The coarse-1/16 QuadtreeLoFTR: quadtree_baseline on the two 1/16
+   backbones at full width (R16: ResNetFPN_16_4, gray, coarse stack 512 in
+   8 heads; T16: TwinsFPN_16_8_4_2, Twins large with its third stage cut
+   to two blocks, coarse 256 in 8 heads; both coarse_level 16).  (d)
+   first: kernels A and A′ (f32 and bf16) at their 832^2 serving shapes
+   (finest 52^2, intermediate 26^2 under the 13^2 coarse level, topks 16 /
+   8) and A with its log-sum-exp, A′ through its autograd function and
+   A-bwd at the 704^2 training shapes (44^2, 22^2), q/k/v of D 64 (R16)
+   and D 32 (T16), against their plain versions as in phases 2 and 3, in
+   the kernels line.  Then per model: (a) serving at bucket 832 in the
+   card's default and with float32 forced on phase 4's requests, each held
+   to its per-pair launches (A 16, A′ 16), the median ms per pair; (b)
+   training at 704^2 on phase 7's shifted pair, remat on, in bf16 and
+   f32, a warm-up and COARSE16_STEPS timed steps each held to its per-step
+   launches (A 32, A′ 32, A-bwd 32), the median s/step and peak memory;
+   (c) phase 6's serving reference and phase 8's training reference at
+   256^2 as quadtree_baseline takes them (the whole step printed, the
+   backbone gated).
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -569,12 +590,37 @@ MODELS[Z2] = ("outdoor_casmtr_4c", {"loftr": {
 MODELS[Z3] = ("outdoor_casmtr_2c", {"loftr": {
     "coarse2": {"self_attn_type": "topk", "topks": [16]},
     "coarse3": {"self_attn_type": "linear"}}})
-# per model: quadtree layers at 1/8, cascade levels, and of those the levels
-# whose two cross layers run kernel C (the indoor recipe's relative-PE cross
-# layers take the gather path instead)
+# phase 18, the coarse-1/16 QuadtreeLoFTR: quadtree_baseline (eight
+# quadtree layers, topks 16 / 8 / 8, dual softmax) on the two 1/16
+# backbones at full width, the coarse level and the stacks' widths set to
+# their maps.  R16: ResNetFPN_16_4 (gray) 128 / [128, 196, 256, 512], its
+# [1/16, 1/4] maps, a coarse stack of 512 in 8 heads (D 64) and a fine
+# stack of 196 in 4 heads (196 has no 8-way split); T16: TwinsFPN_16_8_4_2
+# (Twins large, its third stage cut to two blocks; RGB, as the Twins FPN
+# normalizes three channels) 64 / [64, 128, 196, 256], its [1/16, 1/8,
+# 1/4, 1/2] maps, coarse 256 in 8 heads (D 32), fine 64 in 2 heads (the
+# outdoor recipes' fine stack).  The JAX package names no recipe for them.
+R16 = "quadtree_baseline ResNetFPN_16_4"
+T16 = "quadtree_baseline TwinsFPN_16_8_4_2"
+COARSE16 = (R16, T16)
+COARSE16_STEPS = 2    # timed training steps per precision
+MODELS[R16] = (BASELINE, {"loftr": {
+    "backbone": {"backbone_type": "ResNetFPN", "initial_dim": 128,
+                 "block_dims": [128, 196, 256, 512]},
+    "resolution": [16, 4], "coarse_level": 16, "coarse": {"d_model": 512},
+    "fine": {"d_model": 196, "d_ffn": 196, "nhead": 4}}})
+MODELS[T16] = (BASELINE, {"loftr": {
+    "backbone": {"backbone_type": "Twins", "model_type": "large",
+                 "initial_dim": 64, "block_dims": [64, 128, 196, 256]},
+    "resolution": [16, 8, 4, 2], "coarse_level": 16, "is_rgb": True,
+    "fine": {"d_model": 64, "d_ffn": 64, "nhead": 2}}})
+# per model: quadtree layers at its coarse level, cascade levels, and of
+# those the levels whose two cross layers run kernel C (the indoor recipe's
+# relative-PE cross layers take the gather path instead)
 LAYOUT = {"outdoor_casmtr_4c": (6, 1, 1), "outdoor_casmtr_2c": (6, 2, 2),
           RESNET: (6, 1, 1), BASELINE: (8, 0, 0), INDOOR: (8, 1, 0),
-          REFINE: (8, 1, 0), Z1: (6, 1, 0), Z2: (0, 1, 1), Z3: (6, 2, 2)}
+          REFINE: (8, 1, 0), Z1: (6, 1, 0), Z2: (0, 1, 1), Z3: (6, 2, 2),
+          R16: (8, 0, 0), T16: (8, 0, 0)}
 # the cascade levels that do not score their windows with kernel B (the
 # dilated propagation's gather path), and the Guided self layers at 1/4
 # (kernel A once per image each)
@@ -856,18 +902,19 @@ def bound(bytes_moved, flops, bf16_flops=0):
 # phases 2 and 3: kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def quadtree_inputs(torch, gen, g, topks=(32, 16)):
-    """The 1/8 quadtree pyramid on a g x g finest grid (g^2, (g/2)^2, (g/4)^2
-    grids, H=8, D=32, the coarse and intermediate levels' ``topks``) from
-    seeded features; the block ids of the two fine levels come from the
-    real coarse-level top-k and the real intermediate-level selection.
-    Returns {label: ((q, k, v), ids, hw)} for the intermediate and the
-    finest level."""
+def quadtree_inputs(torch, gen, g, topks=(32, 16), C=256, H=8):
+    """The quadtree pyramid of a coarse stack of width C in H heads (D =
+    C / H; the 1/8 stacks' 256 in 8 by default) on a g x g finest grid
+    (g^2, (g/2)^2, (g/4)^2 grids, the coarse and intermediate levels'
+    ``topks``) from seeded features; the block ids of the two fine levels
+    come from the real coarse-level top-k and the real intermediate-level
+    selection.  Returns {label: ((q, k, v), ids, hw)} for the intermediate
+    and the finest level."""
     from casmtr_tpu_torch.ops.image_ops import avg_pool_2x2
     from casmtr_tpu_torch.ops.kernels.quadtree_kernels import \
         quadtree_fine_topk_plain
     from casmtr_tpu_torch.ops.quadtree import _coarse_level
-    H, D, C = 8, 32, 256
+    D = C // H
     levels = []
     q, k, v = (torch.randn((1, C, g, g), generator=gen, device="cuda")
                for _ in range(3))
@@ -1894,14 +1941,15 @@ def window_rows(torch, rows, gen, path, grid, C, H, train, with_c=True):
         window_edge_check(torch, gen, q, k, v, corners, hw, w)
 
 
-def recipe_rows(torch, rows, gen, path, g, topks, train):
+def recipe_rows(torch, rows, gen, path, g, topks, train, C=256, H=8):
     """Kernels A (finest g x g level) and A′ (intermediate, top
-    ``topks[1]``) of another recipe's 1/8 pyramid (coarse and intermediate
-    top-k ``topks``), in f32 and through their bf16 instances on the inputs
-    rounded to bf16; with ``train`` A with its log-sum-exp, A′ through its
-    autograd function, and A-bwd (f32 and bf16) at both levels."""
+    ``topks[1]``) of another recipe's quadtree pyramid (coarse and
+    intermediate top-k ``topks``, a stack of width C in H heads), in f32
+    and through their bf16 instances on the inputs rounded to bf16; with
+    ``train`` A with its log-sum-exp, A′ through its autograd function, and
+    A-bwd (f32 and bf16) at both levels."""
     from casmtr_tpu_torch.ops.kernels import quadtree_kernels as qk_
-    levels = quadtree_inputs(torch, gen, g, topks)
+    levels = quadtree_inputs(torch, gen, g, topks, C, H)
     for bf16 in (False, True):
         lv = {label: ((tuple(t.to(torch.bfloat16) for t in qkv) if bf16
                        else qkv), ids, hw)
@@ -2247,6 +2295,28 @@ def precision(name):
                 os.environ[k] = v
 
 
+@contextlib.contextmanager
+def heuristic_convs(torch):
+    """With float32 forced (``precision("f32")``), cuDNN's heuristic
+    algorithm picks inside the block, its autotuner (which the Matcher and
+    the training step turn on) as before after it; in any other precision
+    the autotuner throughout.  For the card-against-CPU (or one-process)
+    references: each runs its one-off 256^2 shapes once or twice, where
+    autotuning costs more than the run (a 2c forward, cold: 1.64 s
+    autotuned, 0.62 s on heuristics; a 4c step 4.63 s against 1.34 s),
+    and their float32 gates hold whatever algorithm computed the card's
+    side.  The bf16 gates are the CPU's own bf16 error times 4, and a
+    heuristic bf16 algorithm put the refine ladder's cotangent product
+    9.5e-3 off (gate 6.6e-3, autotuned 2.1e-3 to 4.3e-3)."""
+    saved = torch.backends.cudnn.benchmark
+    if all(os.environ.get(k) == "0" for k in PRECISION_ENV):
+        torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
 def matcher_for(name, **kw):
     """``serving.Matcher`` of MODELS[name] with ``kw`` (``overrides``
     replaces the model's own).  A REFINED model is the Matcher's canvas,
@@ -2340,6 +2410,46 @@ def serving_phase(torch, recipe, precs=("bf16", "f32")):
     return runs, matcher, reqs[1]
 
 
+def key_sums(prof, by_shape=False):
+    """What ``prof.key_averages()`` gives ``top`` (per key and device type,
+    with ``by_shape`` also per input shapes: the count and the summed self
+    device time, in us), read from the profiler's raw kineto events.  An
+    op's self device time is the time of the kernels linked to it by
+    correlation id, as the profiler's own parse attaches them.  The counts
+    are the raw events': key_averages counts once an op whose only child
+    is an op of its own name (the parse merges the two), this twice.  Over
+    the ~57k events of a 4c training step on the H100's host this takes
+    0.7 s; the parse into FunctionEvents, its op tree and key_averages'
+    recursive sums over it 5.3 s, for the same times by key."""
+    from types import SimpleNamespace
+
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+    sums, ops = {}, {}
+    events = [e for e in prof.profiler.kineto_results.events()
+              if not _filter_name(e.name())
+              and not getattr(e, "is_hidden_event", lambda: False)()]
+    for e in events:
+        shapes = e.shapes()
+        name, dev = _rewrite_name(e.name(), with_wildcard=True), e.device_type()
+        a = sums.setdefault((name, dev, str(shapes) if by_shape else None),
+                            SimpleNamespace(key=name, device_type=dev,
+                                            input_shapes=shapes, count=0,
+                                            self_device_time_total=0.0))
+        a.count += 1
+        if e.is_async() or e.start_thread_id() != e.end_thread_id():
+            continue
+        if dev != DeviceType.CPU:
+            a.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+        elif e.linked_correlation_id() == 0:
+            ops[e.correlation_id()] = a
+    for e in events:          # each kernel's time to the op that launched it
+        op = ops.get(e.linked_correlation_id())
+        if op is not None and e.device_type() == DeviceType.CUDA:
+            op.self_device_time_total += (e.end_ns() - e.start_ns()) / 1e3
+    return list(sums.values())
+
+
 def top(avgs, keep, n):
     """The n profiler rows that ``keep`` selects with the most self device
     time (ms, count, name, input shapes), and their summed time over all
@@ -2367,14 +2477,14 @@ def profile_phase(torch, recipe, matcher, request, prec):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
 
-    avgs = prof.key_averages()
+    avgs = key_sums(prof)
     kern, busy = top(avgs, lambda e: e.device_type == DeviceType.CUDA, 10)
     if busy == 0:
         log("profile: the profiler recorded no device time (not measured)")
         return
     ops, _ = top(avgs, lambda e: e.key.startswith("aten::")
                  and e.self_device_time_total > 0, 10)
-    convs, _ = top(prof.key_averages(group_by_input_shape=True),
+    convs, _ = top(key_sums(prof, by_shape=True),
                    lambda e: e.key == "aten::cudnn_convolution", 6)
     ours, ours_ms = top(avgs, lambda e: e.device_type == DeviceType.CUDA
                         and "casmtr::" in e.key, 7)
@@ -2427,15 +2537,16 @@ def reference_forward(torch, recipe, dev, img0, img1, prepare=None,
                 tuple(batch[k].shape), generator=gen)).to(dev)
     if prepare is not None:
         prepare(m.model)
-    with torch.inference_mode():
+    with torch.inference_mode(), heuristic_convs(torch):
         return m.model(batch)
 
 
 def compare_outputs(torch, a, b):
     """Coarse and per-level window confidences' max abs differences, and
-    per stage (1/8, each cascade level, final) the valid (b, i, j) sets'
-    sizes and Jaccard and the common matches' largest confidence and
-    keypoint (mkpts1, px) differences, of outputs ``a`` against ``b``."""
+    per stage (the coarse level, each cascade level, final) the valid (b,
+    i, j) sets' sizes and Jaccard and the common matches' largest
+    confidence and keypoint (mkpts1, px) differences, of outputs ``a``
+    against ``b``."""
     def by_pair(m):
         v = m.valid.cpu().numpy()
         keys = zip(*(getattr(m, n).cpu().numpy()[v]
@@ -2448,7 +2559,9 @@ def compare_outputs(torch, a, b):
     window = {lvl: float((a.cascades[lvl].conf_matrix.cpu()
                           - b.cascades[lvl].conf_matrix.cpu()).abs().max())
               for lvl in b.cascades}
-    stages = {"1/8": (a.coarse.matches, b.coarse.matches)}
+    # the coarse stage by its level: 1/8, or 1/16 on the 1/16 backbones
+    stages = {f"1/{b.hw0_i[0] // b.coarse.hw0[0]}":
+              (a.coarse.matches, b.coarse.matches)}
     stages.update({lvl: (a.cascades[lvl].matches, b.cascades[lvl].matches)
                    for lvl in b.cascades})
     stages["final"] = (a.final_matches, b.final_matches)
@@ -2829,7 +2942,7 @@ def train_profile_phase(torch, recipe, step, state, batch, median_s):
         step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
+    avgs = key_sums(prof)
     kern, busy = top(avgs, lambda e: e.device_type == DeviceType.CUDA, 12)
     if busy == 0:
         log("training profile: the profiler recorded no device time (not "
@@ -2881,7 +2994,8 @@ def reference_step(torch, name, size, dev, base, prec, nudge=None):
     CPU model ``base`` in precision ``prec``, with the images times (1 +
     NUDGE x a normal draw of seed ``nudge``) when given: (scalars, gradients
     by parameter in float64 on the CPU, seconds, coarse_gradient taken
-    before the step)."""
+    before the step for the two recipes, whose gates read it, else
+    None)."""
     batch = train_batch(size, 1)
     if nudge is not None:
         rng = np.random.default_rng(nudge)
@@ -2899,11 +3013,11 @@ def reference_step(torch, name, size, dev, base, prec, nudge=None):
         model.load_state_dict(base.state_dict())
         model, state, step = build_trainer(torch, name, size, device=dev,
                                            model=model, remat=remat)
-        # a frozen trunk's 1/8 stack takes no gradient
-        coarse = (None if name in REFINED
-                  else coarse_gradient(torch, model, batch, dev))
-        t0 = time.perf_counter()
-        _, scalars = step(state, batch)
+        with heuristic_convs(torch):
+            coarse = (coarse_gradient(torch, model, batch, dev)
+                      if name in RECIPES else None)
+            t0 = time.perf_counter()
+            _, scalars = step(state, batch)
         grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
                  .detach().double().cpu() for n, p in model.named_parameters()}
     return ({k: float(v) for k, v in scalars.items()}, grads,
@@ -2956,7 +3070,7 @@ def backbone_stage(torch, base, size, dev, prec):
             feats = base.backbone(x)[1:]
     x = x.to(dev)
     rng = np.random.default_rng(2)
-    with precision(prec):
+    with precision(prec), heuristic_convs(torch):
         if feats is None:
             bb = copy.deepcopy(base.backbone).to(dev).train()
             maps = bb(x)
@@ -3059,7 +3173,7 @@ def cascade_stack_reference(torch, name, base, size):
         res = {}
         for dev, prec in (("cpu", "f32"), ("cuda", "f32"), ("cuda", "bf16")):
             rng = np.random.default_rng(3)
-            with precision(prec):
+            with precision(prec), heuristic_convs(torch):
                 st = copy.deepcopy(getattr(base, stack)).to(dev).train()
                 args = [x.to(dev) if isinstance(x, torch.Tensor) else x
                         for x in grab[lvl]]
@@ -3131,10 +3245,11 @@ def train_reference_phase(torch, name):
         f"f32: loss {sg['loss']:.6f} vs {sc['loss']:.6f}; card "
         f"{valid(('cuda', 'f32'))}, CPU {valid(('cpu', 'f32'))}; relative "
         + ", ".join(f"{k} {r:.2e}" for k, r in rel.items())
-        + f"; gradient cosine {cos:.6f}, of loss_8c on the 1/8 q/k/v "
-        f"{coarse:.8f}; worst per-leaf relative error {worst:.2e} "
-        f"({worst_name}, not gated); step {tg:.2f} s on the card, "
-        f"{tc:.2f} s on the CPU")
+        + f"; gradient cosine {cos:.6f}"
+        + (f", of loss_8c on the 1/8 q/k/v {coarse:.8f}" if name in RECIPES
+           else "")
+        + f"; worst per-leaf relative error {worst:.2e} ({worst_name}, not "
+        f"gated); step {tg:.2f} s on the card, {tc:.2f} s on the CPU")
     if name not in RECIPES:
         backbone_reference(torch, name, base, size)
         if name in (INDOOR, REFINE):
@@ -3694,16 +3809,15 @@ def zoo_train_reference(torch, name):
     base, _, _ = build_trainer(torch, name, size, device="cpu")
     res = {dev: reference_step(torch, name, size, dev, base, "f32")
            for dev in ("cuda", "cpu")}
-    rel, cos, (worst, worst_name), coarse = step_difference(
+    rel, cos, (worst, worst_name), _ = step_difference(
         torch, res["cuda"], res["cpu"])
     (sg, _, tg, _), (sc, _, tc, _) = res["cuda"], res["cpu"]
     log(f"training reference: {name} {size}^2, one step, card f32 vs CPU "
         f"f32: loss {sg['loss']:.6f} vs {sc['loss']:.6f}; relative "
         + ", ".join(f"{k} {r:.2e}" for k, r in rel.items())
-        + f"; gradient cosine {cos:.8f} (min {MIN_GRAD_COS}), of loss_8c "
-        f"on the 1/8 q/k/v {coarse:.8f}; worst per-leaf relative error "
-        f"{worst:.2e} ({worst_name}, not gated); step {tg:.2f} s on the "
-        f"card, {tc:.2f} s on the CPU")
+        + f"; gradient cosine {cos:.8f} (min {MIN_GRAD_COS}); worst "
+        f"per-leaf relative error {worst:.2e} ({worst_name}, not gated); "
+        f"step {tg:.2f} s on the card, {tc:.2f} s on the CPU")
     allow = {}
     if any(r > TRAIN_LOSS_RTOL for r in rel.values()):
         nudged = [step_difference(torch, reference_step(
@@ -5109,7 +5223,7 @@ def sfm_ba_profile(torch, p, run):
         ba.run_ba(p, iters=1, solver=run["solver"], cg_iters=run["cg_iters"])
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    avgs = prof.key_averages()
+    avgs = key_sums(prof)
     _, busy = top(avgs, lambda e: e.device_type == DeviceType.CUDA, 1)
     if busy == 0:
         log("sfm: BA profile: the profiler recorded no device time (not "
@@ -5392,9 +5506,16 @@ def dp_profile(torch, step, state, batch):
         step(state, batch)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.count, e.cpu_time_total / 1e3,
-             e.device_time_total / 1e3) for e in prof.key_averages()
-            if any(s in e.key.lower() for s in DP_EVENTS)]
+    # summed per key over the matching events only (key_averages would
+    # take seconds over every event of the step)
+    sums = {}
+    for e in prof.events():
+        if any(s in e.key.lower() for s in DP_EVENTS):
+            r = sums.setdefault(e.key, [0, 0.0, 0.0])
+            r[0] += 1
+            r[1] += e.cpu_time_total / 1e3
+            r[2] += e.device_time_total / 1e3
+    rows = [(k, *r) for k, r in sums.items()]
     return sorted(rows, key=lambda r: -r[2]), wall
 
 
@@ -5485,8 +5606,9 @@ def dp_first_step(torch, base, batch, prec, size=TRAIN_SIZE, dev="cuda"):
     with precision(prec):
         model, state, step = build_trainer(torch, DP_NAME, size, device=dev,
                                            model=copy.deepcopy(base))
-        coarse = dp_coarse_gradient(torch, model, batch, dev)
-        _, scalars = step(state, batch)
+        with heuristic_convs(torch):
+            coarse = dp_coarse_gradient(torch, model, batch, dev)
+            _, scalars = step(state, batch)
         return ({k: float(v) for k, v in scalars.items()},
                 dp_grads(torch, model), coarse)
 
@@ -6300,6 +6422,67 @@ def remat_protocol_phase(torch, device_pairs_s, remat_on):
     return timed("remat", remat_phase, torch, smi, remat_on)
 
 
+# --------------------------------------------------------------------------
+# phase 18: the coarse-1/16 QuadtreeLoFTR
+# --------------------------------------------------------------------------
+
+def coarse16_kernel_rows(torch):
+    """(d): kernels A and A′ (f32 and bf16) at each 1/16 model's serving
+    shapes (bucket 832: finest 52^2, intermediate 26^2 under the 13^2
+    coarse level) and A with its log-sum-exp, A′ through its autograd
+    function and A-bwd at its training shapes (704^2: 44^2, 22^2), on its
+    coarse stack's width and heads and the recipe's topks 16 / 8, against
+    their plain versions as in phases 2 and 3.  Returns (serving rows,
+    training rows)."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    rows, train_rows = [], []
+    for name in COARSE16:
+        coarse = model_config(name).loftr.coarse
+        topks, C, H = tuple(coarse.topks[:2]), coarse.d_model, coarse.nhead
+        for out, size, train in ((rows, BUCKET[name], False),
+                                 (train_rows, TRAIN_SIZES[name], True)):
+            recipe_rows(torch, out, gen,
+                        f"{'train' if train else 'serving'} {size}^2 "
+                        f"({name})", size // 16, topks, train, C, H)
+    return rows, train_rows
+
+
+def coarse16_phase(torch, smi, serve_runs, train_runs):
+    """Phase 18: R16 and T16 at full width.  (a) Matcher at bucket 832 in
+    the card's default and with float32 forced on phase 4's requests, each
+    request held to the per-pair launches (A 16, A′ 16: eight quadtree
+    layers, two images); the median ms per pair.  (b) training at 704^2 on
+    phase 7's shifted pair from seeded weights, remat on (the default), in
+    bf16 and f32, each step held to its launches (A 32, A′ 32, A-bwd 32),
+    finite losses, the q/k/v projections moved; the median s/step and peak
+    memory.  (c) phase 6's serving reference and phase 8's training
+    reference at 256^2 as quadtree_baseline takes them (the whole step
+    printed, the backbone gated).  The runs go into ``serve_runs`` and
+    ``train_runs`` for the launch totals of the kernels line."""
+    for name in COARSE16:
+        runs, matcher, _ = timed(f"serving {name}", serving_phase, torch,
+                                 name)
+        serve_runs[name] = runs
+        del matcher
+        torch.cuda.empty_cache()
+        for prec, (_, _, steady) in runs.items():
+            log(f"coarse16: {name} {prec} bucket {BUCKET[name]}: median "
+                f"{statistics.median(steady):.1f} ms per pair ({smi})")
+        for prec in ("bf16", "f32"):
+            with precision(prec):
+                totals, counts, step, state, _, times = timed(
+                    f"training {name} {prec}", training_phase, torch, name,
+                    prec, COARSE16_STEPS)
+            train_runs[name, prec] = (totals, counts)
+            del step, state
+            torch.cuda.empty_cache()
+            log(f"coarse16: {name} {prec} {TRAIN_SIZES[name]}^2: median "
+                f"{statistics.median(times):.4f} s/step ({smi})")
+        timed(f"reference {name}", reference_phase, torch, name)
+        timed(f"training reference {name}", train_reference_phase, torch,
+              name)
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6351,14 +6534,11 @@ def main(argv):
         precs = ("bf16",) if recipe == RESNET else ("bf16", "f32")
         serve_runs[recipe], matcher, request = timed(
             f"serving {recipe}", serving_phase, torch, recipe, precs)
-        # one request per precision of the two recipes, one in bf16 of the
-        # baseline and the indoor recipe
-        profiled = (precs if recipe in RECIPES else
-                    ("bf16",) if recipe in (BASELINE, INDOOR, REFINE)
-                    else ())
-        for prec in profiled:
-            timed(f"profile {recipe} {prec}", profile_phase, torch, recipe,
-                  matcher, request, prec)
+        # one request in the card's default (bf16) of each model but the
+        # ResNetFPN variant
+        if recipe != RESNET:
+            timed(f"profile {recipe} bf16", profile_phase, torch, recipe,
+                  matcher, request, "bf16")
         del matcher
         torch.cuda.empty_cache()
     for recipe in BASE_MODELS:
@@ -6379,8 +6559,7 @@ def main(argv):
                     remat_on[recipe] = first
                 if (recipe, prec) == ("outdoor_casmtr_4c", "bf16"):
                     earlier["4c bf16 step_s"] = statistics.median(times)
-                if prec == "bf16" or recipe not in (BASELINE, INDOOR,
-                                                    REFINE):
+                if prec == "bf16":
                     timed(f"training profile {recipe} {prec}",
                           train_profile_phase, torch, f"{recipe} {prec}",
                           step, state, batch, statistics.median(times))
@@ -6410,6 +6589,12 @@ def main(argv):
     serve_runs[REPLICA_NAME] = {"bf16": (replica_totals, replica_counts)}
     timed("protocol and remat", remat_protocol_phase, torch,
           earlier["run_eval pairs/s"], remat_on)
+    c16_rows, c16_train_rows = timed("coarse-1/16 kernels",
+                                     coarse16_kernel_rows, torch)
+    rows += c16_rows
+    train_rows += c16_train_rows
+    timed("coarse-1/16 QuadtreeLoFTR", coarse16_phase, torch, smi_line(),
+          serve_runs, train_runs)
 
     # launches: each path's counts, summed over the models' runs (phase 11's
     # ZOO models in the card's default only), and each model's count in its

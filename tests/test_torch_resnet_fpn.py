@@ -143,11 +143,27 @@ def test_build_backbone_dispatches_like_the_jax_registry():
     assert type(bb) is ResNetFPN_8_2 and bb.conv1.in_channels == 1
     _, tcfg = configs(tiny_4c_overrides())
     assert type(build_backbone(tcfg.loftr)) is TwinsFPN_8_4_2
-    for kind, res in (("ResNetFPN", (16, 4)), ("Twins", (16, 8, 4, 2))):
-        cfg = replace(tcfg.loftr, resolution=res, backbone=replace(
-            tcfg.loftr.backbone, backbone_type=kind))
-        with pytest.raises(NotImplementedError, match="not ported"):
-            build_backbone(cfg)
+    # every (type, resolution) pair against the JAX registry: the same
+    # class, or ValueError in both (ResNetFPN off its three resolutions)
+    from casmtr_tpu.models.backbone import build_backbone as jax_build
+    jcfg, tcfg = configs(tiny_4c_overrides())
+    built = set()
+    for kind in ("ResNetFPN", "Twins"):
+        for res in ((8, 2), (8, 4, 2), (16, 4), (16, 8, 4, 2), (8, 4)):
+            j, t = (replace(c.loftr, resolution=res, backbone=replace(
+                c.loftr.backbone, backbone_type=kind, block_dims=(8, 12, 16,
+                                                                24)))
+                    for c in (jcfg, tcfg))
+            try:
+                want = type(jax_build(j)).__name__
+            except ValueError:
+                with pytest.raises(ValueError, match="unsupported resolution"):
+                    build_backbone(t)
+                continue
+            assert type(build_backbone(t)).__name__ == want, (kind, res)
+            built.add(want)
+    assert built == {"ResNetFPN_8_2", "ResNetFPN_8_4_2", "ResNetFPN_16_4",
+                     "TwinsFPN_8_4_2", "TwinsFPN_16_8_4_2"}
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,9 @@
 """Helpers of the PyTorch port's parity tests (tests/test_torch_*.py): the
-tiny CasMTR-4c, CasMTR-2c, quadtree_baseline, indoor and model-zoo
-configurations built in both packages, flax
-variables made non-trivial and handed to the port as nested dicts of numpy
-arrays, and the chunk rule and child rows of the CPU models of the chunked
-CUDA kernels."""
+tiny CasMTR-4c, CasMTR-2c, quadtree_baseline (on its own backbone and on
+the two 1/16 ones), indoor and model-zoo configurations built in both
+packages, flax variables made non-trivial and handed to the port as nested
+dicts of numpy arrays, and the chunk rule and child rows of the CPU models
+of the chunked CUDA kernels."""
 
 import contextlib
 import re
@@ -96,6 +96,37 @@ def tiny_baseline_overrides(train_size: int = 128,
         "fine": {"d_model": 8, "nhead": 2},
         "match_coarse": {"max_matches": 16},
     }
+    if zero_thresholds:
+        loftr["match_coarse"]["thr"] = 0.0
+    return {"loftr": loftr}
+
+
+def tiny_coarse16_overrides(backbone: str, train_size: int = 128,
+                            zero_thresholds: bool = False):
+    """``quadtree_baseline`` on a 1/16 backbone at tiny widths: ``"R16"``
+    is ResNetFPN_16_4 (gray) 8 / [8, 12, 16, 24] at resolution (16, 4),
+    ``"T16"`` TwinsFPN_16_8_4_2 (Twins ``small``, RGB) 8 / [8, 12, 16, 24]
+    at (16, 8, 4, 2); both at coarse_level 16, a self and a cross quadtree
+    layer of d 24, 2 heads, topks 4, and a fine stack of 2 heads at the
+    finest map's width (12 at 1/4, 8 at 1/2).  The 1/16 grid of an image
+    of side 64n is 4n, so three quadtree levels need sides of 128 and up.
+    ``zero_thresholds`` lets every match through."""
+    twins = backbone == "T16"
+    loftr = {
+        "train_size": train_size,
+        "backbone": {"backbone_type": "Twins" if twins else "ResNetFPN",
+                     "initial_dim": 8, "block_dims": [8, 12, 16, 24]},
+        "resolution": [16, 8, 4, 2] if twins else [16, 4],
+        "coarse_level": 16,
+        "coarse": {"d_model": 24, "nhead": 2, "topks": [4, 4, 4],
+                   "layer_names": ["self", "cross"]},
+        "fine": {"d_model": 8 if twins else 12,
+                 "d_ffn": 8 if twins else 12, "nhead": 2},
+        "match_coarse": {"max_matches": 16},
+    }
+    if twins:
+        loftr["backbone"]["model_type"] = "small"
+        loftr["is_rgb"] = True
     if zero_thresholds:
         loftr["match_coarse"]["thr"] = 0.0
     return {"loftr": loftr}
