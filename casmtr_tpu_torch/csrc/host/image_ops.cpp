@@ -16,16 +16,78 @@
 // >> 2, on every output (bit-equal to cv2 5.0 at every size tried, odd row
 // widths included); an exact 2x reduction goes to its INTER_AREA path, and
 // an unchanged size is a copy.
+//
+// casmtr_resize_linear_f32: cv2.resize(INTER_LINEAR) of float32 images as
+// OpenCV 5.0's x86 build computes it (bit-equal at every size tried with
+// two or more rows and columns, an exact 2x reduction included): each
+// output's source coordinate (d + 0.5) * (1 / (dst / src)) - 0.5 in
+// double, its floor s clamped to [0, n - 1] and s + 1 likewise, the
+// fraction rounded to float32 once, and a + f * (b - a) with b - a rounded
+// to float32 and one fused multiply-add; a horizontal pass, then a
+// vertical one.  An unchanged size is a copy.
 
 #include <cfloat>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <utility>
 #include <vector>
 
 namespace {
 
 inline int clampi(int v, int lo, int hi) { return v < lo ? lo : (v > hi ? hi : v); }
+
+// The float32 resize's source indices and fractions along one axis.
+void linear_coefs(int n_dst, int n_src, std::vector<int>& i0,
+                  std::vector<int>& i1, std::vector<float>& f) {
+  const double scale = 1. / ((double)n_dst / n_src);
+  i0.resize(n_dst), i1.resize(n_dst), f.resize(n_dst);
+  for (int d = 0; d < n_dst; d++) {
+    const double x = (d + 0.5) * scale - 0.5;
+    const double s = std::floor(x);
+    f[d] = (float)(x - s);
+    i0[d] = clampi((int)s, 0, n_src - 1);
+    i1[d] = clampi((int)s + 1, 0, n_src - 1);
+  }
+}
+
+// The float32 resize's two passes, built twice on x86-64: with the FMA
+// instructions, picked at load time where the CPU has them, and without,
+// where std::fma is a library call.  Both round each multiply-add once.
+#if defined(__x86_64__) && defined(__GNUC__) && !defined(__clang__)
+#define CASMTR_FMA_CLONES __attribute__((target_clones("fma", "default")))
+#else
+#define CASMTR_FMA_CLONES
+#endif
+
+// one source row [sw, cn] -> d [dw, cn]
+CASMTR_FMA_CLONES
+void lerp_columns(const float* s, const int* x0, const int* x1,
+                  const float* fx, int dw, int cn, float* d) {
+  if (cn == 3) {  // RGB, the Matcher's images: the channel loop unrolled
+    for (int dx = 0; dx < dw; dx++) {
+      const float* a = s + (size_t)x0[dx] * 3;
+      const float* b = s + (size_t)x1[dx] * 3;
+      const float f = fx[dx];
+      d[dx * 3] = std::fma(f, b[0] - a[0], a[0]);
+      d[dx * 3 + 1] = std::fma(f, b[1] - a[1], a[1]);
+      d[dx * 3 + 2] = std::fma(f, b[2] - a[2], a[2]);
+    }
+    return;
+  }
+  for (int dx = 0; dx < dw; dx++) {
+    const float* a = s + (size_t)x0[dx] * cn;
+    const float* b = s + (size_t)x1[dx] * cn;
+    for (int c = 0; c < cn; c++)
+      d[dx * cn + c] = std::fma(fx[dx], b[c] - a[c], a[c]);
+  }
+}
+
+// two resized rows -> d [n]
+CASMTR_FMA_CLONES
+void lerp_rows(const float* s0, const float* s1, float f, float* d, int n) {
+  for (int x = 0; x < n; x++) d[x] = std::fma(f, s1[x] - s0[x], s0[x]);
+}
 
 }  // namespace
 
@@ -147,6 +209,45 @@ void casmtr_resize_linear_u8(const uint8_t* src, int sh, int sw, int cn,
               ((b1 * (int)(short)(S1[x] >> 4)) >> 16);
       d[x] = (uint8_t)clampi((v + 2) >> 2, 0, 255);
     }
+  }
+}
+
+// src float32 [sh, sw, cn] -> dst float32 [dh, dw, cn]
+void casmtr_resize_linear_f32(const float* src, int sh, int sw, int cn,
+                              float* dst, int dh, int dw) {
+  if (sh == dh && sw == dw) {
+    std::memcpy(dst, src, sizeof(float) * sh * sw * cn);
+    return;
+  }
+  std::vector<int> x0, x1, y0, y1;
+  std::vector<float> fx, fy;
+  linear_coefs(dw, sw, x0, x1, fx);
+  linear_coefs(dh, sh, y0, y1, fy);
+  const int width = dw * cn;
+  std::vector<float> rows[2] = {std::vector<float>(width),
+                                std::vector<float>(width)};
+  auto hresize = [&](int sy, float* d) {
+    lerp_columns(src + (size_t)sy * sw * cn, x0.data(), x1.data(),
+                 fx.data(), dw, cn, d);
+  };
+  int cached[2] = {-1, -1};
+  for (int dy = 0; dy < dh; dy++) {
+    const int r0 = y0[dy], r1 = y1[dy];
+    if (cached[0] != r0) {
+      if (cached[1] == r0) {  // moving down: the lower row becomes the upper
+        std::swap(rows[0], rows[1]);
+        std::swap(cached[0], cached[1]);
+      } else {
+        hresize(r0, rows[0].data());
+        cached[0] = r0;
+      }
+    }
+    if (cached[1] != r1) {
+      hresize(r1, rows[1].data());
+      cached[1] = r1;
+    }
+    lerp_rows(rows[0].data(), rows[1].data(), fy[dy],
+              dst + (size_t)dy * width, width);
   }
 }
 

@@ -42,6 +42,7 @@ _SIGNATURES = {
     "casmtr_png_unfilter": ([_P, _I, _I, _I, _P, _P, _I], _I),
     "casmtr_resize_pad_normalize": ([_P] + [_I] * 6 + [_P, _P], None),
     "casmtr_resize_linear_u8": ([_P, _I, _I, _I, _P, _I, _I], None),
+    "casmtr_resize_linear_f32": ([_P, _I, _I, _I, _P, _I, _I], None),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -81,6 +81,59 @@ def resize_u8(img: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
     return out
 
 
+def resize_f32(img: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
+    """``cv2.resize(img, wh)`` of a float32 [h, w] or [h, w, c] image
+    (INTER_LINEAR) by the host library: bit-equal to OpenCV 5.0 wherever
+    the image has two or more rows and columns (a 1-pixel-high or -wide
+    source takes another route in OpenCV, within 2e-6).  The rule is
+    ``resize_f32_plain``'s."""
+    w, h = int(wh[0]), int(wh[1])
+    if w < 1 or h < 1:
+        raise ValueError(f"resize to {(w, h)}")
+    src = np.asarray(img)
+    if src.dtype != np.float32 or src.ndim not in (2, 3) or 0 in src.shape:
+        raise ValueError(f"expected a float32 [h, w] or [h, w, c] image, "
+                         f"got {src.dtype} {src.shape}")
+    src = np.ascontiguousarray(src)
+    cn = 1 if src.ndim == 2 else src.shape[2]
+    out = np.empty((h, w) if src.ndim == 2 else (h, w, cn), np.float32)
+    host.lib().casmtr_resize_linear_f32(src.ctypes.data, src.shape[0],
+                                        src.shape[1], cn, out.ctypes.data,
+                                        h, w)
+    return out
+
+
+def resize_f32_plain(img: np.ndarray, wh: Tuple[int, int]) -> np.ndarray:
+    """``resize_f32`` in numpy, the library's oracle: per output the source
+    coordinate (d + 0.5) * (1 / (dst / src)) - 0.5 in float64, its floor
+    and the next index clamped into the image, the fraction f rounded to
+    float32, and a + f * (b - a) with b - a in float32 and the product and
+    sum in float64 (one rounding to float32: OpenCV's fused multiply-add,
+    but for rare double roundings); the horizontal pass, then the
+    vertical one."""
+    w, h = int(wh[0]), int(wh[1])
+    src = np.asarray(img, np.float32)
+    if src.shape[:2] == (h, w):
+        return src.copy()
+
+    def coefs(n_dst, n_src):
+        x = (np.arange(n_dst) + 0.5) * (1.0 / (n_dst / n_src)) - 0.5
+        s = np.floor(x)
+        f = (x - s).astype(np.float32).astype(np.float64)
+        s = s.astype(np.int64)
+        return np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), f
+
+    def lerp(a, b, f):
+        return (a + f * (b - a).astype(np.float64)).astype(np.float32)
+
+    x0, x1, fx = coefs(w, src.shape[1])
+    y0, y1, fy = coefs(h, src.shape[0])
+    fx = fx.reshape((-1,) + (1,) * (src.ndim - 2))
+    fy = fy.reshape((-1, 1) + (1,) * (src.ndim - 2))
+    rows = lerp(src[:, x0], src[:, x1], fx)
+    return lerp(rows[y0], rows[y1], fy)
+
+
 def resize_pad_normalize(img: np.ndarray, out_h: int, out_w: int,
                          pad_size: int):
     """The fused bilinear resize of a uint8 [h, w] or [h, w, c] image to

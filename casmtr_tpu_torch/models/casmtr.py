@@ -1,19 +1,29 @@
-"""CasMTR-4c and CasMTR-2c forward in eval and train mode (counterpart of
-casmtr_tpu/models/casmtr.py for ``cascade_levels`` (4,) and (4, 2); the
-outdoor recipes and the indoor ``indoor_casmtr_4c_runnable``):
+"""CasMTR forward in eval and train mode (counterpart of
+casmtr_tpu/models/casmtr.py): CasMTR-4c (``cascade_levels`` (4,)), CasMTR-2c
+((4, 2)), the indoor ``indoor_casmtr_4c_runnable``, and any other tuple as
+the JAX package runs it (the empty one and longer ones included):
 backbone pyramid -> 1/8 quadtree transformer + dual-softmax -> per cascade
-level (1/4, then 1/2 for 2c) UpBlock fusion, cascade transformer and window
+stage (1/4, then 1/2) UpBlock fusion, cascade transformer and window
 matching -> fine sub-pixel refinement.
+The stages come from the tuple's length alone, as in the JAX package: the
+first stage runs at 1/4 (``up_block1``, ``loftr_coarse_4c``, the cascade
+key ``4c``) and the second, when the tuple has more than one value, at 1/2
+(``up_block2``, ``loftr_coarse_2c``, ``2c``), whatever the values; each
+stage reads its ground truth under its own key (gt_idx_4c, gt_idx_2c),
+while the training step supplies ``gt_idx_{value}c`` for each value, so a
+stage whose key is missing trains without ground truth and adds no loss
+term.  With no value the first stage still runs and the fine stage does
+not.
 ``training_stage`` selects how much of it is built and runs, as in the JAX
-package (``run_levels``, ``runs_fine``): stage 1 the 1/8 stage alone,
-stage 2 adds the 1/4 level (and for 4c the fine stage), stage 3 the whole
-model.
+package (``run_stages``, ``runs_fine``): stage 1 the 1/8 stage alone,
+stage 2 adds the 1/4 stage (and with one value the fine stage), stage 3
+the whole model.
 ``module.training`` selects the mode: in training BatchNorm uses batch
-statistics and each cascade level's matches are the ground-truth-filtered
-ones that the loss supervises; a level with a ``detector_mode`` also
-selects its keypoint-detector labels then.  In eval each level's matches
+statistics and each cascade stage's matches are the ground-truth-filtered
+ones that the loss supervises; a stage with a ``detector_mode`` also
+selects its keypoint-detector labels then.  In eval each stage's matches
 pass its ``post_config``: a test-time filter (ops/nms.py; ``d2d`` on the
-level's tokens, ``sift`` on the batch's image0 and mask0) and the rt/rd
+stage's tokens, ``sift`` on the batch's image0 and mask0) and the rt/rd
 gates, whose second bests the 1/8 dual softmax and the window softmaxes
 track only when a gate asks for them.
 
@@ -46,7 +56,7 @@ from casmtr_tpu_torch.models.backbone.twins import TwinsFPN_16_8_4_2
 from casmtr_tpu_torch.models.cascade_transformer import \
     CascadeFeatureTransformer
 from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
-from casmtr_tpu_torch.models.loftr import level_mask
+from casmtr_tpu_torch.models.loftr import check_fine_block, level_mask
 from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
 from casmtr_tpu_torch.ops import cascade_matching as cm
 from casmtr_tpu_torch.ops import fine_matching as fm
@@ -73,55 +83,66 @@ class UpBlock(nn.Module):
         return self.up(feat_2x + self.inner(up))
 
 
+# the cascade stages by position: (the stage's grid as a fraction of the
+# image, its name: the cascade key and the suffix of its modules and of its
+# ground-truth, priority and detector keys)
+STAGES = ((4, "4c"), (2, "2c"))
+
+
 def _check_ported(cfg: LoftrConfig) -> None:
-    """Raise NotImplementedError for config branches the 4c and 2c paths do
-    not take (the submodules check their own)."""
-    levels = tuple(cfg.cascade_levels)
-    if levels not in ((4,), (4, 2)):
-        raise NotImplementedError(
-            f"cascade_levels {levels}: only CasMTR-4c (4,) and CasMTR-2c "
-            "(4, 2) are ported")
-    stages = (cfg.coarse2, cfg.coarse3)[:len(levels)]
-    if cfg.fine.block_type != "loftr":
-        raise NotImplementedError(
-            f"fine block {cfg.fine.block_type!r} is not ported yet")
-    if any(s.detector_mode not in (None, "ST", "gumbel") for s in stages):
+    """Raise for config branches that the JAX package cannot run (the
+    submodules check their own).  Every ``cascade_levels`` tuple runs, as
+    in the JAX package: values past the second only add ground truth that
+    no stage reads."""
+    if any(s.detector_mode not in (None, "ST", "gumbel")
+           for s in stage_configs(cfg)):
         raise NotImplementedError("detector modes: only ST and gumbel")
 
 
+def stage_configs(cfg: LoftrConfig) -> tuple:
+    """The cascade stages' configurations (``coarse2``, then ``coarse3``
+    for a tuple of two or more values), built or not: their post configs
+    decide which softmaxes track second bests, as in the JAX package."""
+    return (cfg.coarse2, cfg.coarse3)[:1 + (len(cfg.cascade_levels) > 1)]
+
+
 def stage_d2d(stage_cfg, tokens: torch.Tensor, hw):
-    """A cascade level's d2d saliency and its grid's width, for the
+    """A cascade stage's d2d saliency and its grid's width, for the
     ``d2d`` test-time filter (None, None for any other method): the
-    saliency of the level's sqrt(C)-scaled tokens [B, h*w, C]."""
+    saliency of the stage's sqrt(C)-scaled tokens [B, h*w, C]."""
     if stage_cfg.post_config.method != "d2d":
         return None, None
     return (nms.d2d_saliency(tokens.float() / tokens.shape[-1] ** 0.5, hw),
             hw[1] // 4)
 
 
-def run_levels(cfg: LoftrConfig) -> tuple:
-    """The cascade levels that ``cfg.training_stage`` builds and runs, as in
-    the JAX package: none at stage 1 (the 1/8 stage alone), the 1/4 level
-    from stage 2, and 2c's 1/2 level only from stage 3."""
-    levels = tuple(cfg.cascade_levels)
+def run_stages(cfg: LoftrConfig) -> int:
+    """How many cascade stages ``cfg.training_stage`` builds and runs, as in
+    the JAX package, which counts them from the length of
+    ``cascade_levels``: none at stage 1 (the 1/8 stage alone), the 1/4
+    stage from stage 2 (with any tuple, the empty one included), and the
+    1/2 stage only at stage 3 and only for two or more values."""
     if cfg.training_stage < 2:
-        return ()
-    return levels if cfg.training_stage >= 3 else levels[:1]
+        return 0
+    return 2 if cfg.training_stage >= 3 and len(cfg.cascade_levels) > 1 \
+        else 1
 
 
 def runs_fine(cfg: LoftrConfig) -> bool:
-    """Whether the fine stage is built and run: 4c from stage 2, 2c only at
-    stage 3 (a 2c model at stage 2 ends at its 1/4 matches)."""
-    return len(run_levels(cfg)) == len(cfg.cascade_levels) > 0
+    """Whether the fine stage is built and run, as in the JAX package: with
+    one value from stage 2, with more only at stage 3 (a two-stage model at
+    stage 2 ends at its 1/4 matches), with none never."""
+    n = len(cfg.cascade_levels)
+    return n > 0 and cfg.training_stage >= (2 if n == 1 else 3)
 
 
 def detector_labels(stage_cfg, heat, ws, mask, idx_c01, gt_idx, gt_mask,
                     m_cap: int, hw0, uniform=None):
-    """A cascade level's keypoint-detector labels in training (None x 3
+    """A cascade stage's keypoint-detector labels in training (None x 3
     without ``detector_mode`` or ground truth): the heatmap of the
     learnable head, else each query's largest masked window score before
     its softmax, picks one position per grid cell (``detect_keypoints``;
-    ``uniform`` is the gumbel mode's draw, ``sample_uniform_{level}c`` of
+    ``uniform`` is the gumbel mode's draw, ``sample_uniform_{name}`` of
     the batch), and ``select_detector_labels`` takes the labels."""
     if stage_cfg.detector_mode is None or gt_idx is None:
         return None, None, None
@@ -145,14 +166,14 @@ def _grid(t: torch.Tensor, hw) -> torch.Tensor:
 
 class CasMTR(nn.Module):
     """Cascade matching transformer: cascade_levels (4,) is CasMTR-4c,
-    (4, 2) CasMTR-2c."""
+    (4, 2) CasMTR-2c; any other tuple runs as the JAX package runs it (the
+    module docstring)."""
 
     def __init__(self, config: LoftrConfig):
         super().__init__()
         _check_ported(config)
         self.config = config
         bd = tuple(config.backbone.block_dims)
-        two = len(config.cascade_levels) > 1
         self.backbone = build_backbone(config)
         if isinstance(self.backbone, (ResNetFPN_16_4, TwinsFPN_16_8_4_2)):
             raise ValueError(
@@ -161,18 +182,21 @@ class CasMTR(nn.Module):
                 "serve the plain QuadtreeLoFTR only (cascade false)")
         self.loftr_coarse_8c = LocalFeatureTransformer(
             config.coarse, config.train_size // 8, remat=config.remat)
-        levels = run_levels(config)
-        if 4 in levels:
+        n = run_stages(config)
+        if n >= 1:
             self.up_block1 = UpBlock(config.coarse.d_model, bd[1])
             self.loftr_coarse_4c = CascadeFeatureTransformer(
                 config.coarse2, remat=config.remat)
-        if 2 in levels:
+        if n >= 2:
             self.up_block2 = UpBlock(config.coarse2.d_model, bd[0])
             self.loftr_coarse_2c = CascadeFeatureTransformer(
                 config.coarse3, remat=config.remat)
         if runs_fine(config):
-            # 2c refines its 1/2 tokens themselves; 4c the 1/2 backbone map
-            # with the 1/4 tokens as context
+            check_fine_block(config.fine)
+            # after two stages the fine stage refines the 1/2 tokens
+            # themselves; after one the 1/2 backbone map with the 1/4 tokens
+            # as context
+            two = n > 1
             d_c = config.coarse3.d_model if two else config.coarse2.d_model
             self.fine_preprocess = FinePreprocess(
                 config.fine.d_model, d_c, d_c if two else bd[0],
@@ -186,9 +210,10 @@ class CasMTR(nn.Module):
         """batch: image0/image1 [B, H, W, 3] RGB in [0, 1]; optional
         mask0/mask1 [B, H, W] (True = valid) and scale0/scale1 [B, 2]
         (original pixels per model pixel).  In training the batch also holds
-        each cascade level's ground truth gt_idx_{4c,2c} / gt_mask_{4c,2c}
-        [B, L0] (train.supervision.compute_supervision), optionally a
-        selection priority_{4c,2c} [B, L0], and for a gumbel detector the
+        the ground truth gt_idx_{value}c / gt_mask_{value}c [B, L] of each
+        value of ``cascade_levels`` (train.supervision.compute_supervision),
+        of which each stage reads its own name's, gt_idx_{4c,2c}, optionally
+        a selection priority_{4c,2c} [B, L0], and for a gumbel detector the
         draw sample_uniform_{4c,2c} (train.train_step.detector_uniforms).
         ``capacity_scale`` multiplies every fixed match capacity in eval (a
         batch of B pairs shares one selection, so a B-pair forward passes
@@ -224,8 +249,7 @@ class CasMTR(nn.Module):
         # the rt/rd test gates read second-best confidences: the 1/8
         # level's for every gate, and a level's own for its rt gate and
         # the later levels' (so 2c's 1/2 rt gate makes the 1/4 level track)
-        posts = [s.post_config for s in
-                 (cfg.coarse2, cfg.coarse3)[:len(cfg.cascade_levels)]]
+        posts = [s.post_config for s in stage_configs(cfg)]
         gates_on = not train and any(p.rt is not None or p.rd is not None
                                      for p in posts)
         mc8 = cfg.match_coarse
@@ -239,24 +263,24 @@ class CasMTR(nn.Module):
         coarse = CoarseStage(ds.conf_matrix, ds.next_idx_c01, ds.next_idx_c10,
                              ds.next_conf_c01, ds.next_conf_c10, matches_8c,
                              hw0_8c, hw1_8c)
-        levels = run_levels(cfg)
-        if not levels:
+        n_stages = run_stages(cfg)
+        if not n_stages:
             return MatchOutput(coarse, {}, None, matches_8c, (H0, W0),
                                (H1, W1))
 
-        # ----- cascade stages: 1/4, then 1/2 for 2c -----
+        # ----- cascade stages: 1/4, then 1/2 -----
         mc = cfg.match_cascade
-        backbone_maps = {4: (feat_4c0, feat_4c1), 2: (feat_f0, feat_f1)}
+        backbone_maps = ((feat_4c0, feat_4c1), (feat_f0, feat_f1))
         prev = (_grid(t8_0, hw0_8c), _grid(t8_1, hw1_8c), ds.next_idx_c01,
                 ds.next_idx_c10)
         pre_confs, pre_hws = [ds.next_conf_c01], [hw0_8c]
         pre_confs_s = [ds.next_conf_c01_s]
         cascades = {}
-        for i, level in enumerate(levels):
-            name = f"{level}c"
+        for i in range(n_stages):
+            level, name = STAGES[i]
             scfg = (cfg.coarse2, cfg.coarse3)[i]
             x0, x1, prev_idx01, prev_idx10 = prev
-            f0, f1 = backbone_maps[level]
+            f0, f1 = backbone_maps[i]
             hw0, hw1 = tuple(f0.shape[-2:]), tuple(f1.shape[-2:])
             up = getattr(self, f"up_block{i + 1}")
             if hw0 == hw1:  # both images in one BatchNorm batch
@@ -331,7 +355,7 @@ class CasMTR(nn.Module):
 
         # ----- fine sub-pixel stage -----
         Wf = cfg.fine_window_size
-        if len(cfg.cascade_levels) > 1:   # the 1/2 tokens, no coarse context
+        if n_stages > 1:                  # the 1/2 tokens, no coarse context
             ff0, ff1 = t0.reshape(B, *hw0, -1), t1.reshape(B, *hw1, -1)
             ctx0 = ctx1 = None
         else:                             # the 1/2 map, 1/4 tokens as context

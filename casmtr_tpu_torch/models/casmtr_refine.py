@@ -26,11 +26,10 @@ from casmtr_tpu_torch.models.backbone.resnet_fpn import (Ladder_4_2,
                                                          ResNetFPN_8_4_2)
 from casmtr_tpu_torch.models.cascade_transformer import \
     CascadeFeatureTransformer
-from casmtr_tpu_torch.models.casmtr import (UpBlock, _check_ported, _grid,
-                                            _tokens, detector_labels,
-                                            stage_d2d)
+from casmtr_tpu_torch.models.casmtr import (UpBlock, _grid, _tokens,
+                                            detector_labels, stage_d2d)
 from casmtr_tpu_torch.models.fine_preprocess import FinePreprocess
-from casmtr_tpu_torch.models.loftr import level_mask
+from casmtr_tpu_torch.models.loftr import check_fine_block, level_mask
 from casmtr_tpu_torch.models.transformer import LocalFeatureTransformer
 from casmtr_tpu_torch.ops import cascade_matching as cm
 from casmtr_tpu_torch.ops import fine_matching as fm
@@ -56,11 +55,10 @@ class CasMTRRefine(nn.Module):
 
     def __init__(self, config: LoftrConfig):
         super().__init__()
-        if tuple(config.cascade_levels) != (4,):
-            raise NotImplementedError(
-                f"cascade_levels {tuple(config.cascade_levels)}: the refine "
-                "model has one cascade level, (4,)")
-        _check_ported(config)
+        # one cascade stage at 1/4 whatever cascade_levels holds: the JAX
+        # refine model never reads the field
+        if config.coarse2.detector_mode not in (None, "ST", "gumbel"):
+            raise NotImplementedError("detector modes: only ST and gumbel")
         self.config = config
         bb = config.backbone
         rd = tuple(bb.refine_dims)
@@ -70,6 +68,7 @@ class CasMTRRefine(nn.Module):
                                                      config.train_size // 8,
                                                      remat=config.remat)
         if config.training_stage >= 2:
+            check_fine_block(config.fine)
             if bb.no_lst:
                 self.proj4c = nn.Conv2d(bb.block_dims[1], rd[1], 1)
                 self.projf = nn.Conv2d(bb.block_dims[0], rd[0], 1)

@@ -32,6 +32,25 @@ def level_mask(mask_full: Optional[torch.Tensor], h: int, w: int):
     return m.reshape(m.shape[0], -1), m
 
 
+def check_fine_block(fine_cfg) -> None:
+    """Refuse a fine stack that the JAX package cannot build.  Its
+    ``FineConfig`` has no ``topks``, and the quadtree branch of its
+    ``LocalFeatureTransformer`` reads ``cfg.topks``: a fine ``block_type``
+    'quadtree' fails there with AttributeError when the model is
+    initialized, so there is nothing to port (NotImplementedError).  Any
+    value but 'loftr' and 'quadtree' raises ValueError, as the JAX stack
+    does."""
+    block = fine_cfg.block_type
+    if block == "quadtree":
+        raise NotImplementedError(
+            "fine block_type 'quadtree': the JAX package cannot build it "
+            "(its FineConfig has no topks, which the quadtree branch of "
+            "LocalFeatureTransformer reads: AttributeError at init), so "
+            "there is nothing to port")
+    if block != "loftr":
+        raise ValueError(block)
+
+
 class QuadtreeLoFTR(nn.Module):
     """LoFTR with quadtree attention at the backbone's coarsest map
     (``loftr_coarse``; 1/8, or 1/16) and linear attention in the fine
@@ -41,9 +60,7 @@ class QuadtreeLoFTR(nn.Module):
 
     def __init__(self, config):
         super().__init__()
-        if config.fine.block_type != "loftr":
-            raise NotImplementedError(
-                f"fine block {config.fine.block_type!r} is not ported yet")
+        check_fine_block(config.fine)
         self.config = config
         self.backbone = build_backbone(config)
         # the finest map: 1/4 (block_dims[1]) on ResNetFPN_16_4, else 1/2

@@ -30,10 +30,10 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from casmtr_tpu_torch.config import Config, override
 from casmtr_tpu_torch.configs import build_config
+from casmtr_tpu_torch.data.io import resize_f32
 from casmtr_tpu_torch.models import build_model
 from casmtr_tpu_torch.weights import init_random_
 
@@ -185,20 +185,16 @@ class Matcher:
     def _preprocess(self, img: ImageLike):
         """Resize the long side into the bucket (df-divisible), pad
         bottom-right.  Returns (canvas [S, S, 3], mask [S, S] bool, scale [2]
-        original px per model px).  The resize, when one is needed, is
-        torch's bilinear interpolation (align_corners=False), not OpenCV's
-        resampler, so resized inputs differ slightly from the JAX package's
-        cv2-based path."""
+        original px per model px).  The resize, when one is needed, is the
+        host library's ``cv2.resize`` (INTER_LINEAR) of the float32 image,
+        as the JAX package's Matcher calls it (``data/io.resize_f32``)."""
         arr = _to_rgb_array(img)
         h, w = arr.shape[:2]
         s = self.bucket / max(h, w)
         w_new = max(self.df, int(round(w * s)) // self.df * self.df)
         h_new = max(self.df, int(round(h * s)) // self.df * self.df)
         if (h_new, w_new) != (h, w):
-            t = torch.from_numpy(arr).permute(2, 0, 1)[None]
-            t = F.interpolate(t, size=(h_new, w_new), mode="bilinear",
-                              align_corners=False)
-            arr = t[0].permute(1, 2, 0).numpy()
+            arr = resize_f32(arr, (w_new, h_new))
         S = self.bucket
         canvas = np.zeros((S, S, 3), np.float32)
         canvas[:h_new, :w_new] = arr
@@ -298,7 +294,8 @@ class Matcher:
 
     def warmup(self, batch_sizes: Sequence[int] = (1,)) -> None:
         """Pay the first request's costs up front (on the card cuDNN's
-        autotuning and the kernels' build): one dummy batch of a blank
+        autotuning and the kernels' build; the host library's build, since
+        the dummy is resized): one dummy batch of a blank
         half-bucket image pair per batch size, each size rounded up to a
         multiple of the replicas (the only sizes that can run)."""
         dummy = np.zeros((self.bucket // 2, self.bucket // 2, 3), np.float32)

@@ -105,9 +105,16 @@ def compute_supervision(batch: Dict, cfg: LoftrConfig
 def fine_expec_gt(gt: Dict, matches, batch: Dict, cfg: LoftrConfig
                   ) -> torch.Tensor:
     """Fine-level ground-truth offsets [M, 2] of the selected matches,
-    normalized by the window radius at the fine level."""
+    normalized by the window radius at the fine level.  The offsets are
+    read at the last value of ``cascade_levels``, whose grid is the last
+    stage's only for (4,) and (4, 2): elsewhere a match index may lie past
+    that grid, and it is clamped to its end, as the JAX package's gather
+    clamps it."""
     scale = cfg.fine_level if cfg.cascade else cfg.resolution[1]
     radius = cfg.fine_window_size // 2
-    b, i, j = matches.b_ids, matches.i_ids, matches.j_ids
+    w_pt0, pt1 = gt["spv_w_pt0_i"], gt["spv_pt1_i"]
+    b = matches.b_ids
+    i = matches.i_ids.clamp(max=w_pt0.shape[1] - 1)
+    j = matches.j_ids.clamp(max=pt1.shape[1] - 1)
     sc = scale * batch["scale1"][b] if "scale1" in batch else float(scale)
-    return (gt["spv_w_pt0_i"][b, i] - gt["spv_pt1_i"][b, j]) / sc / radius
+    return (w_pt0[b, i] - pt1[b, j]) / sc / radius

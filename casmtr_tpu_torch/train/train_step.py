@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from casmtr_tpu_torch.config import Config, LoftrConfig
+from casmtr_tpu_torch.models.casmtr import STAGES, run_stages
 from casmtr_tpu_torch.models.loftr import level_mask
 from casmtr_tpu_torch.parallel import mesh
 from casmtr_tpu_torch.serving import resolve_device
@@ -80,8 +81,11 @@ def _to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
 
 def prepare_batch(batch: Dict, lcfg: LoftrConfig, dev: torch.device
                   ) -> Tuple[Dict[str, torch.Tensor], Dict]:
-    """``batch`` on ``dev`` with each cascade level's ground truth
-    (gt_idx_{level}c, gt_mask_{level}c) added, and the supervision."""
+    """``batch`` on ``dev`` with the ground truth of each value of
+    ``cascade_levels`` (gt_idx_{value}c, gt_mask_{value}c) added, as the
+    JAX step adds it (a cascade stage reads its own name's, so with other
+    values than (4,) or (4, 2) a stage may find none), and the
+    supervision."""
     batch = _to_device(batch, dev)
     gt = spv.compute_supervision(batch, lcfg)
     if lcfg.cascade:
@@ -93,21 +97,24 @@ def prepare_batch(batch: Dict, lcfg: LoftrConfig, dev: torch.device
 
 def detector_uniforms(lcfg: LoftrConfig, batch: Dict[str, torch.Tensor],
                       seed: int, step: int) -> Dict[str, torch.Tensor]:
-    """The gumbel detector's draws of one step: for each cascade level whose
-    ``detector_mode`` is gumbel, ``sample_uniform_{level}c`` [B, cells,
-    g*g] uniform in [1e-9, 1) (the JAX package's range), from a generator
-    on the batch's device seeded from (``seed``, ``step``).  The JAX
-    package draws from its own PRNG, so the two streams differ; the model
-    takes the draw from the batch, so a test can feed both the same.
-    Inside ``parallel.mesh.global_batch()`` the draw is the global batch's
-    (``world`` times the rows) and this rank keeps its rows of it."""
+    """The gumbel detector's draws of one step: for each cascade stage
+    (``models.casmtr.STAGES``, by position: 1/4, then 1/2) whose
+    ``detector_mode`` is gumbel, ``sample_uniform_{name}`` [B, cells, g*g]
+    at the stage's grid, uniform in [1e-9, 1) (the JAX package's range),
+    from a generator on the batch's device seeded from (``seed``, ``step``,
+    the stage's grid factor).  The JAX package draws from its own PRNG, so
+    the two streams differ; the model takes the draw from the batch, so a
+    test can feed both the same.  Inside ``parallel.mesh.global_batch()``
+    the draw is the global batch's (``world`` times the rows) and this rank
+    keeps its rows of it."""
     if not lcfg.cascade:
         return {}
     B, H, W = batch["image0"].shape[:3]
     dev = batch["image0"].device
     world = 1 if mesh.batch_group() is None else mesh.world_size()
     out = {}
-    for level, scfg in zip(lcfg.cascade_levels, (lcfg.coarse2, lcfg.coarse3)):
+    for (level, name), scfg in zip(STAGES[:run_stages(lcfg)],
+                                   (lcfg.coarse2, lcfg.coarse3)):
         if scfg.detector_mode != "gumbel":
             continue
         g = scfg.grid_size or 4
@@ -117,7 +124,7 @@ def detector_uniforms(lcfg: LoftrConfig, batch: Dict[str, torch.Tensor],
                         g * g), generator=gen, device=dev)
         if world > 1:
             u = mesh.shard_rows({"u": u})["u"]
-        out[f"sample_uniform_{level}c"] = 1e-9 + (1.0 - 1e-9) * u
+        out[f"sample_uniform_{name}"] = 1e-9 + (1.0 - 1e-9) * u
     return out
 
 
@@ -126,7 +133,7 @@ def forward_loss(model: nn.Module, batch: Dict[str, torch.Tensor], gt: Dict,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The forward of ``model`` (in its current mode) on a batch from
     ``prepare_batch`` and the loss: (total, its named terms with each
-    cascade level's valid_n_{level})."""
+    cascade stage's valid_n_{name})."""
     out = model(batch)
     expec_gt = None
     if out.fine is not None:
@@ -157,9 +164,10 @@ def _summed(scalars: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
 def make_train_step(model: nn.Module, cfg: Config, tx: AdamW, device=None
                     ) -> Callable:
     """Returns step_fn(state, batch) -> (state, scalars), scalars being the
-    0-dim tensors loss, loss_8c, loss_f, grad_norm, and loss_{level} and
-    valid_n_{level} for each cascade level (4c; 4c and 2c for CasMTR-2c),
-    and loss_{level}_det for a level with a keypoint detector.  A gumbel
+    0-dim tensors loss, loss_8c, loss_f, grad_norm, valid_n_{name} for
+    each cascade stage (4c; 4c and 2c for CasMTR-2c), and loss_{name} for
+    each stage that found its ground truth (every stage of (4,) and (4,
+    2)), with loss_{name}_det for a stage with a keypoint detector.  A gumbel
     detector draws its noise from ``detector_uniforms`` of the trainer's
     seed and the step.
 

@@ -22,7 +22,8 @@ lines and its seconds:
 
 1. Environment: the card's name and power limit (nvidia-smi), the torch,
    CUDA and numpy versions (utils/metrics.error_auc needs numpy 2's
-   trapezoid), and the build of the CUDA kernels from csrc/ with nvcc.
+   trapezoid), the build of the CUDA kernels from csrc/ with nvcc, and
+   of the host library from csrc/host/ with c++ (the Matcher's resize).
 2. Kernels: each CUDA kernel of the serving path against its plain PyTorch
    version on the card, at the shapes of the 832^2 eval with realistic
    indices (a real top-k, real window corners), in float32 with TF32 off:
@@ -91,7 +92,8 @@ lines and its seconds:
    indoor recipe's 640^2 step (80^2, 40^2), and B and B-bwd at 160^2.
 4. Serving: Matcher(recipe, bucket=832) at full width on the card with
    seeded random weights answers three requests (textured images and
-   shifted copies, one non-square), for 4c and then 2c, first in the
+   shifted copies, one non-square, one resized by the host library's
+   cv2.resize rule), for 4c and then 2c, first in the
    card's eval default (bf16 backbone and stacks, bf16 kernel inputs), then
    with CASMTR_BACKBONE_BF16=0 CASMTR_TRANSFORMER_BF16=0 (float32), from
    the same weights.  The kernels' launch counts are zeroed just before
@@ -382,6 +384,25 @@ lines and its seconds:
    (c) phase 6's serving reference and phase 8's training reference at
    256^2 as quadtree_baseline takes them (the whole step printed, the
    backbone gated).
+19. Other cascade_levels tuples (run after phase 7, on phase 4's weights
+   and request and phase 7's seeded weights and batch): the stages run by position
+   (1/4, then 1/2) whatever the tuple's values, as in the JAX package.
+   (a) 4c built at cascade_levels (8,) and 2c at (2, 4) against 4c at
+   (4,) and 2c at (4, 2), all with every match threshold at 0 and phase
+   4's weights (seeded as phase 4's: checked equal), bf16, on phase 4's
+   resized request: the same match set, keypoints and confidences within
+   1e-6, the same launches per pair.  (b) one bf16
+   step at 704^2 of 4c at (8,) and of 2c at (4, 4) from phase 7's seeded
+   weights on its batch: the loss terms of phase 7's first step but
+   loss_4c / loss_2c (the stage finds no ground truth under its key),
+   loss_8c within 1e-6 relative of phase 7's, the forward kernels'
+   launches equal to the standard tuple's per-step counts, each backward
+   kernel's at most them (printed side by side).  (c) the resized request
+   (a 768^2 image up to 832^2) through (a)'s 4c Matcher at (4,): its
+   canvas against data/io.resize_f32_plain (numpy) within 1e-6 on the
+   host, and the resize's ms by the host library, numpy and torch's
+   bilinear interpolation (the Matcher's old path); the request's own ms
+   is phase 4's.
 
 The line before the last is one JSON object {"kernels": [...]}; the last line
 is {"ok": true, "device": {...}}.  Exits non-zero, without those lines, when
@@ -2832,8 +2853,7 @@ def training_phase(torch, name, prec, steps=3, first=None):
         f"{dts[1]}, kernel inputs {dts[2]}")
     check(dts == ((bf, f32, bf) if prec == "bf16" else (f32, f32, f32)),
           f"training: {recipe}: step dtypes {dts}")
-    levels = ([f"{lvl}c" for lvl in model.config.cascade_levels]
-              if model.config.cascade else [])
+    levels = stage_names(model.config)
     expected = (LAUNCHES_PER_TRAIN_STEP if prec == "bf16"
                 else LAUNCHES_PER_TRAIN_STEP_F32)[name]
     n_params = sum(p.numel() for p in model.parameters())
@@ -3154,10 +3174,10 @@ def cascade_stack_reference(torch, name, base, size):
     stack's kernel-path q/k/v projections (see BF16_STACK_RTOL)."""
     from casmtr_tpu_torch.train.train_step import (forward_loss,
                                                    prepare_batch)
-    levels = base.config.cascade_levels
+    levels = stage_names(base.config)
     grab = {}
     model = copy.deepcopy(base).train()
-    hooks = [getattr(model, f"loftr_coarse_{lvl}c").register_forward_pre_hook(
+    hooks = [getattr(model, f"loftr_coarse_{lvl}").register_forward_pre_hook(
         lambda m, args, lvl=lvl: grab.update({lvl: args}))
         for lvl in levels]
     with precision("f32"), torch.no_grad():
@@ -3167,7 +3187,7 @@ def cascade_stack_reference(torch, name, base, size):
     for h in hooks:
         h.remove()
     for lvl in levels:
-        stack = f"loftr_coarse_{lvl}c"
+        stack = f"loftr_coarse_{lvl}"
         watch = [n.split(".", 1)[1] for n in kernel_grad_params(base)
                  if n.startswith(stack + ".")]
         res = {}
@@ -4481,7 +4501,8 @@ def median_ms(fn, *args, reps=IO_REPS):
 
 def decode_phase(torch, tmp):
     """Phase 13(a): the host library built from csrc/host/ with c++ (its
-    seconds printed); every entry of the fixtures' manifest decoded and
+    seconds printed; in a whole run ``main`` built it in phase 1); every
+    entry of the fixtures' manifest decoded and
     held bit-equal to cv2.imread's or h5py's result (its sha256), the
     progressive JPEGs among them (an entry marked "refused" must raise
     ValueError naming the file and the words it holds); the
@@ -6483,6 +6504,179 @@ def coarse16_phase(torch, smi, serve_runs, train_runs):
               name)
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: other cascade_levels tuples
+# ---------------------------------------------------------------------------
+
+# per recipe: the tuple served and the tuple trained, and the loss term the
+# trained tuple drops (its stage finds no ground truth under its own key)
+LEVELS_SERVED = {"outdoor_casmtr_4c": [8], "outdoor_casmtr_2c": [2, 4]}
+LEVELS_TRAINED = {"outdoor_casmtr_4c": ([8], "loss_4c"),
+                  "outdoor_casmtr_2c": ([4, 4], "loss_2c")}
+LEVELS_TOL = 1e-6    # keypoints, confidences and loss_8c (relative)
+RESIZE_TOL = 1e-6    # the Matcher's resize against its numpy oracle
+
+
+def stage_names(cfg):
+    """The cascade stages that ``cfg`` builds and runs, by name: 4c, then
+    2c, by position whatever the values of cascade_levels
+    (models/casmtr.py)."""
+    from casmtr_tpu_torch.models.casmtr import STAGES, run_stages
+    return [n for _, n in STAGES[:run_stages(cfg)]] if cfg.cascade else []
+
+
+def ordered(res):
+    """A MatchResult's keypoints and confidences, lexsorted by keypoints."""
+    kp = np.concatenate([res.mkpts0, res.mkpts1], 1)
+    o = np.lexsort(kp.T[::-1])
+    return kp[o], res.mconf[o]
+
+
+def levels_serving(torch, name, sd, req, smi):
+    """(a): MODELS[name] at its own tuple and at LEVELS_SERVED[name], both
+    with every match threshold at 0 (zero_threshold_overrides, so every
+    stage yields matches) and phase 4's weights (seeded as there, checked
+    equal to ``sd``, phase 4's state dict on the host), on request ``req``
+    in bf16 at threshold 0.  Returns the Matcher at its own tuple."""
+    from casmtr_tpu_torch.ops import kernels
+    levels = LEVELS_SERVED[name]
+    out = {}
+    for key in ("standard", str(levels)):
+        overrides = zero_threshold_overrides(name)
+        if key != "standard":
+            overrides["loftr"]["cascade_levels"] = levels
+        m = matcher_for(name, bucket=BUCKET[name], seed=0, thr=0.0,
+                        overrides=overrides)
+        msd = m.model.state_dict()
+        check(sd.keys() == msd.keys()
+              and all(torch.equal(sd[k], msd[k].cpu()) for k in sd),
+              f"cascade levels: {name} {key}: weights differ from phase 4's")
+        label, img0, img1 = req
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = m.match(img0, img1)
+        torch.cuda.synchronize()
+        out[key] = (ordered(res), dict(kernels.LAUNCHES),
+                    (time.perf_counter() - t0) * 1e3,
+                    tuple(m.model.config.cascade_levels))
+        if key == "standard":
+            standard = m
+        del m
+    (kp, conf), counts, ms, own = out["standard"]
+    (okp, oconf), ocounts, oms, _ = out[str(levels)]
+    same = kp.shape == okp.shape and kp.shape[0] > 0
+    kp_err = float(np.abs(kp - okp).max()) if same else float("inf")
+    conf_err = float(np.abs(conf - oconf).max()) if same else float("inf")
+    log(f"cascade levels: serving {name} at {levels} against {own}, bf16, "
+        f"every threshold 0, {label}: {okp.shape[0]} / {kp.shape[0]} "
+        f"matches, keypoints {kp_err:.2e} px, confidences {conf_err:.2e} "
+        f"(tol {LEVELS_TOL:g}); {oms:.1f} / {ms:.1f} ms; launches "
+        f"{ocounts} / {counts} ({smi})")
+    check(same and kp_err <= LEVELS_TOL and conf_err <= LEVELS_TOL,
+          f"cascade levels: {name} at {levels} answers another match set")
+    check(ocounts == counts == LAUNCHES_PER_PAIR[name],
+          f"cascade levels: {name} at {levels} launches {ocounts}, "
+          f"expected {counts}")
+    torch.cuda.empty_cache()
+    return standard
+
+
+def levels_training(torch, name, first, smi):
+    """(b): one bf16 step of MODELS[name] at LEVELS_TRAINED[name] from
+    phase 7's seeded weights on its batch, against phase 7's first step
+    (``first``, remat on as here)."""
+    from casmtr_tpu_torch.ops import kernels
+    levels, dropped = LEVELS_TRAINED[name]
+    size = TRAIN_SIZES[name]
+    model, state, step = build_trainer(torch, name, size,
+                                       cascade_levels=levels)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, scalars = step(state, train_batch(size, 0))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.LAUNCHES)
+    got = {k: float(v) for k, v in scalars.items()}
+    want = first["scalars"]
+    rel = abs(got["loss_8c"] / want["loss_8c"] - 1)
+    log(f"cascade levels: training {name} at {levels}, bf16 {size}^2, one "
+        f"step {secs:.2f} s: " + ", ".join(
+            f"{k} {got[k]:.6g} / {want[k]:.6g}" if k in got
+            else f"{k} - / {want[k]:.6g}" for k in sorted(want))
+        + f"; loss_8c relative difference {rel:.2e} (tol {LEVELS_TOL:g}) "
+        f"({smi})")
+    expected = LAUNCHES_PER_TRAIN_STEP[name]
+    log(f"cascade levels: training {name} launches per step at {levels} / "
+        "standard: " + ", ".join(f"{k} {counts[k]} / {expected[k]}"
+                                 for k in sorted(expected)))
+    check(set(got) == set(want) - {dropped},
+          f"cascade levels: {name} at {levels} loss keys {sorted(got)}, "
+          f"expected {sorted(set(want) - {dropped})}")
+    check(all(np.isfinite(v) for v in got.values()),
+          f"cascade levels: {name} at {levels}: non-finite scalars")
+    check(rel <= LEVELS_TOL, f"cascade levels: {name} at {levels}: loss_8c "
+          f"{got['loss_8c']} against {want['loss_8c']}")
+    for k, v in expected.items():
+        if k.endswith("_bwd") or k.endswith("_bwd_bf16"):
+            check(counts[k] <= v, f"cascade levels: {name} {k} {counts[k]}"
+                  f" > {v}")
+        else:
+            check(counts[k] == v, f"cascade levels: {name} forward kernel "
+                  f"{k} {counts[k]}, expected {v}")
+    del model, state, step
+    torch.cuda.empty_cache()
+
+
+def old_resize(torch, arr, wh):
+    """The Matcher's resize before it took the host library: torch's
+    bilinear interpolation (align_corners False) on the CPU."""
+    t = torch.from_numpy(arr).permute(2, 0, 1)[None]
+    t = torch.nn.functional.interpolate(t, size=(wh[1], wh[0]),
+                                        mode="bilinear",
+                                        align_corners=False)
+    return t[0].permute(1, 2, 0).numpy()
+
+
+def resize_check(torch, matcher, req, smi):
+    """(c): the resized image of ``req`` through the Matcher's resize (the
+    host library) against its numpy oracle, and the resize timed three
+    ways."""
+    from casmtr_tpu_torch import serving
+    from casmtr_tpu_torch.data import io
+    label, _, img1 = req
+    arr = serving._to_rgb_array(img1)
+    canvas, mask, _ = matcher._preprocess(img1)
+    wh = (int(mask.any(0).sum()), int(mask.any(1).sum()))
+    check(wh != arr.shape[1::-1], f"resize: {label} is not resized")
+    want = io.resize_f32_plain(arr, wh)
+    err = float(np.abs(canvas[:wh[1], :wh[0]] - want).max())
+    ms = {n: median_ms(fn, arr, wh, reps=5) for n, fn in (
+        ("host library", io.resize_f32), ("numpy", io.resize_f32_plain),
+        ("torch bilinear (old)", functools.partial(old_resize, torch)))}
+    log(f"resize: {label}, {arr.shape[1]}x{arr.shape[0]} -> {wh[0]}x"
+        f"{wh[1]}: the Matcher's canvas against resize_f32_plain "
+        f"{err:.2e} (tol {RESIZE_TOL:g}); resize ms " + ", ".join(
+            f"{n} {v:.3f}" for n, v in ms.items()) + f" ({smi})")
+    check(err <= RESIZE_TOL, "resize: the Matcher's canvas is off the "
+          "numpy oracle")
+
+
+def cascade_levels_phase(torch, smi, served, firsts):
+    """Phase 19 on phase 4's state dicts and requests ({recipe: (state
+    dict on the host, request)}) and phase 7's first bf16 steps ({recipe:
+    first})."""
+    for name in RECIPES:
+        sd, req = served[name]
+        matcher = levels_serving(torch, name, sd, req, smi)
+        if name == "outdoor_casmtr_4c":
+            resize_check(torch, matcher, req, smi)
+        del matcher
+        torch.cuda.empty_cache()
+        levels_training(torch, name, firsts[name], smi)
+
+
 def timed(name, fn, *args):
     t0 = time.perf_counter()
     out = fn(*args)
@@ -6497,6 +6691,7 @@ def main(argv):
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     import casmtr_tpu_torch  # noqa: F401  (fails outside the repository)
+    from casmtr_tpu_torch.data import host
     from casmtr_tpu_torch.ops import kernels
     if argv[:1] == ["--first-request"]:   # phase 10's fresh-process probe
         return first_request_probe(argv[1], argv[2] == "--warm")
@@ -6515,25 +6710,42 @@ def main(argv):
     log(smi_line())
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, numpy {np.__version__}, device "
-        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}; "
+        f"host: {len(os.sched_getaffinity(0))} CPUs for this process, "
+        f"torch uses {torch.get_num_threads()} threads")
+    # the host library too, while nvcc runs: the Matcher's resize calls it,
+    # and a build at a phase's first resized request would count in that
+    # request's time
+    from concurrent.futures import ThreadPoolExecutor
     t0 = time.perf_counter()
-    kernels.lib(fresh=True)
+    with ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(host.lib, True)
+        kernels.lib(fresh=True)
+        t_kernels = time.perf_counter() - t0
+        host_build.result()
     log(f"build: nvcc {' '.join(kernels.NVCC_FLAGS)} of "
         f"{len(kernels.SOURCES)} sources, {kernels.build_seconds:.1f} s "
-        f"(load {time.perf_counter() - t0:.1f} s)")
+        f"(load {t_kernels:.1f} s)")
     for line in kernels.build_log().splitlines():
         if "Used" in line or "entry function" in line or "spill" in line:
             log(f"build: {line.strip()}")
+    log(f"build: c++ {' '.join(host.CXX_FLAGS)} of {len(host.SOURCES)} "
+        f"host sources, {host.build_seconds:.1f} s, beside nvcc (both "
+        f"loaded {time.perf_counter() - t0:.1f} s)")
 
     rows = timed("kernels", kernel_phase, torch)
     train_rows = timed("training kernels", train_kernel_phase, torch)
     timed("finite difference", finite_difference_phase, torch)
     serve_runs = {}
+    served = {}     # phase 4's weights (on the host) and request, for 19
     for recipe in BASE_MODELS:
         # the ResNetFPN variant in the card's default only
         precs = ("bf16",) if recipe == RESNET else ("bf16", "f32")
         serve_runs[recipe], matcher, request = timed(
             f"serving {recipe}", serving_phase, torch, recipe, precs)
+        if recipe in RECIPES:
+            served[recipe] = ({k: v.cpu() for k, v in
+                               matcher.model.state_dict().items()}, request)
         # one request in the card's default (bf16) of each model but the
         # ResNetFPN variant
         if recipe != RESNET:
@@ -6565,6 +6777,9 @@ def main(argv):
                           step, state, batch, statistics.median(times))
             del step, state
             torch.cuda.empty_cache()
+    timed("cascade levels", cascade_levels_phase, torch, smi_line(), served,
+          remat_on)
+    del served
     for recipe in BASE_MODELS:
         timed(f"training reference {recipe}", train_reference_phase, torch,
               recipe)

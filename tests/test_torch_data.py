@@ -17,8 +17,12 @@ and the committed fixtures of scripts/make_port_io_fixtures.py):
 * ``MultiSceneDataModule``: the same splits, the same batches from the
   training loader (its sampler) and the evaluation loader, and the same
   warnings for missing and empty scenes;
-* the resizes refuse what the host library cannot take (not uint8, not
-  [h, w] or [h, w, c], empty, a canvas smaller than the output).
+* the float32 resize of the serving Matcher (``resize_f32``, the host
+  library, and its numpy oracle ``resize_f32_plain``) against
+  ``cv2.resize`` within 1e-6 (bit-equal here);
+* the resizes refuse what the host library cannot take (not uint8 or not
+  float32, not [h, w] or [h, w, c], empty, a canvas smaller than the
+  output).
 """
 
 import os
@@ -292,6 +296,52 @@ def test_multi_scene_data_module_warnings(tmp_path):
     with pytest.raises(FileNotFoundError, match="no scene npz"):
         MultiSceneDataModule(port_override(build_config(
             "outdoor_casmtr_4c"), ov)).train_dataset()
+
+
+# (source h, w) -> (h, w): the serving Matcher's downscales into bucket 832,
+# two upscales and an exact 2x reduction
+F32_RESIZES = {"800x1200 -> 512x832": ((800, 1200), (512, 832)),
+               "1000x1500 -> 512x832": ((1000, 1500), (512, 832)),
+               "480x640 -> 704x928": ((480, 640), (704, 928)),
+               "333x517 -> 512x800": ((333, 517), (512, 800)),
+               "256x384 -> 128x192": ((256, 384), (128, 192))}
+F32_RESIZE_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("case", list(F32_RESIZES))
+def test_resize_f32_against_cv2(case):
+    """The float32 resize of the serving Matcher (the host library) and its
+    numpy oracle against ``cv2.resize`` (INTER_LINEAR), as the JAX Matcher
+    calls it on float32 RGB images, within 1e-6 (bit-equal here); gray
+    images too."""
+    (h, w), (h_new, w_new) = F32_RESIZES[case]
+    rng = np.random.default_rng(h + w)
+    img = rng.random((h, w, 3), dtype=np.float32)
+    for src in (img, np.ascontiguousarray(img[..., 1])):
+        want = cv2.resize(src, (w_new, h_new))
+        for fn in (tio.resize_f32, tio.resize_f32_plain):
+            got = fn(src, (w_new, h_new))
+            assert got.dtype == np.float32 and got.shape == want.shape
+            np.testing.assert_allclose(got, want, rtol=0,
+                                       atol=F32_RESIZE_ATOL,
+                                       err_msg=fn.__name__)
+
+
+def test_resize_f32_refuses_what_the_host_library_cannot_take():
+    for bad in (np.zeros((8, 8, 3), np.uint8), np.zeros((1, 1, 8, 8),
+                                                        np.float32),
+                np.zeros((0, 8), np.float32)):
+        with pytest.raises(ValueError, match="float32"):
+            tio.resize_f32(bad, (4, 4))
+    with pytest.raises(ValueError, match="resize to"):
+        tio.resize_f32(np.zeros((8, 8), np.float32), (4, 0))
+    # a non-contiguous view is read as the array it shows; the same size
+    # is a copy
+    src = np.arange(192, dtype=np.float32).reshape(8, 8, 3)
+    assert np.array_equal(tio.resize_f32(src[:, ::-1], (8, 8)), src[:, ::-1])
+    np.testing.assert_allclose(tio.resize_f32(src[:, ::-1], (4, 4)),
+                               cv2.resize(src[:, ::-1].copy(), (4, 4)),
+                               rtol=0, atol=F32_RESIZE_ATOL)
 
 
 def test_resizes_refuse_what_the_host_library_cannot_take():

@@ -2,7 +2,8 @@
 to end on the CPU with the same weights: the tiny 4c configuration (full
 wiring, Twins backbone at its smallest preset) with match thresholds at 0,
 so every stage yields matches.  Then the port's ``Matcher`` against the JAX
-``Matcher`` on two requests, one of them padded (mask on the path).
+``Matcher`` on three requests, one of them padded (mask on the path) and
+one resized and padded.
 
 Tolerances: the match sets are equal; keypoints within 1e-3 px and
 confidences within 1e-4 (float32 through a deep stack, summed in another
@@ -99,10 +100,15 @@ def test_casmtr_4c_eval_forward_matches_jax():
 
 
 def test_matcher_answers_like_jax_matcher():
-    """Two requests through both Matchers with the same weights: a square
-    image pair, and a 128x64 pair that the 128 bucket pads (masks on the
-    path).  Sizes are df-divisible with the long side at the bucket, so no
-    resize happens on either side."""
+    """Three requests through both Matchers with the same weights: a square
+    image pair, a 128x64 pair that the 128 bucket pads (masks on the path),
+    and a 100x150 pair that both resize to 64x128 (the JAX Matcher with
+    cv2.resize, the port with its host library) before padding.  The
+    canvases each Matcher feeds its model agree within 1e-6 (masks and
+    scales exactly).  At this bucket torch's bilinear resize, which the
+    port took before, also comes within 1.2e-7 of cv2.resize (its error
+    grows with the output's size): tests/test_torch_data.py holds the
+    resize against cv2 at serving sizes."""
     from casmtr_tpu.serving import Matcher as JaxMatcher
     from casmtr_tpu_torch.serving import Matcher
     from casmtr_tpu_torch.weights import load_jax_variables
@@ -117,7 +123,14 @@ def test_matcher_answers_like_jax_matcher():
     rng = np.random.default_rng(1)
     a0, a1 = _images(rng, 1, 128, 128)
     b0, b1 = _images(rng, 1, 128, 64)
-    for img0, img1 in ((a0[0], a1[0]), (b0[0], b1[0])):
+    c0, c1 = _images(rng, 1, 100, 150)
+    for img0, img1 in ((a0[0], a1[0]), (b0[0], b1[0]), (c0[0], c1[0])):
+        for img in (img0, img1):
+            got_in, want_in = tmatch._preprocess(img), jmatch._preprocess(img)
+            np.testing.assert_allclose(got_in[0], want_in[0], rtol=0,
+                                       atol=1e-6)
+            np.testing.assert_array_equal(got_in[1], want_in[1])
+            np.testing.assert_array_equal(got_in[2], want_in[2])
         want = jmatch.match(img0, img1)
         got = tmatch.match(img0, img1)
         assert len(want.mconf) > 0
